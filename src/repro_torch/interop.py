@@ -1,0 +1,62 @@
+"""Plain-numpy constructors for the port's inputs.
+
+This system has no weights: its inputs are jobs, policies and markets. These
+constructors build the port's objects from plain arrays and tuples, so a
+caller holding another implementation's inputs (exported as numpy) feeds the
+port the same data.
+"""
+
+from __future__ import annotations
+
+from typing import Iterable, Sequence
+
+import numpy as np
+
+from repro_torch.core.market import SLOTS_PER_UNIT, SpotMarket
+from repro_torch.core.scheduler import Policy
+from repro_torch.core.types import ChainJob, chain_from_arrays
+
+__all__ = ["chain_jobs_from_arrays", "markets_from_prices",
+           "policies_from_tuples", "chain_jobs_to_arrays"]
+
+
+def chain_jobs_from_arrays(arrival: Sequence[float],
+                           deadline: Sequence[float],
+                           z: Sequence[Sequence[float]],
+                           delta: Sequence[Sequence[float]]) -> list[ChainJob]:
+    """Chain jobs from per-job arrival/deadline and per-task work (z) and
+    parallelism (delta) rows (ragged: one row per job)."""
+    if not len(arrival) == len(deadline) == len(z) == len(delta):
+        raise ValueError("arrival, deadline, z and delta need one entry per job")
+    return [chain_from_arrays(a, d, zj, dj)
+            for a, d, zj, dj in zip(arrival, deadline, z, delta)]
+
+
+def chain_jobs_to_arrays(jobs) -> tuple[np.ndarray, np.ndarray, list, list]:
+    """(arrival, deadline, z rows, delta rows) of any chain-job objects with
+    ``arrival``/``deadline``/``tasks[i].z``/``tasks[i].delta`` fields."""
+    return (np.array([j.arrival for j in jobs]),
+            np.array([j.deadline for j in jobs]),
+            [np.array([t.z for t in j.tasks]) for j in jobs],
+            [np.array([t.delta for t in j.tasks]) for j in jobs])
+
+
+def markets_from_prices(prices, slot: float = 1.0 / SLOTS_PER_UNIT,
+                        p_ondemand: float = 1.0) -> list[SpotMarket]:
+    """One market per per-slot price row of ``prices`` ((S, n_slots) or a
+    single (n_slots,) row), on a slot grid of length ``slot``."""
+    spu = int(round(1.0 / slot))
+    if abs(spu * slot - 1.0) > 1e-12:
+        raise ValueError(f"slot {slot} must divide one time unit")
+    rows = np.atleast_2d(np.asarray(prices, dtype=np.float64))
+    return [SpotMarket.from_prices(row, slots_per_unit=spu,
+                                   p_ondemand=p_ondemand) for row in rows]
+
+
+def policies_from_tuples(
+        tuples: Iterable[tuple[float, float] | tuple[float, float, float | None]]
+) -> list[Policy]:
+    """Policies from (beta, bid) or (beta, bid, beta0) tuples."""
+    return [Policy(float(t[0]), float(t[1]),
+                   None if len(t) < 3 or t[2] is None else float(t[2]))
+            for t in tuples]

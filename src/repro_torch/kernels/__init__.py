@@ -1,0 +1,23 @@
+"""Hand-written CUDA kernels of the port, each beside its plain PyTorch
+version.
+
+* ``policy_cost.policy_cost_chain`` — early-start chain costs over a
+  (bid x scenario x row) sweep (``csrc/policy_cost.cu``);
+* ``policy_cost.policy_cost`` — planned-start task costs, scenarios as a
+  grid dimension (``csrc/policy_cost.cu``);
+* ``weight_update.hedge_replay`` — the Hedge weight-update replay
+  (``csrc/hedge_replay.cu``).
+
+A wrapper given CPU tensors computes its plain version; given CUDA tensors
+it launches its kernel or raises. ``LAUNCHES`` counts kernel launches by
+wrapper name (plain-version calls do not count), so a run can show which
+kernels its path went through.
+"""
+
+from __future__ import annotations
+
+import collections
+
+__all__ = ["LAUNCHES"]
+
+LAUNCHES: collections.Counter = collections.Counter()

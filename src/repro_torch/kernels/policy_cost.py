@@ -1,0 +1,274 @@
+"""Closed-form task costs over a realized market: the engine's two cost
+kernels and their plain PyTorch versions.
+
+Replaces the TPU kernels ``repro/kernels/policy_cost.py::policy_cost_chain``
+(``_chain_kernel``) and ``::policy_cost`` (``_kernel``). Each task is the
+closed form of ``core/simulate.py`` against one (bid, scenario)'s cumulative
+arrays A (availability), C (spot payment) and H = k*slot - A: interpolate A
+and C at the start, invert H for the turning time and A for the spot-alone
+finish, apply the flexibility epsilon, interpolate again at the end.
+
+On the H100 (``csrc/policy_cost.cu``): one thread per (bid, scenario, row)
+for chains — the L-window recurrence runs inside the thread, carrying the
+realized start — and one thread per (scenario, task) for planned starts.
+What bounds it: the plan tensors are read once (bytes), but each task does
+four dependent binary searches and eight point loads into the A/C/H arrays;
+those arrays (about 400 KB per (bid, scenario) at 33k slots) stay resident
+in the 50 MB L2, so the searches cost L2 latency, not device-memory bytes.
+The design answers that with occupancy: many independent rows in flight per
+SM hide the latency of each search. The TPU's comparison counts over
+2048-slot chunks and one-hot matmul gathers become ``lower_bound`` searches
+and direct loads. Plans are passed window-major ((B, Sp, L, R)) so a warp's
+loads of one window are coalesced; scenario-shared plans are read through a
+scenario stride of 0.
+
+Semantics (kernel and plain version alike, as in ``_chain_kernel``): a
+position is ``lower_bound`` over the n+1 unpadded entries (``torch.
+searchsorted(side="left")``); a position past n means +inf, and an A
+target <= 0 means t = 0. H is precomputed in f32 by ``h_cum`` for both.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from repro_torch.core.simulate import _WORK_EPS, FLEX_ABS, FLEX_REL
+from repro_torch.device import kernel_library
+from repro_torch.kernels import LAUNCHES
+
+__all__ = ["policy_cost_chain", "policy_cost_chain_plain", "policy_cost",
+           "policy_cost_plain", "h_cum", "OUT_KEYS"]
+
+OUT_KEYS = ("spot_cost", "ondemand_cost", "spot_work", "ondemand_work")
+_F32 = torch.float32
+
+
+def h_cum(A: torch.Tensor, slot: float) -> torch.Tensor:
+    """H = k * slot - A in f32 (non-decreasing up to an f32 ulp)."""
+    return torch.arange(A.shape[-1], dtype=_F32, device=A.device) * slot - A
+
+
+def inverse_slot(slot: float) -> float:
+    """1/slot rounded to float32. The reference's programs divide by the
+    slot constant, which XLA compiles to a multiply by this reciprocal;
+    the kernels and the plain versions multiply by it too."""
+    return float(np.float32(1.0) / np.float32(slot))
+
+
+def _interp(cum, k, frac, inv_slot):
+    c0 = torch.gather(cum, -1, k)
+    c1 = torch.gather(cum, -1, k + 1)
+    return c0 + (c1 - c0) * inv_slot * frac
+
+
+def _closed_form(A, C, H, start, end, z_t, d_eff, slot, p_od):
+    """Per-task closed form; A/C/H (..., n+1), task arrays (..., T) with the
+    same leading dims. Returns (spot_cost, ondemand_cost, spot_work,
+    ondemand_work, finish)."""
+    n = A.shape[-1] - 1
+    inv_slot = inverse_slot(slot)
+    inf = torch.tensor(float("inf"), dtype=_F32, device=A.device)
+    zero = torch.zeros((), dtype=_F32, device=A.device)
+    need = z_t / torch.where(d_eff > 0, d_eff, torch.ones_like(d_eff))
+    k0 = (start * inv_slot).to(torch.int64).clamp(0, n - 1)
+    frac = start - k0.to(_F32) * slot
+    A0 = _interp(A, k0, frac, inv_slot)
+    C0 = _interp(C, k0, frac, inv_slot)
+    H0 = start - A0
+    h_target = H0 + (end - start) - need
+    a_target = A0 + need
+    cnt_h = torch.searchsorted(H, h_target.contiguous(), side="left")
+    cnt_a = torch.searchsorted(A, a_target.contiguous(), side="left")
+    i_h = cnt_h.clamp(1, n)
+    i_a = cnt_a.clamp(1, n)
+    h_prev = torch.gather(H, -1, i_h - 1)
+    a_prev = torch.gather(A, -1, i_a - 1)
+    no_flex = (end - start) - need <= torch.maximum(
+        FLEX_REL * (end - start), FLEX_ABS * end).clamp_min(_WORK_EPS)
+    t_turn = (i_h - 1).to(_F32) * slot + (h_target - h_prev)
+    t_turn = torch.where(no_flex, start, t_turn)
+    t_turn = torch.where((cnt_h > n) & ~no_flex, inf, t_turn)
+    t_fin = (i_a - 1).to(_F32) * slot + (a_target - a_prev)
+    t_fin = torch.where(a_target <= 0.0, zero, t_fin)
+    t_fin = torch.where(cnt_a > n, inf, t_fin)
+    on_spot = t_fin <= t_turn
+    t_end = torch.minimum(torch.where(on_spot, t_fin, t_turn), end)
+    ke = (t_end * inv_slot).to(torch.int64).clamp(0, n - 1)
+    frace = t_end - ke.to(_F32) * slot
+    A_end = _interp(A, ke, frace, inv_slot)
+    C_end = _interp(C, ke, frace, inv_slot)
+    active = z_t > _WORK_EPS
+    spot_work = torch.minimum(d_eff * (A_end - A0).clamp_min(0.0), z_t)
+    spot_cost = d_eff * (C_end - C0).clamp_min(0.0)
+    od_work = z_t - spot_work
+    return (torch.where(active, spot_cost, zero),
+            torch.where(active, p_od * od_work, zero),
+            torch.where(active, spot_work, zero),
+            torch.where(active, od_work, zero),
+            torch.where(active, torch.where(on_spot, t_fin, end), start))
+
+
+def _per_scenario(a: torch.Tensor) -> torch.Tensor:
+    """(B, R, L) shared plans -> (B, 1, R, L); (B, S, R, L) passes."""
+    return a.unsqueeze(1) if a.dim() == 3 else a
+
+
+def policy_cost_chain_plain(A, C, arrival, ends, z_t, d_eff, pins, *,
+                            slot: float = 1.0 / 12.0, p_od: float = 1.0):
+    """Plain PyTorch version of :func:`policy_cost_chain` (same arguments,
+    same results); ported from ``kernels/ref.py::chain_costs_ref``."""
+    B, S, _ = A.shape
+    R, L = ends.shape[-2:]
+    z_t, d_eff, pins = map(_per_scenario, (z_t, d_eff, pins))
+    H = h_cum(A, slot)
+    shape = (B, S, R)
+    zero = torch.zeros((), dtype=_F32, device=A.device)
+    cur = arrival[:, None, :].expand(shape)
+    acc = [torch.zeros(shape, dtype=_F32, device=A.device) for _ in OUT_KEYS]
+    for k in range(L):
+        end = ends[:, None, :, k].expand(shape)
+        z_raw = z_t[..., k].expand(shape)
+        d_k = d_eff[..., k].clamp_min(0.0).expand(shape)
+        pin = (pins[..., k] > 0.5).expand(shape)
+        live = end > cur - _WORK_EPS
+        start = torch.minimum(cur, end)
+        *costs, fin = _closed_form(A, C, H, start, end,
+                                   torch.where(live, z_raw, zero), d_k,
+                                   slot, p_od)
+        acc = [a + c for a, c in zip(acc, costs)]
+        fin = torch.where(pin, end, fin)
+        cur = torch.where((z_raw > _WORK_EPS) | pin, fin, cur)
+    return dict(zip(OUT_KEYS, acc))
+
+
+def _check(named: dict, device: torch.device) -> None:
+    for name, t in named.items():
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
+        if t.dtype != _F32:
+            raise ValueError(f"{name} must be float32, got {t.dtype}")
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _launch(fn_name: str, args: list, device: torch.device) -> None:
+    fn = getattr(kernel_library("policy_cost"), fn_name)
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = fn(*args, ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"{fn_name}: CUDA error {rc} at launch")
+
+
+def policy_cost_chain(A, C, arrival, ends, z_t, d_eff, pins, *,
+                      slot: float = 1.0 / 12.0, p_od: float = 1.0):
+    """Early-start CHAIN costs over B bids x S scenarios x R rows.
+
+    A/C: (B, S, n_slots+1) f32 cumulative arrays; arrival: (B, R);
+    ends: (B, R, L) planned window ends; z_t/d_eff/pins: (B, R, L) shared
+    across scenarios or (B, S, R, L) per scenario (pins as 0/1 floats).
+    Rows may be zero-padded (z_t == 0). Returns a dict of (B, S, R) f32
+    per-row sums: spot_cost, ondemand_cost, spot_work, ondemand_work.
+    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    """
+    z_t, d_eff, pins = map(_per_scenario, (z_t, d_eff, pins))
+    B, S, n1 = A.shape
+    R, L = ends.shape[-2:]
+    Sp = z_t.shape[1]
+    if C.shape != A.shape or arrival.shape != (B, R) \
+            or ends.shape != (B, R, L) or Sp not in (1, S) \
+            or any(a.shape != (B, Sp, R, L) for a in (z_t, d_eff, pins)):
+        raise ValueError("policy_cost_chain: inconsistent shapes")
+    if A.device.type == "cpu":
+        return policy_cost_chain_plain(A, C, arrival, ends, z_t, d_eff, pins,
+                                       slot=slot, p_od=p_od)
+    if A.device.type != "cuda":
+        raise ValueError(f"policy_cost_chain has no kernel for {A.device}")
+    if n1 < 2 or max(S, B) > 65535:
+        raise ValueError("policy_cost_chain: need n_slots >= 1 and "
+                         "B, S <= 65535")
+    _check({"A": A, "C": C, "arrival": arrival, "ends": ends, "z_t": z_t,
+            "d_eff": d_eff, "pins": pins}, A.device)
+    A, C, arrival = A.contiguous(), C.contiguous(), arrival.contiguous()
+    H = h_cum(A, slot)
+    ends_w = ends.transpose(1, 2).contiguous()             # (B, L, R)
+    z_w, d_w, p_w = (a.transpose(2, 3).contiguous()        # (B, Sp, L, R)
+                     for a in (z_t, d_eff, pins))
+    out = torch.empty((4, B, S, R), dtype=_F32, device=A.device)
+    f = ctypes.c_float
+    _launch("policy_cost_chain_launch",
+            [*map(_ptr, (A, C, H, arrival, ends_w, z_w, d_w, p_w, out)),
+             ctypes.c_int(B), ctypes.c_int(S), ctypes.c_int(Sp),
+             ctypes.c_int(R), ctypes.c_int(L), ctypes.c_int(n1 - 1),
+             f(slot), f(inverse_slot(slot)), f(p_od), f(FLEX_REL), f(FLEX_ABS), f(_WORK_EPS)],
+            A.device)
+    LAUNCHES["policy_cost_chain"] += 1
+    return dict(zip(OUT_KEYS, out.unbind(0)))
+
+
+def _task_ondemand_work(oc, sw, z_t, p_od):
+    """``ondemand_work`` as ``repro/engine/backend_pallas.py`` derives it
+    from the planned-start kernel's outputs."""
+    if p_od > 0:
+        return oc / p_od
+    return (z_t - sw).clamp_min(0.0) * (z_t > _WORK_EPS)
+
+
+def policy_cost_plain(A, C, start, end, z_t, d_eff, *,
+                      slot: float = 1.0 / 12.0, p_od: float = 1.0):
+    """Plain PyTorch version of :func:`policy_cost`; ported from
+    ``kernels/ref.py::policy_cost_ref``."""
+    S = A.shape[0]
+    T = start.shape[0]
+    H = h_cum(A, slot)
+    z_t, d_eff = z_t.expand(S, T), d_eff.expand(S, T)
+    sc, oc, sw, _, fin = _closed_form(A, C, H, start.expand(S, T),
+                                      end.expand(S, T), z_t, d_eff, slot,
+                                      p_od)
+    return {"spot_cost": sc, "ondemand_cost": oc, "spot_work": sw,
+            "ondemand_work": _task_ondemand_work(oc, sw, z_t, p_od),
+            "finish": fin}
+
+
+def policy_cost(A, C, start, end, z_t, d_eff, *, slot: float = 1.0 / 12.0,
+                p_od: float = 1.0):
+    """Planned-start task costs of one bid over S scenarios, one launch.
+
+    A/C: (S, n_slots+1) f32; start/end: (T,) planned windows; z_t/d_eff:
+    (T,) shared or (S, T) per scenario. Returns a dict of (S, T) f32:
+    spot_cost, ondemand_cost, spot_work, ondemand_work, finish.
+    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    """
+    S, n1 = A.shape
+    T = start.shape[0]
+    z2, d2 = (a if a.dim() == 2 else a.unsqueeze(0) for a in (z_t, d_eff))
+    Sp = z2.shape[0]
+    if C.shape != A.shape or end.shape != (T,) or Sp not in (1, S) \
+            or z2.shape != (Sp, T) or d2.shape != (Sp, T):
+        raise ValueError("policy_cost: inconsistent shapes")
+    if A.device.type == "cpu":
+        return policy_cost_plain(A, C, start, end, z2, d2, slot=slot,
+                                 p_od=p_od)
+    if A.device.type != "cuda":
+        raise ValueError(f"policy_cost has no kernel for {A.device}")
+    if n1 < 2 or S > 65535:
+        raise ValueError("policy_cost: need n_slots >= 1 and S <= 65535")
+    _check({"A": A, "C": C, "start": start, "end": end, "z_t": z2,
+            "d_eff": d2}, A.device)
+    A, C = A.contiguous(), C.contiguous()
+    H = h_cum(A, slot)
+    args = [t.contiguous() for t in (start, end, z2, d2)]
+    out = torch.empty((5, S, T), dtype=_F32, device=A.device)
+    f = ctypes.c_float
+    _launch("policy_cost_launch",
+            [*map(_ptr, (A, C, H, *args, out)), ctypes.c_int(S),
+             ctypes.c_int(Sp), ctypes.c_int(T), ctypes.c_int(n1 - 1),
+             f(slot), f(inverse_slot(slot)), f(p_od), f(FLEX_REL), f(FLEX_ABS), f(_WORK_EPS)],
+            A.device)
+    LAUNCHES["policy_cost"] += 1
+    return dict(zip(OUT_KEYS + ("finish",), out.unbind(0)))
