@@ -8,17 +8,32 @@ Phases, each failing the run with a non-zero exit:
 
 1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
    per source, in parallel) and print the device;
-2. the main path — ``repro_torch.experiments.table6.run`` (TOLA on the
-   proposed grid and on the Even benchmark, r in {0, 1200}, plus the Hedge
-   learner comparison over 9 schedule instances) under torch.profiler,
+2. the scheduler's main path — ``repro_torch.experiments.table6.run`` (TOLA
+   on the proposed grid and on the Even benchmark, r in {0, 1200}, plus the
+   Hedge learner comparison over 9 schedule instances) under torch.profiler,
    with every kernel's launch counter set to 0 just before and read just
    after; each kernel must have launched; the device's busy share is
    printed with its largest device entries;
-3. each kernel against its plain PyTorch version on the card, on the inputs
-   of its last main-path launch: max abs error, kernel and plain times
-   (CUDA events, median of 5 after a warm-up) and the bound;
+3. each of those kernels against its plain PyTorch version on the card, on
+   the inputs of its last main-path launch: max abs error, kernel and plain
+   times (CUDA events, median of 5 after a warm-up) and the bound;
 4. correctness on a small input: the cost tensor against the float64 host
-   simulator and the Hedge replay against the float64 host loop.
+   simulator and the Hedge replay against the float64 host loop;
+5. the LM substrate's serving path at full width —
+   ``repro_torch.launch.serve.serve_requests`` on tinyllama-1.1b (22
+   layers, the flash attention kernel in every prefill: 44 launches) and on
+   mamba2-2.7b (64 layers, the SSD scan kernel: 128 launches), the port's
+   own init from a fixed seed, 8 requests of 1024 tokens in batches of 4,
+   16 new tokens each; counters set to 0 just before each and read just
+   after; wall time, tokens/s and the first completion; then the first
+   group once more under torch.profiler for the device's busy share;
+6. the two kernels against their plain versions on the inputs of their last
+   serve launch (error, kernel, plain and library times, bound), and at the
+   six flash and four SSD shapes of the reference's kernel tests in float32
+   and bfloat16;
+7. the smoke configs of both architectures on the card (kernels) against
+   the same weights on the CPU (plain versions): prefill and decode logits,
+   and the greedy tokens of a float32 serve.
 
 Then one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` name and
 power-limit line, and last ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -29,6 +44,7 @@ non-zero before printing any result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import pathlib
@@ -38,12 +54,31 @@ import sys
 import time
 
 ETA_GRID = [0.01, 0.03, 0.1, 0.3, 1.0, 3.0, 10.0, 30.0]
-# H100 SXM: device memory rate and float32 rate outside the tensor cores.
+# H100 SXM: device memory rate, float32 rate outside the tensor cores and
+# the dense bfloat16 tensor-core rate.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 COST_TOL = 1e-5      # relative to max(1, |plain|)
 HEDGE_TOL = 1e-5     # absolute, on probabilities and weights
 KNIFE_EDGE = 1e-6    # |cdf - u*total| / total below which a draw may flip
+# The reference's kernel bars (tests/test_kernels.py:37,59): flash attention
+# 2e-5 in float32 and 2e-2 in bfloat16; the SSD scan 1e-4 in float32, and a
+# y rounded to bfloat16 at the bfloat16 bar.
+LM_TOL = {"float32": {"flash": 2e-5, "ssd": 1e-4},
+          "bfloat16": {"flash": 2e-2, "ssd": 2e-2}}
+STATE_TOL = 1e-4     # the SSD final state is float32 in every case
+FLASH_SHAPES = [     # tests/test_kernels.py:17-39 (BH, BK, Sq, Sk, dh, ...)
+    (4, 2, 256, 256, 64, True, 0, 0), (2, 2, 384, 384, 128, True, 0, 0),
+    (4, 1, 128, 512, 64, False, 0, 0), (2, 2, 512, 512, 64, True, 128, 16),
+    (2, 1, 200, 300, 64, True, 0, 0), (1, 1, 640, 640, 64, True, 256, 0)]
+SSD_SHAPES = [       # tests/test_kernels.py:42-62 (Bb, S, H, P, G, N, chunk)
+    (2, 256, 4, 64, 1, 64, 64), (1, 200, 2, 32, 1, 16, 64),
+    (2, 128, 4, 64, 2, 32, 32), (1, 512, 8, 64, 1, 128, 128)]
+# (arch, kernel on its prefill path, launches: layers x prefill rounds)
+SERVE = [("tinyllama_1_1b", "flash_attention", 22 * 2),
+         ("mamba2_2_7b", "ssd_scan", 64 * 2)]
+SERVE_REQUESTS, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 4, 1024, 16
 
 
 def fail(msg: str) -> None:
@@ -76,10 +111,28 @@ def cuda_ms(torch, fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound(n_bytes: float, n_ops: float,
+          ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def device_breakdown(torch, prof, wall_s: float, top: int = 8) -> None:
+    """Print the device's busy share over ``wall_s`` and its largest
+    entries, from a torch.profiler run."""
+    rows = sorted(
+        (e for e in prof.key_averages()
+         if e.device_type == torch.autograd.DeviceType.CUDA
+         and not getattr(e, "is_user_annotation", False)),
+        key=lambda e: -e.self_device_time_total)
+    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    print(f"[device busy {busy_ms:.3f} ms of {wall_s * 1e3:.0f} ms wall: busy "
+          f"share {busy_ms / (wall_s * 1e3):.6f}, idle share "
+          f"{1 - busy_ms / (wall_s * 1e3):.6f}]")
+    for e in rows[:top]:
+        print(f"  device {e.self_device_time_total / 1e3:10.3f} ms "
+              f"{e.count:6d} calls  {e.key[:70]}")
 
 
 def task_ops(n_slots: int) -> int:
@@ -94,6 +147,297 @@ def rel_err(got, ref):
     d = (got.double() - ref.double()).abs()
     return float(d.max()), bool((d <= COST_TOL * ref.double().abs()
                                  .clamp_min(1.0)).all())
+
+
+def attn_pairs(Sq: int, Sk: int, causal: bool, window: int,
+               prefix: int) -> int:
+    """(query, key) pairs the masks leave visible: the products the
+    attention of these inputs needs."""
+    import numpy as np
+    qp, kp = np.arange(Sq)[:, None], np.arange(Sk)[None, :]
+    ok = np.ones((Sq, Sk), bool)
+    if causal:
+        ok &= kp <= qp
+    if window > 0:
+        ok &= ((qp - kp) < window) | (kp < prefix)
+    return int(ok.sum())
+
+
+def ssd_ops(Bb: int, S: int, H: int, P: int, G: int, N: int, Q: int) -> int:
+    """Operations of the chunked SSD scan on these inputs: C B^T on the
+    causal half once per group, its product with xdt, C times the entering
+    state (none for the first chunk, whose state is zero) and the state
+    update, two operations per multiply-add."""
+    ops = 0
+    for c, t0 in enumerate(range(0, S, Q)):
+        q = min(Q, S - t0)
+        pairs = q * (q + 1) // 2
+        ops += 2 * Bb * (G * pairs * N + H * pairs * P
+                         + H * q * N * P * (2 if c else 1))
+    return ops
+
+
+def flash_plain_bshd(q, k, v, **kw):
+    """The plain version on the models' (B, S, H, dh) layout."""
+    from repro_torch.kernels.flash_attention import attention_plain
+    B, Sq, H, dh = q.shape
+    rows = lambda t: t.transpose(1, 2).reshape(-1, t.shape[1], dh)  # noqa: E731
+    return attention_plain(rows(q), rows(k), rows(v), **kw).reshape(
+        B, H, Sq, dh).transpose(1, 2)
+
+
+def allclose(got, ref, tol: float) -> tuple[float, bool]:
+    d = (got.float() - ref.float()).abs()
+    return float(d.max()), bool((d <= tol + tol * ref.float().abs()).all())
+
+
+def serve_phases(torch, np) -> tuple[dict, dict]:
+    """Serve tinyllama-1.1b and mamba2-2.7b at full width; returns the
+    launch counts of each phase and the inputs of each LM kernel's last
+    launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.launch.serve import serve_requests
+    from repro_torch.models import build
+
+    captured: dict = {}
+    originals = {"flash_attention": (fa, "flash_attention_strided"),
+                 "ssd_scan": (ss, "ssd_scan")}
+    for name, (mod, attr) in originals.items():
+        fn = getattr(mod, attr)
+
+        def wrapper(*a, _fn=fn, _name=name, **k):
+            captured[_name] = (a, k)     # inputs of the last launch
+            return _fn(*a, **k)
+        setattr(mod, attr, wrapper)
+        originals[name] = (mod, attr, fn)
+    counts = {}
+    for arch, kernel, expected in SERVE:
+        cfg = get_config(arch)
+        prompts = np.random.default_rng(0).integers(
+            0, cfg.vocab, (SERVE_REQUESTS, SERVE_PROMPT), dtype=np.int32)
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        out, stats = serve_requests(cfg, prompts, SERVE_BATCH, SERVE_NEW,
+                                    seed=0, device="cuda")
+        torch.cuda.synchronize()
+        t_phase = time.perf_counter() - t0
+        counts[kernel] = launches = dict(LAUNCHES)
+        print(f"[phase serve {cfg.name}: {cfg.n_layers} layers, d_model "
+              f"{cfg.d_model}, {SERVE_REQUESTS} requests x {SERVE_PROMPT} "
+              f"tokens, batch {SERVE_BATCH}, {SERVE_NEW} new: serve loop "
+              f"{stats['wall_s']:.3f}s, {stats['tokens_per_s']:.1f} tok/s; "
+              f"{t_phase:.3f}s with init; launches {launches}]")
+        print(f"  first completion: {out[0].tolist()}")
+        if launches.get(kernel, 0) != expected:
+            fail(f"serve {arch}: {kernel} launched {launches.get(kernel, 0)} "
+                 f"times, expected {expected}")
+        if out.shape != (SERVE_REQUESTS, SERVE_NEW) or out.min() < 0 \
+                or out.max() >= cfg.vocab or not stats["tokens_per_s"] > 0:
+            fail(f"serve {arch}: bad output {out.shape} [{out.min()}, "
+                 f"{out.max()}] or stats {stats}")
+        # The first group again under the profiler, with the same weights
+        # initialised outside the profiled window (which then holds the
+        # serve loop and a device-to-device weight copy). One group keeps
+        # the trace, and the time to read it, short.
+        model = build(cfg, "cuda")
+        model.init_weights(torch.Generator("cuda").manual_seed(0))
+        state = model.state_dict()
+        del model
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out_p, stats_p = serve_requests(cfg, prompts[:SERVE_BATCH],
+                                            SERVE_BATCH, SERVE_NEW,
+                                            params=state, device="cuda")
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        device_breakdown(torch, prof, stats_p["wall_s"])
+        print(f"  first group under torch.profiler (not counted): serve loop "
+              f"{stats_p['wall_s']:.3f}s; profiled run and trace collection "
+              f"{t1 - t0:.3f}s, reading the trace "
+              f"{time.perf_counter() - t1:.3f}s")
+        if not np.array_equal(out_p, out[:SERVE_BATCH]):
+            fail(f"serve {arch}: the profiled run generated other tokens")
+        del state
+        torch.cuda.empty_cache()
+    for mod, attr, fn in originals.values():
+        setattr(mod, attr, fn)
+    return counts, captured
+
+
+def lm_kernel_entries(torch, counts, captured) -> list[dict]:
+    """Each LM kernel against its plain version on the inputs of its last
+    serve launch, timed beside its plain version, its library call and its
+    bound."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ss
+
+    entries = []
+    (q, k, v, _), kw = captured["flash_attention"]
+    dtype = str(q.dtype).split(".")[-1]
+    got = ops.flash_attention(q, k, v, **kw)
+    err, ok = allclose(got, flash_plain_bshd(q, k, v, **kw),
+                       LM_TOL[dtype]["flash"])
+    B, Sq, H, dh = q.shape
+    Sk = k.shape[1]
+    n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, got))
+    n_ops = 4 * dh * attn_pairs(Sq, Sk, kw["causal"], kw["window"],
+                                kw["prefix"]) * B * H
+    peak = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else F32_OPS_PER_S
+    b_ms, b_by = bound(n_bytes, n_ops, peak)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib_ms = cuda_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True,
+                                         enable_gqa=True)) \
+        if kw["causal"] and not kw["window"] else None
+    entries.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:101",
+        "launches": counts["flash_attention"].get("flash_attention", 0),
+        "max_abs_err": err,
+        "ms": cuda_ms(torch, lambda: ops.flash_attention(q, k, v, **kw)),
+        "plain_ms": cuda_ms(torch, lambda: flash_plain_bshd(q, k, v, **kw)),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+        "shape": {"B": B, "Sq": Sq, "Sk": Sk, "H": H, "K": k.shape[2],
+                  "dh": dh, "dtype": dtype, **kw}})
+    print(f"flash_attention vs plain at the serve shape: max abs err "
+          f"{err:.3e} (tol {LM_TOL[dtype]['flash']} abs + rel) "
+          f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        fail("flash_attention disagrees with its plain version")
+
+    (x, dt, A, Bm, Cm, *rest), kw = captured["ssd_scan"]
+    chunk = rest[0] if rest else kw.get("chunk", 128)
+    dtype = str(x.dtype).split(".")[-1]
+    y, st = ss.ssd_scan(x, dt, A, Bm, Cm, chunk)
+    yr, sr = ss.ssd_scan_plain(x, dt, A, Bm, Cm, chunk)
+    e_y, ok_y = allclose(y, yr, LM_TOL[dtype]["ssd"])
+    e_s, ok_s = allclose(st, sr, STATE_TOL)
+    x32 = x.float()
+    e_32, ok_32 = allclose(ss.ssd_scan(x32, dt, A, Bm, Cm, chunk)[0],
+                           ss.ssd_scan_plain(x32, dt, A, Bm, Cm, chunk)[0],
+                           LM_TOL["float32"]["ssd"])
+    Bb, S, H, P = x.shape
+    G, N = Bm.shape[2:]
+    n_bytes = sum(t.numel() * t.element_size()
+                  for t in (x, dt, A, Bm, Cm, y, st))
+    b_ms, b_by = bound(n_bytes, ssd_ops(Bb, S, H, P, G, N, min(chunk, S)))
+    entries.append({
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:78",
+        "launches": counts["ssd_scan"].get("ssd_scan", 0),
+        "max_abs_err": max(e_y, e_s),
+        "ms": cuda_ms(torch, lambda: ss.ssd_scan(x, dt, A, Bm, Cm, chunk)),
+        "plain_ms": cuda_ms(torch, lambda: ss.ssd_scan_plain(
+            x, dt, A, Bm, Cm, chunk)),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "shape": {"B": Bb, "S": S, "H": H, "P": P, "G": G, "N": N,
+                  "chunk": chunk, "dtype": dtype},
+        "y_err": e_y, "state_err": e_s, "y_err_float32_x": e_32})
+    ok = ok_y and ok_s and ok_32
+    print(f"ssd_scan vs plain at the serve shape: y ({dtype}) max abs err "
+          f"{e_y:.3e} (tol {LM_TOL[dtype]['ssd']} abs + rel), final state "
+          f"{e_s:.3e} (tol {STATE_TOL}), y with x in float32 {e_32:.3e} "
+          f"(tol {LM_TOL['float32']['ssd']}) {'OK' if ok else 'FAIL'}")
+    if not ok:
+        fail("ssd_scan disagrees with its plain version")
+    return entries
+
+
+def lm_kernel_sweep(torch) -> None:
+    """Both LM kernels against their plain versions at the reference's test
+    shapes (window, prefix, ragged, non-causal, grouped), f32 and bf16."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    gen = torch.Generator("cuda").manual_seed(1)
+    rand = lambda *shape: torch.randn(*shape, device="cuda",  # noqa: E731
+                                      generator=gen)
+    worst = {}
+    for dtype, tdt in (("float32", torch.float32),
+                       ("bfloat16", torch.bfloat16)):
+        tol = LM_TOL[dtype]
+        for BH, BK, Sq, Sk, dh, causal, window, prefix in FLASH_SHAPES:
+            q, k, v = (rand(*s).to(tdt) for s in
+                       ((BH, Sq, dh), (BK, Sk, dh), (BK, Sk, dh)))
+            kw = dict(causal=causal, window=window, prefix=prefix)
+            err, ok = allclose(fa.flash_attention_fwd(q, k, v, **kw),
+                               fa.attention_plain(q, k, v, **kw),
+                               tol["flash"])
+            worst[("flash", dtype)] = max(worst.get(("flash", dtype), 0), err)
+            if not ok:
+                fail(f"flash_attention {dtype} at {(BH, BK, Sq, Sk, dh)} "
+                     f"{kw}: max abs err {err:.3e}")
+        for Bb, S, H, P, G, N, chunk in SSD_SHAPES:
+            x = rand(Bb, S, H, P).to(tdt)
+            dt = torch.rand(Bb, S, H, device="cuda", generator=gen) * 0.19 \
+                + 0.01
+            A = -(torch.rand(H, device="cuda", generator=gen) * 1.5 + 0.5)
+            Bm, Cm = rand(Bb, S, G, N), rand(Bb, S, G, N)
+            y, st = ss.ssd_scan(x, dt, A, Bm, Cm, chunk)
+            yr, sr = ss.ssd_scan_plain(x, dt, A, Bm, Cm, chunk)
+            e_y, ok_y = allclose(y, yr, tol["ssd"])
+            e_s, ok_s = allclose(st, sr, STATE_TOL)
+            worst[("ssd", dtype)] = max(worst.get(("ssd", dtype), 0), e_y, e_s)
+            if not (ok_y and ok_s):
+                fail(f"ssd_scan {dtype} at {(Bb, S, H, P, G, N, chunk)}: y "
+                     f"{e_y:.3e}, state {e_s:.3e}")
+    print("LM kernels vs plain at the reference's test shapes: " + ", ".join(
+        f"{name} {dtype} max abs err {e:.3e}"
+        for (name, dtype), e in sorted(worst.items())) + " OK")
+
+
+def lm_model_check(torch, np) -> None:
+    """The smoke configs served on the card (kernels) against the same
+    weights on the CPU (plain versions)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.serve import serve_requests
+    from repro_torch.models import build
+
+    rms = lambda a: float(a.float().square().mean().sqrt())  # noqa: E731
+    for arch, _, _ in SERVE:
+        for dtype in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(smoke_config(arch), dtype=dtype)
+            cpu = build(cfg, "cpu")
+            cpu.init_weights(torch.Generator().manual_seed(0))
+            state = cpu.state_dict()
+            gpu = build(cfg, "cuda")
+            gpu.load_state_dict(state)
+            toks = torch.from_numpy(np.random.default_rng(1).integers(
+                0, cfg.vocab, (2, 40), dtype=np.int32))
+            logits = []
+            for model, dev in ((cpu, "cpu"), (gpu, "cuda")):
+                lg, cache = model.prefill({"tokens": toks.to(dev)},
+                                          max_len=48)
+                lg2, _ = model.decode(cache, toks[:, 3:4].to(dev), 40)
+                logits.append((lg.cpu(), lg2.cpu()))
+            for step, (a, b) in zip(("prefill", "decode"), zip(*logits)):
+                if dtype == "float32":
+                    err, ok = allclose(b, a, 1e-4)
+                    bar = "1e-4 abs + rel"
+                else:
+                    err = rms(b.float() - a.float()) / rms(a)
+                    ok, bar = err <= 2e-2, "relative RMS 2e-2"
+                print(f"  {cfg.name} {dtype} {step} logits, card vs CPU: "
+                      f"{err:.3e} ({bar}) {'OK' if ok else 'FAIL'}")
+                if not ok:
+                    fail(f"{cfg.name} {dtype} {step}: card off the CPU")
+            if dtype == "float32":
+                prompts = np.random.default_rng(2).integers(
+                    0, cfg.vocab, (5, 24), dtype=np.int32)
+                outs = [serve_requests(cfg, prompts, 2, 6, params=state,
+                                       device=d)[0] for d in ("cpu", "cuda")]
+                if not np.array_equal(*outs):
+                    fail(f"{cfg.name}: greedy tokens on the card differ from "
+                         f"the CPU's:\n{outs[1]}\n{outs[0]}")
+                print(f"  {cfg.name} float32 serve: greedy tokens equal on "
+                      f"the card and the CPU")
 
 
 def main() -> int:
@@ -178,18 +522,7 @@ def main() -> int:
     launches = dict(LAUNCHES)
     table6.print_tables(res)
     print(f"[phase main path: {t_main:.3f}s; launches {launches}]")
-    dev_rows = sorted(
-        (e for e in prof.key_averages()
-         if e.device_type == torch.autograd.DeviceType.CUDA
-         and not getattr(e, "is_user_annotation", False)),
-        key=lambda e: -e.self_device_time_total)
-    busy_ms = sum(e.self_device_time_total for e in dev_rows) / 1e3
-    print(f"[device busy {busy_ms:.3f} ms of {t_main * 1e3:.0f} ms main-path "
-          f"wall: busy share {busy_ms / (t_main * 1e3):.6f}, idle share "
-          f"{1 - busy_ms / (t_main * 1e3):.6f}]")
-    for e in dev_rows[:8]:
-        print(f"  device {e.self_device_time_total / 1e3:10.3f} ms "
-              f"{e.count:6d} calls  {e.key[:70]}")
+    device_breakdown(torch, prof, t_main)
     for name in ("policy_cost_chain", "policy_cost", "hedge_replay"):
         if launches.get(name, 0) < 1:
             fail(f"kernel {name} was not launched on the main path")
@@ -375,6 +708,14 @@ def main() -> int:
     print(f"small input: cost tensors vs float64 oracle max abs {worst:.3e} "
           f"(tol {COST_TOL} abs + rel); hedge vs host loop weights "
           f"{e_w:.3e}, p_chosen {e_p:.3e}, chosen equal")
+
+    # -- 5-7. the LM substrate's serving path -------------------------------
+    t0 = time.perf_counter()
+    counts, lm_inputs = serve_phases(torch, np)
+    kernels += lm_kernel_entries(torch, counts, lm_inputs)
+    lm_kernel_sweep(torch)
+    lm_model_check(torch, np)
+    print(f"[phase LM substrate: {time.perf_counter() - t0:.3f}s]")
 
     for k in kernels:    # the same two numbers under their other names
         k["max_abs_diff"], k["kernel_ms"] = k["max_abs_err"], k["ms"]

@@ -1,0 +1,46 @@
+"""Architecture registry of the port: the reference's ``ARCH_NAMES``, with
+``get_config`` / ``smoke_config`` for the architectures ported so far
+(``tinyllama_1_1b``, ``mamba2_2_7b``). The others raise
+``NotImplementedError`` until their family is ported (ROADMAP A11)."""
+
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.models.config import ModelConfig
+
+__all__ = ["ARCH_NAMES", "PORTED", "get_config", "smoke_config"]
+
+ARCH_NAMES = (
+    "seamless_m4t_medium",
+    "granite_3_8b",
+    "tinyllama_1_1b",
+    "qwen2_5_32b",
+    "llama3_8b",
+    "phi_3_vision_4_2b",
+    "deepseek_moe_16b",
+    "olmoe_1b_7b",
+    "hymba_1_5b",
+    "mamba2_2_7b",
+)
+PORTED = ("tinyllama_1_1b", "mamba2_2_7b")
+
+
+def _module(name: str):
+    name = name.replace("-", "_").replace(".", "_")
+    if name not in ARCH_NAMES:
+        raise ValueError(f"unknown arch {name!r}; known: {ARCH_NAMES}")
+    if name not in PORTED:
+        raise NotImplementedError(
+            f"arch {name!r} is not ported yet (ROADMAP A11); ported: {PORTED}")
+    return importlib.import_module(f"repro_torch.configs.{name}")
+
+
+def get_config(name: str) -> ModelConfig:
+    """The published full-width configuration of ``name``."""
+    return _module(name).config()
+
+
+def smoke_config(name: str) -> ModelConfig:
+    """Reduced same-family config for CPU smoke tests."""
+    return _module(name).smoke()

@@ -30,12 +30,15 @@ __all__ = ["resolve_device", "build_kernels", "kernel_library",
 _PKG = pathlib.Path(__file__).resolve().parent
 CSRC = _PKG / "kernels" / "csrc"
 BUILD_DIR = _PKG.parents[1] / "build" / "torch_kernels"
-KERNEL_SOURCES = ("policy_cost", "hedge_replay")
+KERNEL_SOURCES = ("policy_cost", "hedge_replay", "flash_attention",
+                  "ssd_scan")
 
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              # No fused multiply-add contraction: the kernels round like
-              # the plain versions, one IEEE operation at a time.
-              "-fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
+              "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
+# No fused multiply-add contraction in the cost and Hedge kernels: they
+# round like their plain versions, one IEEE operation at a time, and agree
+# with them bit for bit. The attention and SSD kernels contract freely.
+EXACT_SOURCES = ("policy_cost", "hedge_replay")
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -74,7 +77,9 @@ def build_kernels(names=KERNEL_SOURCES) -> dict[str, str]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        exact = ("-fmad=false",) if name in EXACT_SOURCES else ()
+        cmd = [_nvcc(), *NVCC_FLAGS, *exact, "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)

@@ -1,9 +1,10 @@
 """Plain-numpy constructors for the port's inputs.
 
-This system has no weights: its inputs are jobs, policies and markets. These
-constructors build the port's objects from plain arrays and tuples, so a
-caller holding another implementation's inputs (exported as numpy) feeds the
-port the same data.
+The scheduler has no weights: its inputs are jobs, policies and markets.
+These constructors build the port's objects from plain arrays and tuples, so
+a caller holding another implementation's inputs (exported as numpy) feeds
+the port the same data. The LM substrate's weights come across with
+``params_from_reference``.
 """
 
 from __future__ import annotations
@@ -11,13 +12,15 @@ from __future__ import annotations
 from typing import Iterable, Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.core.market import SLOTS_PER_UNIT, SpotMarket
 from repro_torch.core.scheduler import Policy
 from repro_torch.core.types import ChainJob, chain_from_arrays
 
 __all__ = ["chain_jobs_from_arrays", "markets_from_prices",
-           "policies_from_tuples", "chain_jobs_to_arrays"]
+           "policies_from_tuples", "chain_jobs_to_arrays",
+           "params_from_reference"]
 
 
 def chain_jobs_from_arrays(arrival: Sequence[float],
@@ -60,3 +63,29 @@ def policies_from_tuples(
     return [Policy(float(t[0]), float(t[1]),
                    None if len(t) < 3 or t[2] is None else float(t[2]))
             for t in tuples]
+
+
+def params_from_reference(cfg, tree) -> dict[str, torch.Tensor]:
+    """The state dict of the port's model for ``cfg`` (``models.build``)
+    from the reference's parameter tree: nested dicts of numpy arrays, the
+    per-layer leaves under ``"layers"`` stacked on a leading L axis. Leaf
+    ``layers/attn/wq`` row ``l`` becomes ``layers.<l>.attn.wq``."""
+    out = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for key, sub in node.items():
+                walk(sub, path + (key,))
+            return
+        arr = torch.from_numpy(np.array(node, dtype=np.float32))
+        if path[0] != "layers":
+            out[".".join(path)] = arr
+            return
+        if arr.shape[0] != cfg.n_layers:
+            raise ValueError(f"{'/'.join(path)} has {arr.shape[0]} layers, "
+                             f"the config {cfg.n_layers}")
+        for i in range(cfg.n_layers):
+            out[".".join(("layers", str(i)) + path[1:])] = arr[i]
+
+    walk(tree, ())
+    return out

@@ -6,7 +6,13 @@ version.
 * ``policy_cost.policy_cost`` — planned-start task costs, scenarios as a
   grid dimension (``csrc/policy_cost.cu``);
 * ``weight_update.hedge_replay`` — the Hedge weight-update replay
-  (``csrc/hedge_replay.cu``).
+  (``csrc/hedge_replay.cu``);
+* ``flash_attention.flash_attention_fwd`` — online-softmax attention
+  forward with GQA, causal, window and prefix masks
+  (``csrc/flash_attention.cu``; ``ops.flash_attention`` for the models'
+  (B, S, H, dh) layout);
+* ``ssd_scan.ssd_scan`` — the Mamba-2 SSD chunked scan
+  (``csrc/ssd_scan.cu``; ``ops.ssd``).
 
 A wrapper given CPU tensors computes its plain version; given CUDA tensors
 it launches its kernel or raises. ``LAUNCHES`` counts kernel launches by

@@ -1,0 +1,7 @@
+"""The LM substrate's model zoo, ported so far for the dense decoder and the
+Mamba-2 stack (``api.build``)."""
+
+from repro_torch.models.api import build
+from repro_torch.models.config import ModelConfig
+
+__all__ = ["build", "ModelConfig"]

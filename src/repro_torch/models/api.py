@@ -1,0 +1,29 @@
+"""Model zoo entry point: ``build(cfg, device)`` returns the family's
+``nn.Module``, which exposes ``init_weights``, ``forward``, ``prefill``,
+``decode`` and ``init_cache`` with the same signatures in every family."""
+
+from __future__ import annotations
+
+from torch import nn
+
+from repro_torch.device import resolve_device
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.decoder import Decoder
+from repro_torch.models.ssm import Mamba
+
+__all__ = ["build"]
+
+_FAMILIES = {"decoder": Decoder, "ssm": Mamba}
+_WAITING = ("encdec", "moe", "hybrid", "vlm")
+
+
+def build(cfg: ModelConfig, device="cuda") -> nn.Module:
+    """The model of ``cfg`` on ``device`` (default the GPU), weights not yet
+    initialised."""
+    dev = resolve_device(device)
+    if cfg.kind in _WAITING:
+        raise NotImplementedError(
+            f"model kind {cfg.kind!r} is not ported yet (ROADMAP A11)")
+    if cfg.kind not in _FAMILIES:
+        raise ValueError(f"unknown model kind {cfg.kind!r}")
+    return _FAMILIES[cfg.kind](cfg, dev)

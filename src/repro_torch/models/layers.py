@@ -1,0 +1,192 @@
+"""Building blocks of the port's model zoo: the part of the reference's
+``models/layers.py`` that the dense decoder and the Mamba-2 stack use.
+
+Conventions, as the reference: weights are float32 masters cast to the
+activation dtype at each use; norms and rotary angles are computed in
+float32 and cast back. The parameter holders are ``nn.Module``s; these
+functions read their weights as attributes (``p.wq``).
+
+Prefill self-attention goes through ``kernels/ops.flash_attention`` at
+every sequence length: the flash kernel on the card, its plain version
+(float32 scores) on the CPU. The reference computes short sequences with a
+dense softmax whose scores are in the activation dtype and long ones
+blockwise; the kernel replaces both paths. Decode attention, ``ssd_step``
+and the convolutions stay plain torch, as the reference leaves them to XLA.
+
+Decode updates the KV cache in place (the reference returns a new one), and
+writes the new key and value in the cache's dtype: the decoder's cache is
+bfloat16 even for a float32 model, where the reference refuses the write.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.models.config import ModelConfig
+
+__all__ = [
+    "dense_init_", "rms_norm", "rotary", "apply_rope",
+    "attention", "attention_decode", "swiglu",
+    "ssd", "ssd_step", "causal_conv1d", "conv1d_step",
+]
+
+NEG_INF = -1e30
+
+
+def dense_init_(w: torch.Tensor, generator: torch.Generator,
+                in_axis=0) -> torch.Tensor:
+    """Fill ``w`` in place with the reference's truncated-normal fan-in
+    init: std 1/sqrt(fan_in), cut at two standard deviations."""
+    axes = (in_axis,) if isinstance(in_axis, int) else in_axis
+    fan_in = math.prod(w.shape[a] for a in axes)
+    std = 1.0 / math.sqrt(max(fan_in, 1))
+    return torch.nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                                       generator=generator)
+
+
+# --------------------------------------------------------------------------
+# norms / rotary
+# --------------------------------------------------------------------------
+
+def rms_norm(x, scale, eps: float = 1e-6):
+    dt = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    return ((x * torch.rsqrt(var + eps)) * scale.float()).to(dt)
+
+
+def rotary(positions, dh: int, theta: float):
+    """(..., S) int positions -> cos/sin of shape (..., S, dh//2)."""
+    idx = torch.arange(0, dh, 2, dtype=torch.float32, device=positions.device)
+    freqs = 1.0 / (theta ** (idx / dh))
+    ang = positions.float()[..., None] * freqs
+    return ang.cos(), ang.sin()
+
+
+def apply_rope(x, cos, sin):
+    """x: (B, S, H, dh); cos/sin: (B, S, dh//2) or (S, dh//2)."""
+    x1, x2 = x.chunk(2, dim=-1)
+    if cos.dim() == 2:
+        cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+    else:
+        cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    cos, sin = cos.to(x.dtype), sin.to(x.dtype)
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+
+
+# --------------------------------------------------------------------------
+# attention
+# --------------------------------------------------------------------------
+
+def _qkv(x, p):
+    q = torch.einsum("bsd,dhk->bshk", x, p.wq.to(x.dtype))
+    k = torch.einsum("bsd,dhk->bshk", x, p.wk.to(x.dtype))
+    v = torch.einsum("bsd,dhk->bshk", x, p.wv.to(x.dtype))
+    if p.bq is not None:
+        q = q + p.bq.to(x.dtype)
+        k = k + p.bk.to(x.dtype)
+        v = v + p.bv.to(x.dtype)
+    return q, k, v
+
+
+def attention(x, p, cfg: ModelConfig, return_kv: bool = False):
+    """Causal self-attention prefill with GQA + rotary over positions
+    0..S-1. x: (B, S, D). ``return_kv`` also returns the (k, v) tensors for
+    the cache."""
+    q, k, v = _qkv(x, p)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    cos, sin = rotary(positions, cfg.dh, cfg.rope_theta)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    out = ops.flash_attention(q, k, v, causal=True)
+    y = torch.einsum("bshk,hkd->bsd", out, p.wo.to(x.dtype))
+    if return_kv:
+        return y, (k, v)
+    return y
+
+
+def attention_decode(x, p, cache_k, cache_v, pos: int, cfg: ModelConfig):
+    """One-token decode against a cache, updated in place.
+
+    x: (B, 1, D); cache_k/v: (B, S_max, K, dh); pos: the current index.
+    Returns y (B, 1, D)."""
+    B = x.shape[0]
+    H, K, dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
+    S_max = cache_k.shape[1]
+    q, k_new, v_new = _qkv(x, p)
+    cos, sin = rotary(torch.full((B, 1), pos, device=x.device), dh,
+                      cfg.rope_theta)
+    q = apply_rope(q, cos, sin)
+    k_new = apply_rope(k_new, cos, sin)
+    cache_k[:, pos] = k_new[:, 0]
+    cache_v[:, pos] = v_new[:, 0]
+
+    g = H // K
+    ct = torch.promote_types(x.dtype, cache_k.dtype)
+    qg = q.reshape(B, 1, K, g, dh).to(ct)
+    scores = torch.einsum("bskgh,btkh->bkgst", qg, cache_k.to(ct)) \
+        / math.sqrt(dh)
+    valid = torch.arange(S_max, device=x.device) <= pos
+    scores = torch.where(valid, scores, NEG_INF)
+    probs = torch.softmax(scores.float(), dim=-1).to(x.dtype)
+    ct = torch.promote_types(probs.dtype, cache_v.dtype)
+    out = torch.einsum("bkgst,btkh->bskgh", probs.to(ct), cache_v.to(ct))
+    return torch.einsum("bshk,hkd->bsd", out.reshape(B, 1, H, dh),
+                        p.wo.to(out.dtype))
+
+
+# --------------------------------------------------------------------------
+# MLP
+# --------------------------------------------------------------------------
+
+def swiglu(x, p):
+    h = torch.einsum("bsd,df->bsf", x, p.w_gate.to(x.dtype))
+    u = torch.einsum("bsd,df->bsf", x, p.w_up.to(x.dtype))
+    return torch.einsum("bsf,fd->bsd", F.silu(h) * u, p.w_down.to(x.dtype))
+
+
+# --------------------------------------------------------------------------
+# Mamba-2 SSD
+# --------------------------------------------------------------------------
+
+def ssd(x, dt, A, B_, C_, chunk: int, init_state=None):
+    """Chunked state-space-duality scan: the ssd_scan kernel on the card,
+    its plain version on the CPU.
+
+    x: (B, S, H, P); dt: (B, S, H); A: (H,); B_/C_: (B, S, G, N).
+    Returns (y, final_state) with y (B, S, H, P), state (B, H, P, N)."""
+    return ops.ssd(x, dt, A, B_, C_, chunk=chunk, init_state=init_state)
+
+
+def ssd_step(state, x_t, dt_t, A, B_t, C_t):
+    """Single-token SSD recurrence for decode.
+
+    state: (B, H, P, N); x_t: (B, H, P); dt_t: (B, H); B_t/C_t: (B, G, N).
+    """
+    rep = x_t.shape[1] // B_t.shape[1]
+    B_h = B_t.repeat_interleave(rep, dim=1)            # (B, H, N)
+    C_h = C_t.repeat_interleave(rep, dim=1)
+    decay = torch.exp(A[None, :] * dt_t)               # (B, H)
+    upd = torch.einsum("bhp,bhn->bhpn", x_t * dt_t[..., None], B_h)
+    new_state = state * decay[:, :, None, None].to(state.dtype) + upd
+    y = torch.einsum("bhpn,bhn->bhp", new_state, C_h)
+    return y, new_state
+
+
+def causal_conv1d(x, w, b):
+    """x: (B, S, C), w: (K, C) depthwise, left-padded causal."""
+    K, S = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, K - 1, 0))
+    out = sum(xp[:, i:i + S, :] * w[i][None, None, :] for i in range(K))
+    return out + b[None, None, :]
+
+
+def conv1d_step(conv_state, x_t, w, b):
+    """conv_state: (B, K-1, C) last inputs; x_t: (B, C)."""
+    full = torch.cat([conv_state, x_t[:, None, :]], dim=1)   # (B, K, C)
+    y = torch.einsum("bkc,kc->bc", full, w) + b[None, :]
+    return y, full[:, 1:, :]

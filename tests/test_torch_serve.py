@@ -1,0 +1,282 @@
+"""The port's serving slice against the reference's LM substrate: the smoke
+configs of tinyllama-1.1b (dense decoder) and mamba2-2.7b (SSD stack), the
+reference's weights carried across by ``interop.params_from_reference``,
+inputs made with numpy from a seed. Bars: 1e-4 in float32, and the
+reference's own 2e-2 in bfloat16 (``tests/test_arch_smoke.py``); the port's
+prefill attention scores are float32 where the reference's dense path keeps
+them in bfloat16, which the bfloat16 bar allows."""
+
+import dataclasses
+import functools
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import get_config as ref_get_config  # noqa: E402
+from repro.configs import smoke_config as ref_smoke_config  # noqa: E402
+from repro.launch.serve import serve_requests as ref_serve  # noqa: E402
+from repro.models import build as ref_build  # noqa: E402
+
+from repro_torch import interop  # noqa: E402
+from repro_torch.configs import ARCH_NAMES, PORTED, get_config, smoke_config  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import build  # noqa: E402
+
+TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """Keep torch's intra-op pool to one thread while a port test runs."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
+@pytest.fixture
+def no_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+@functools.cache
+def _ref_params(arch: str):
+    """The reference's init of the smoke config (float32 masters, the same
+    for every activation dtype)."""
+    return jax.jit(ref_build(ref_smoke_config(arch)).init)(
+        jax.random.PRNGKey(0))
+
+
+def _models(arch: str, dtype: str):
+    """(reference cfg, model, params; port cfg, state dict) with one set of
+    weights: the reference's init, carried across."""
+    rcfg = dataclasses.replace(ref_smoke_config(arch), dtype=dtype)
+    cfg = dataclasses.replace(smoke_config(arch), dtype=dtype)
+    params = _ref_params(arch)
+    state = interop.params_from_reference(cfg, jax.tree.map(np.asarray,
+                                                            params))
+    return rcfg, ref_build(rcfg), params, cfg, state
+
+
+def _port(cfg, state):
+    model = build(cfg, "cpu")
+    model.load_state_dict(state)
+    return model
+
+
+def _close(got, ref, dtype, bf16_values=False):
+    """float32: elementwise at 1e-4, or within one bfloat16 ulp for values
+    that were rounded to bfloat16 (the decoder's cache: float32 keys 1e-6
+    apart may round to neighbouring bfloat16 values). bfloat16: relative
+    RMS error at 2e-2."""
+    got, ref = got.float().numpy(), np.asarray(ref, np.float32)
+    assert got.shape == ref.shape
+    if dtype == "float32":
+        np.testing.assert_allclose(got, ref, atol=TOL[dtype],
+                                   rtol=2.0 ** -7 if bf16_values else TOL[dtype])
+        return
+    rms = lambda a: float(np.sqrt(np.mean(np.square(a))))  # noqa: E731
+    assert rms(got - ref) <= TOL[dtype] * rms(ref)
+
+
+def _run_ref(rcfg, params, toks, nxt):
+    ref = ref_build(rcfg)
+    lg, cache = ref.prefill(params, {"tokens": jnp.asarray(toks)}, max_len=30)
+    if rcfg.kind == "decoder" and rcfg.dtype == "float32":
+        cache = jax.tree.map(lambda a: a.astype(jnp.float32), cache)
+    lg2, cache2 = ref.decode(params, cache, jnp.asarray(nxt), toks.shape[1])
+    return lg, lg2, cache2
+
+
+def _run_port(cfg, state, toks, nxt):
+    model = _port(cfg, state)
+    lg, cache = model.prefill({"tokens": torch.from_numpy(toks)}, max_len=30)
+    if cfg.kind == "decoder" and cfg.dtype == "float32":
+        cache = {k: v.float() for k, v in cache.items()}
+    lg2, cache2 = model.decode(cache, torch.from_numpy(nxt), toks.shape[1])
+    return lg, lg2, cache2
+
+
+@pytest.mark.parametrize("dtype", sorted(TOL))
+@pytest.mark.parametrize("arch", PORTED)
+def test_prefill_and_decode_match_reference(arch, dtype):
+    """Prefill logits, one teacher-forced decode step and the caches after
+    it. The reference cannot write a float32 key into its bfloat16 decoder
+    cache, so the float32 decoder decodes, on both sides, from its prefill
+    cache cast to float32.
+
+    In bfloat16 an elementwise 2e-2 bar does not hold between the two
+    implementations: the reference's own bfloat16 logits leave its float32
+    logits by up to 0.048 (44 of 1024 above 2e-2 at this input), and the
+    port's attention scores are float32 where the reference's dense path
+    rounds them to bfloat16. The bar there is 2e-2 of the RMS (measured
+    1.0e-2)."""
+    rcfg, _, params, cfg, state = _models(arch, dtype)
+    toks = np.random.default_rng(1).integers(0, cfg.vocab, (2, 24),
+                                             dtype=np.int32)
+    nxt = toks[:, 5:6]
+    want = _run_ref(rcfg, params, toks, nxt)
+    got = _run_port(cfg, state, toks, nxt)
+    assert got[0].shape == want[0].shape == (2, 1, cfg.vocab)
+    for g, w in zip(got[:2], want[:2]):
+        _close(g, w, dtype)
+    assert sorted(got[2]) == sorted(want[2])
+    for key in want[2]:
+        _close(got[2][key], want[2][key], dtype,
+               bf16_values=cfg.kind == "decoder")
+
+
+@pytest.mark.parametrize("arch", PORTED)
+def test_forward_matches_reference(arch):
+    rcfg, ref, params, cfg, state = _models(arch, "float32")
+    toks = np.random.default_rng(3).integers(0, cfg.vocab, (2, 20),
+                                             dtype=np.int32)
+    lg, _ = ref.forward(params, {"tokens": jnp.asarray(toks)})
+    with torch.no_grad():
+        lg_t, aux = _port(cfg, state)({"tokens": torch.from_numpy(toks)})
+    _close(lg_t, lg, "float32")
+    assert float(aux) == 0.0
+
+
+@pytest.mark.parametrize("arch", PORTED)
+def test_prefill_matches_forward(arch):
+    """The reference's own check (``tests/test_arch_smoke.py``), on the
+    port in bfloat16 at its bar: prefill's last logits equal forward's."""
+    cfg = smoke_config(arch)
+    model = _port(cfg, _models(arch, "bfloat16")[4])
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab, (2, 32), dtype=np.int32))
+    with torch.no_grad():
+        logits_f, _ = model({"tokens": toks})
+    logits_p, _ = model.prefill({"tokens": toks}, max_len=40)
+    np.testing.assert_allclose(logits_p[:, -1].float().numpy(),
+                               logits_f[:, -1].float().numpy(), atol=2e-2,
+                               rtol=2e-2)
+
+
+def _prompts(cfg, n=5, S=16):
+    return np.random.default_rng(2).integers(0, cfg.vocab, (n, S),
+                                             dtype=np.int32)
+
+
+def test_serve_ssm_float32_equals_reference():
+    """Groups of 2 with a zero-padded last group, greedy tokens: equal."""
+    rcfg, _, params, cfg, state = _models("mamba2_2_7b", "float32")
+    prompts = _prompts(cfg)
+    ref_out, ref_stats = ref_serve(rcfg, prompts, 2, 6, params=params)
+    out, stats = serve.serve_requests(cfg, prompts, 2, 6, params=state,
+                                      device="cpu")
+    np.testing.assert_array_equal(out, ref_out)
+    assert out.dtype == ref_out.dtype and sorted(stats) == sorted(ref_stats)
+    assert stats["requests"] == 5 and stats["wall_s"] > 0
+
+
+def test_serve_decoder_bfloat16_matches_reference_up_to_knife_edges():
+    """The reference serves a decoder only in bfloat16 (its float32 decode
+    refuses to write the bfloat16 cache). There the port's float32 scores
+    may flip a greedy pick where the reference's two best logits lie within
+    two bfloat16 ulps; each request's tokens must be equal up to its first
+    such step, which is found by replaying the reference's own greedy
+    loop."""
+    rcfg, ref, params, cfg, state = _models("tinyllama_1_1b", "bfloat16")
+    prompts = _prompts(cfg, n=3)
+    n, S = prompts.shape
+    batch, max_new = 2, 6
+    ref_out, ref_stats = ref_serve(rcfg, prompts, batch, max_new,
+                                   params=params)
+    out, stats = serve.serve_requests(cfg, prompts, batch, max_new,
+                                      params=state, device="cpu")
+    assert out.shape == ref_out.shape and sorted(stats) == sorted(ref_stats)
+    knife = np.full(n, max_new)
+    decode = jax.jit(ref.decode)
+    for g in range(0, n, batch):
+        ids = list(range(g, min(g + batch, n)))
+        toks = np.zeros((batch, S), np.int32)
+        toks[:len(ids)] = prompts[ids]
+        lg, cache = ref.prefill(params, {"tokens": jnp.asarray(toks)},
+                                max_len=S + max_new)
+        for t in range(max_new):
+            logits = np.asarray(lg[:, -1], np.float32)[:len(ids)]
+            top2 = np.sort(logits, axis=-1)[:, -2:]
+            ulp = 2.0 ** (np.floor(np.log2(np.abs(top2[:, 1]))) - 7)
+            edge = top2[:, 1] - top2[:, 0] <= 2 * ulp
+            knife[ids] = np.where(edge & (knife[ids] == max_new), t,
+                                  knife[ids])
+            np.testing.assert_array_equal(logits.argmax(-1), ref_out[ids, t])
+            nxt = np.zeros((batch, 1), np.int32)
+            nxt[:len(ids), 0] = ref_out[ids, t]
+            lg, cache = decode(params, cache, jnp.asarray(nxt),
+                               jnp.int32(S + t))
+    for i in range(n):
+        np.testing.assert_array_equal(out[i, :knife[i]], ref_out[i, :knife[i]])
+    assert (knife > 0).all()
+
+
+def test_serve_main_on_the_cpu(capsys):
+    stats = serve.main(["--arch", "mamba2_2_7b", "--smoke", "--device", "cpu",
+                        "--requests", "3", "--batch", "2", "--prompt-len",
+                        "8", "--max-new", "3"])
+    assert stats["requests"] == 3
+    assert "first completion" in capsys.readouterr().out
+
+
+def _flat(tree, path=()):
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items()
+                for k, v in _flat(sub, path + (key,)).items()}
+    return {path: tree}
+
+
+@pytest.mark.parametrize("arch", PORTED)
+def test_full_width_parameters_match_reference(arch):
+    """The published configs: the port's parameters (on the meta device, no
+    memory) have the names and shapes of the reference's abstract init."""
+    cfg, rcfg = get_config(arch), ref_get_config(arch)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(rcfg)
+    shapes = jax.eval_shape(ref_build(rcfg).init, jax.random.PRNGKey(0))
+    want = {}
+    for path, leaf in _flat(shapes).items():
+        if path[0] == "layers":
+            for i in range(cfg.n_layers):
+                want[".".join(("layers", str(i)) + path[1:])] = leaf.shape[1:]
+        else:
+            want[".".join(path)] = leaf.shape
+    got = {k: tuple(v.shape) for k, v in build(cfg, "meta").state_dict().items()}
+    assert got == want
+    if arch == "tinyllama_1_1b":
+        assert 1.09e9 < sum(int(np.prod(s)) for s in got.values()) < 1.11e9
+
+
+def test_entry_points_default_to_the_gpu(no_gpu):
+    cfg = smoke_config("mamba2_2_7b")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.serve_requests(cfg, _prompts(cfg, 2, 4), 2, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", "tinyllama_1_1b", "--smoke"])
+
+
+def test_unported_architectures_and_features_raise():
+    for arch in sorted(set(ARCH_NAMES) - set(PORTED)):
+        with pytest.raises(NotImplementedError, match="A11"):
+            get_config(arch)
+    with pytest.raises(ValueError, match="unknown arch"):
+        smoke_config("gpt2")
+    for kind, extra in (("moe", dict(n_experts=4, top_k=2, d_expert=8)),
+                        ("hybrid", dict(d_state=4))):
+        cfg = dataclasses.replace(smoke_config("tinyllama_1_1b"), kind=kind,
+                                  **extra)
+        with pytest.raises(NotImplementedError, match="A11"):
+            build(cfg, "cpu")
+    windowed = dataclasses.replace(smoke_config("tinyllama_1_1b"), window=8)
+    with pytest.raises(NotImplementedError, match="A11"):
+        build(windowed, "cpu")
+    with pytest.raises(ValueError, match="layers"):
+        interop.params_from_reference(smoke_config("mamba2_2_7b"),
+                                      {"layers": {"ln": np.ones((3, 64))}})
