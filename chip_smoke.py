@@ -21,16 +21,19 @@ Phases, each failing the run with a non-zero exit:
    simulator and the Hedge replay against the float64 host loop;
 5. the LM substrate's serving path at full width —
    ``repro_torch.launch.serve.serve_requests`` on tinyllama-1.1b (22
-   layers, the flash attention kernel in every prefill: 44 launches) and on
-   mamba2-2.7b (64 layers, the SSD scan kernel: 128 launches), the port's
-   own init from a fixed seed, 8 requests of 1024 tokens in batches of 4,
-   16 new tokens each; counters set to 0 just before each and read just
-   after; wall time, tokens/s and the first completion; then the first
-   group once more under torch.profiler for the device's busy share;
+   layers, the flash attention kernel in every prefill: 44 launches, each
+   on the tensor-core route) and on mamba2-2.7b (64 layers, the SSD scan
+   kernel: 128 launches), the port's own init from a fixed seed, 8 requests
+   of 1024 tokens in batches of 4, 16 new tokens each; counters set to 0
+   just before each and read just after; wall time, tokens/s and the first
+   completion; then the first group once more under torch.profiler for the
+   device's busy share;
 6. the two kernels against their plain versions on the inputs of their last
-   serve launch (error, kernel, plain and library times, bound), and at the
-   six flash and four SSD shapes of the reference's kernel tests in float32
-   and bfloat16;
+   serve launch (error, kernel, plain and library times, bound; for flash
+   attention also the CUDA-core kernel's time on the same inputs), and at
+   the six flash and four SSD shapes of the reference's kernel tests in
+   float32 (flash: the CUDA-core kernel) and bfloat16 (flash: the
+   tensor-core kernel);
 7. the smoke configs of both architectures on the card (kernels) against
    the same weights on the CPU (plain versions): prefill and decode logits,
    and the greedy tokens of a float32 serve.
@@ -95,6 +98,22 @@ def smi_line() -> str:
         else "nvidia-smi: " + out.stderr.strip()
 
 
+def ptxas_summary(log: str, kernel: str) -> list[tuple[str, str, str]]:
+    """(entry, registers line, spill line) of each entry function whose
+    mangled name holds ``kernel``, from an ``nvcc -Xptxas=-v`` log."""
+    out, name, spills = [], None, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if kernel in line else None
+            spills = ""
+        elif name and "spill" in line:
+            spills = line.strip()
+        elif name and "registers" in line:
+            out.append((name, line.split(":", 1)[-1].strip(), spills))
+            name = None
+    return out
+
+
 def cuda_ms(torch, fn, reps: int = 5) -> float:
     """Median milliseconds of ``fn`` over ``reps`` runs after one warm-up."""
     fn()
@@ -109,6 +128,23 @@ def cuda_ms(torch, fn, reps: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(torch, fn, reps: int = 20) -> float:
+    """Milliseconds of device time per call of ``fn``: the calls are queued
+    behind a 10 ms device-side sleep, so the host's preparation of each call
+    overlaps the device's work and drops out of the event interval."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def bound(n_bytes: float, n_ops: float,
@@ -236,6 +272,10 @@ def serve_phases(torch, np) -> tuple[dict, dict]:
         if launches.get(kernel, 0) != expected:
             fail(f"serve {arch}: {kernel} launched {launches.get(kernel, 0)} "
                  f"times, expected {expected}")
+        if kernel == "flash_attention" \
+                and launches.get("flash_attention_tc", 0) != expected:
+            fail(f"serve {arch}: {launches.get('flash_attention_tc', 0)} of "
+                 f"{expected} flash launches took the tensor-core route")
         if out.shape != (SERVE_REQUESTS, SERVE_NEW) or out.min() < 0 \
                 or out.max() >= cfg.vocab or not stats["tokens_per_s"] > 0:
             fail(f"serve {arch}: bad output {out.shape} [{out.min()}, "
@@ -274,6 +314,7 @@ def lm_kernel_entries(torch, counts, captured) -> list[dict]:
     """Each LM kernel against its plain version on the inputs of its last
     serve launch, timed beside its plain version, its library call and its
     bound."""
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.kernels import ssd_scan as ss
 
@@ -281,8 +322,12 @@ def lm_kernel_entries(torch, counts, captured) -> list[dict]:
     (q, k, v, _), kw = captured["flash_attention"]
     dtype = str(q.dtype).split(".")[-1]
     got = ops.flash_attention(q, k, v, **kw)
-    err, ok = allclose(got, flash_plain_bshd(q, k, v, **kw),
-                       LM_TOL[dtype]["flash"])
+    plain = flash_plain_bshd(q, k, v, **kw)
+    err, ok = allclose(got, plain, LM_TOL[dtype]["flash"])
+    # The CUDA-core kernel through its own entry point, same inputs.
+    out_cc = torch.empty_like(got)
+    fa.launch_cuda_core(q, k, v, out_cc, **kw)
+    err_cc, ok_cc = allclose(out_cc, plain, LM_TOL[dtype]["flash"])
     B, Sq, H, dh = q.shape
     Sk = k.shape[1]
     n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, got))
@@ -292,25 +337,42 @@ def lm_kernel_entries(torch, counts, captured) -> list[dict]:
     b_ms, b_by = bound(n_bytes, n_ops, peak)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    lib_ms = cuda_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True,
-                                         enable_gqa=True)) \
+    lib = (lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)) \
         if kw["causal"] and not kw["window"] else None
+    # ms, cuda_core_ms and library_ms: one call at a time, the wrapper's
+    # preparation included; *device_ms: device time alone.
+    run = lambda: ops.flash_attention(q, k, v, **kw)  # noqa: E731
+    run_cc = lambda: fa.launch_cuda_core(q, k, v, out_cc, **kw)  # noqa: E731
     entries.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:101",
         "launches": counts["flash_attention"].get("flash_attention", 0),
+        "launches_tc": counts["flash_attention"].get("flash_attention_tc", 0),
         "max_abs_err": err,
-        "ms": cuda_ms(torch, lambda: ops.flash_attention(q, k, v, **kw)),
+        "ms": cuda_ms(torch, run),
+        "cuda_core_ms": cuda_ms(torch, run_cc),
+        "cuda_core_max_abs_err": err_cc,
         "plain_ms": cuda_ms(torch, lambda: flash_plain_bshd(q, k, v, **kw)),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": cuda_ms(torch, lib) if lib else None,
+        "device_ms": device_ms(torch, run),
+        "cuda_core_device_ms": device_ms(torch, run_cc),
+        "library_device_ms": device_ms(torch, lib) if lib else None,
         "shape": {"B": B, "Sq": Sq, "Sk": Sk, "H": H, "K": k.shape[2],
                   "dh": dh, "dtype": dtype, **kw}})
     print(f"flash_attention vs plain at the serve shape: max abs err "
-          f"{err:.3e} (tol {LM_TOL[dtype]['flash']} abs + rel) "
-          f"{'OK' if ok else 'FAIL'}")
-    if not ok:
+          f"{err:.3e} (tensor-core route), {err_cc:.3e} (CUDA-core kernel) "
+          f"(tol {LM_TOL[dtype]['flash']} abs + rel) "
+          f"{'OK' if ok and ok_cc else 'FAIL'}")
+    if not (ok and ok_cc):
         fail("flash_attention disagrees with its plain version")
+    e = entries[-1]
+    print("flash_attention at the serve shape, ms per call (device only): "
+          f"tensor cores {e['ms']:.4f} ({e['device_ms']:.4f}), CUDA cores "
+          f"{e['cuda_core_ms']:.4f} ({e['cuda_core_device_ms']:.4f}), SDPA "
+          f"{e['library_ms']} ({e['library_device_ms']}), bound "
+          f"{e['bound_ms']:.4f} ({e['bound_by']})")
 
     (x, dt, A, Bm, Cm, *rest), kw = captured["ssd_scan"]
     chunk = rest[0] if rest else kw.get("chunk", 128)
@@ -354,6 +416,7 @@ def lm_kernel_entries(torch, counts, captured) -> list[dict]:
 def lm_kernel_sweep(torch) -> None:
     """Both LM kernels against their plain versions at the reference's test
     shapes (window, prefix, ragged, non-causal, grouped), f32 and bf16."""
+    from repro_torch.kernels import LAUNCHES
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ss
     gen = torch.Generator("cuda").manual_seed(1)
@@ -367,13 +430,20 @@ def lm_kernel_sweep(torch) -> None:
             q, k, v = (rand(*s).to(tdt) for s in
                        ((BH, Sq, dh), (BK, Sk, dh), (BK, Sk, dh)))
             kw = dict(causal=causal, window=window, prefix=prefix)
+            n_tc = LAUNCHES["flash_attention_tc"]
             err, ok = allclose(fa.flash_attention_fwd(q, k, v, **kw),
                                fa.attention_plain(q, k, v, **kw),
                                tol["flash"])
+            # bfloat16 (dh 64 and 128) takes the tensor cores, float32 the
+            # CUDA-core kernel.
+            tc = LAUNCHES["flash_attention_tc"] - n_tc
             worst[("flash", dtype)] = max(worst.get(("flash", dtype), 0), err)
             if not ok:
                 fail(f"flash_attention {dtype} at {(BH, BK, Sq, Sk, dh)} "
                      f"{kw}: max abs err {err:.3e}")
+            if tc != (tdt == torch.bfloat16):
+                fail(f"flash_attention {dtype} at {(BH, BK, Sq, Sk, dh)} "
+                     f"{kw}: {tc} tensor-core launches")
         for Bb, S, H, P, G, N, chunk in SSD_SHAPES:
             x = rand(Bb, S, H, P).to(tdt)
             dt = torch.rand(Bb, S, H, device="cuda", generator=gen) * 0.19 \
@@ -388,7 +458,9 @@ def lm_kernel_sweep(torch) -> None:
             if not (ok_y and ok_s):
                 fail(f"ssd_scan {dtype} at {(Bb, S, H, P, G, N, chunk)}: y "
                      f"{e_y:.3e}, state {e_s:.3e}")
-    print("LM kernels vs plain at the reference's test shapes: " + ", ".join(
+    print("LM kernels vs plain at the reference's test shapes (flash: "
+          "bfloat16 on the tensor-core route, float32 on the CUDA-core "
+          "kernel): " + ", ".join(
         f"{name} {dtype} max abs err {e:.3e}"
         for (name, dtype), e in sorted(worst.items())) + " OK")
 
@@ -481,6 +553,9 @@ def main() -> int:
             if "ptxas" in line and ("registers" in line or "spill" in line
                                     or "Compiling" in line):
                 print(f"[nvcc {name}] {line.strip()}")
+    for fn_name, regs, spills in ptxas_summary(logs.get("flash_attention", ""),
+                                               "flash_fwd_tc"):
+        print(f"[ptxas flash_fwd_tc] {fn_name}: {regs}; {spills}")
     print(f"[phase build: {time.perf_counter() - t0:.3f}s, "
           f"{len(logs)} source(s) compiled]")
     kind = torch.cuda.get_device_name(0)

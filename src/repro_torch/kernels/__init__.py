@@ -9,15 +9,17 @@ version.
   (``csrc/hedge_replay.cu``);
 * ``flash_attention.flash_attention_fwd`` — online-softmax attention
   forward with GQA, causal, window and prefix masks
-  (``csrc/flash_attention.cu``; ``ops.flash_attention`` for the models'
-  (B, S, H, dh) layout);
+  (``csrc/flash_attention.cu``: a tensor-core kernel for bfloat16 at dh 64
+  or 128, a CUDA-core kernel for every other call;
+  ``ops.flash_attention`` for the models' (B, S, H, dh) layout);
 * ``ssd_scan.ssd_scan`` — the Mamba-2 SSD chunked scan
   (``csrc/ssd_scan.cu``; ``ops.ssd``).
 
 A wrapper given CPU tensors computes its plain version; given CUDA tensors
 it launches its kernel or raises. ``LAUNCHES`` counts kernel launches by
 wrapper name (plain-version calls do not count), so a run can show which
-kernels its path went through.
+kernels its path went through; ``flash_attention`` counts both attention
+kernels and ``flash_attention_tc`` the tensor-core ones among them.
 """
 
 from __future__ import annotations

@@ -4,11 +4,22 @@ Replaces the TPU kernel ``repro/kernels/flash_attention.py::
 flash_attention_fwd``: online-softmax attention of (B*H, Sq, dh) queries
 against (B*K, Sk, dh) keys and values, query row r reading kv row
 r // (B*H / B*K) (GQA), with causal, sliding-window and meta-prefix masks
-and ragged Sq/Sk. The kernel (``csrc/flash_attention.cu``) reads its
-operands through element strides, so the (B, S, H, dh) layout of the
-models (``kernels/ops.py::flash_attention``) needs no transpose copy; it
-keeps the TPU kernel's mask semantics (a finite -1e30 fill, the running max
-from -inf, l clamped at 1e-30) and its whole-tile skips.
+and ragged Sq/Sk. The kernels (``csrc/flash_attention.cu``) read their
+operands through strides, so the (B, S, H, dh) layout of the models
+(``kernels/ops.py::flash_attention``) needs no transpose copy; they keep
+the TPU kernel's mask semantics (a finite -1e30 fill, the running max from
+-inf, l clamped at 1e-30) and its whole-tile skips.
+
+Two kernels, one rule (``tensor_core_route``): a bfloat16 call with dh 64
+or 128 whose base pointers are 16-byte aligned and whose batch, sequence
+and head strides are multiples of 16 bytes (TMA's conditions) takes the
+tensor-core kernel (``flash_attention_tc_launch``: wgmma products over a
+TMA-fed K/V ring); every other CUDA call takes the CUDA-core kernel
+(``flash_attention_launch``: float32 math, any dh up to 128, float32 or
+bfloat16). The rule reads only dtype, shape, pointers and strides; a launch
+that fails raises and never reruns on the other kernel. ``LAUNCHES``
+counts every launch under ``flash_attention`` and the tensor-core ones
+under ``flash_attention_tc`` as well.
 
 The plain version is a naive masked softmax in float32, the counterpart of
 the reference's ``kernels/ref.py::attention_ref``.
@@ -17,6 +28,7 @@ the reference's ``kernels/ref.py::attention_ref``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -25,10 +37,14 @@ from repro_torch.device import kernel_library
 from repro_torch.kernels import LAUNCHES
 
 __all__ = ["flash_attention_fwd", "flash_attention_strided",
-           "attention_plain", "NEG_INF"]
+           "launch_cuda_core", "tensor_core_route",
+           "tma_layout", "bshd_view", "attention_plain", "NEG_INF"]
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+TC_HEAD_DIMS = (64, 128)
+TMA_BOX_COLS = 64   # bf16 columns per TMA box: 128 bytes, the swizzle's span
+TMA_BOX_ROWS = 64   # query rows of a block, keys of a tile
 
 
 def attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
@@ -56,11 +72,70 @@ def attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
     return torch.einsum("hqk,hkd->hqd", p, vf).to(q.dtype)
 
 
-def flash_attention_strided(q, k, v, out, *, causal: bool = True,
-                            window: int = 0, prefix: int = 0) -> None:
-    """Launch the kernel on CUDA tensors q/out (B, Sq, H, dh) and k/v
-    (B, Sk, K, dh) of any strides with a contiguous head dim; writes
-    ``out``. Query head h reads kv head h // (H / K)."""
+def tensor_core_route(q, k, v, out) -> bool:
+    """Whether a CUDA call on q/out (B, Sq, H, dh) and k/v (B, Sk, K, dh)
+    takes the tensor-core kernel: bfloat16, dh 64 or 128, every base pointer
+    16-byte aligned and every batch, sequence and head stride a multiple of
+    16 bytes. Every other call takes the CUDA-core kernel."""
+    if q.dtype != torch.bfloat16 or q.shape[-1] not in TC_HEAD_DIMS:
+        return False
+    return all(t.data_ptr() % 16 == 0
+               and all(s * t.element_size() % 16 == 0 for s in t.stride()[:3])
+               for t in (q, k, v, out))
+
+
+def tma_layout(t) -> dict:
+    """The tensor map of a (B, S, heads, dh) operand of the tensor-core
+    kernel: dims innermost first (dh, heads, S, B), the byte strides of
+    heads, S and B, the box (64 columns, 1 head, 64 rows, 1 batch) and the
+    first column of each box of a tile (two boxes at dh 128)."""
+    v = _tma_values(tuple(t.shape), t.stride(), t.element_size())
+    return {"dims": v[0:4], "strides": v[4:7], "box": v[7:11],
+            "box_cols": tuple(range(0, v[0], TMA_BOX_COLS))}
+
+
+def _tma_values(shape, stride, es) -> tuple:
+    """``tma_layout`` as the kernel takes it: dims, byte strides, box and
+    the number of boxes per tile, 12 integers."""
+    B, S, n_heads, dh = shape
+    return (dh, n_heads, S, B, stride[2] * es, stride[1] * es,
+            stride[0] * es, TMA_BOX_COLS, 1, TMA_BOX_ROWS, 1,
+            dh // TMA_BOX_COLS)
+
+
+@functools.lru_cache(maxsize=64)
+def _tc_arrays(q, k, v, out):
+    """The tensor maps of q, k and v (3 x 12 integers) and the element
+    strides of out, as ctypes arrays, from each operand's (shape, stride);
+    bfloat16 operands. Cached: a serve calls with the same layouts again
+    and again."""
+    maps = (ctypes.c_longlong * 36)(
+        *(x for shape, stride in (q, k, v)
+          for x in _tma_values(shape, stride, 2)))
+    return maps, (ctypes.c_longlong * 3)(*out[1][:3])
+
+
+_SIGNATURES = {
+    "flash_attention_launch": (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+        + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 3
+        + [ctypes.c_float, ctypes.c_void_p]),
+    "flash_attention_tc_launch": (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+        + [ctypes.POINTER(ctypes.c_longlong)] * 2 + [ctypes.c_int] * 3
+        + [ctypes.c_float, ctypes.c_void_p]),
+}
+
+
+@functools.cache
+def _entry(name: str):
+    """A C entry point of the library, its ctypes signature set once."""
+    fn = getattr(kernel_library("flash_attention"), name)
+    fn.restype, fn.argtypes = ctypes.c_int, _SIGNATURES[name]
+    return fn
+
+
+def _check(q, k, v, out) -> None:
     B, Sq, H, dh = q.shape
     Sk, K = k.shape[1], k.shape[2]
     if q.device.type != "cuda":
@@ -78,20 +153,59 @@ def flash_attention_strided(q, k, v, out, *, causal: bool = True,
     if not 1 <= dh <= 128 or B * H > 65535 or min(Sq, Sk) < 1:
         raise ValueError("flash_attention: need 1 <= dh <= 128, "
                          "B*H <= 65535 and Sq, Sk >= 1")
+
+
+def _launch_cuda_core(q, k, v, out, causal, window, prefix) -> None:
+    B, Sq, H, dh = q.shape
+    Sk, K = k.shape[1], k.shape[2]
     strides = (ctypes.c_longlong * 12)(
         *(s for t in (q, k, v, out) for s in t.stride()[:3]))
-    fn = kernel_library("flash_attention").flash_attention_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-                   + [ctypes.POINTER(ctypes.c_longlong)]
-                   + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPES[q.dtype], B, H, K, Sq, Sk, dh, strides, int(causal),
-            window, prefix, 1.0 / math.sqrt(dh),
-            torch.cuda.current_stream(q.device).cuda_stream)
+    rc = _entry("flash_attention_launch")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        _DTYPES[q.dtype], B, H, K, Sq, Sk, dh, strides, int(causal), window,
+        prefix, 1.0 / math.sqrt(dh),
+        torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_launch: CUDA error {rc} at launch")
     LAUNCHES["flash_attention"] += 1
+
+
+def _launch_tensor_core(q, k, v, out, causal, window, prefix) -> None:
+    B, Sq, H, dh = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    layouts, o_strides = _tc_arrays(
+        *((tuple(t.shape), t.stride()) for t in (q, k, v, out)))
+    rc = _entry("flash_attention_tc_launch")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, K,
+        Sq, Sk, dh, layouts, o_strides, int(causal), window, prefix,
+        1.0 / math.sqrt(dh), torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"flash_attention_tc_launch: error {rc} at launch (-1: no "
+            "cuTensorMapEncodeTiled in the driver, -2: a tensor map refused, "
+            "else a CUDA error)")
+    LAUNCHES["flash_attention"] += 1
+    LAUNCHES["flash_attention_tc"] += 1
+
+
+def launch_cuda_core(q, k, v, out, *, causal: bool = True, window: int = 0,
+                     prefix: int = 0) -> None:
+    """The CUDA-core kernel (float32 math) on CUDA tensors q/out
+    (B, Sq, H, dh) and k/v (B, Sk, K, dh) of any strides with a contiguous
+    head dim; writes ``out``. Query head h reads kv head h // (H / K)."""
+    _check(q, k, v, out)
+    _launch_cuda_core(q, k, v, out, causal, window, prefix)
+
+
+def flash_attention_strided(q, k, v, out, *, causal: bool = True,
+                            window: int = 0, prefix: int = 0) -> None:
+    """Launch a kernel on CUDA tensors q/out (B, Sq, H, dh) and k/v
+    (B, Sk, K, dh) of any strides with a contiguous head dim; writes
+    ``out``. ``tensor_core_route`` picks the kernel."""
+    _check(q, k, v, out)
+    launch = _launch_tensor_core if tensor_core_route(q, k, v, out) \
+        else _launch_cuda_core
+    launch(q, k, v, out, causal, window, prefix)
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
@@ -107,7 +221,13 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
         return attention_plain(q, k, v, causal=causal, window=window,
                                prefix=prefix)
     out = torch.empty((BH, Sq, dh), dtype=q.dtype, device=q.device)
-    as_bshd = lambda t: t.unsqueeze(0).transpose(1, 2)  # noqa: E731
-    flash_attention_strided(as_bshd(q), as_bshd(k), as_bshd(v), as_bshd(out),
-                            causal=causal, window=window, prefix=prefix)
+    flash_attention_strided(bshd_view(q), bshd_view(k), bshd_view(v),
+                            bshd_view(out), causal=causal, window=window,
+                            prefix=prefix)
     return out
+
+
+def bshd_view(t):
+    """The (B*H, S, dh) layout of the TPU kernel as the (B, S, H, dh) layout
+    of the kernels, with B = 1 (a view, no copy)."""
+    return t.unsqueeze(0).transpose(1, 2)
