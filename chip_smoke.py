@@ -27,13 +27,20 @@ Phases, each failing the run with a non-zero exit:
    of 1024 tokens in batches of 4, 16 new tokens each; counters set to 0
    just before each and read just after; wall time, tokens/s and the first
    completion; then the first group once more under torch.profiler for the
-   device's busy share;
+   device's busy share and the share of the kernel's device entries;
 6. the two kernels against their plain versions on the inputs of their last
    serve launch (error, kernel, plain and library times, bound; for flash
-   attention also the CUDA-core kernel's time on the same inputs), and at
+   attention also the CUDA-core kernel's time on the same inputs; for the
+   SSD scan its device time, each of its four passes' device time (a
+   warning when their sum leaves the device time by over 5 %), its shared
+   memory per block and its bounds: the row's, f32-accurate products on
+   the tensor cores at the least cost for their operands (three bf16
+   products where x is bfloat16, three TF32 elsewhere), the kernel's own
+   scheme, three TF32 products each, and f32 on the CUDA cores), and at
    the six flash and four SSD shapes of the reference's kernel tests in
    float32 (flash: the CUDA-core kernel) and bfloat16 (flash: the
-   tensor-core kernel);
+   tensor-core kernel), plus SSD cases at mamba2's widths with 32 chunks and at five shapes off the
+   serve path (odd P and N, 128 columns, a 4096-row chunk, 70000 heads);
 7. the smoke configs of both architectures on the card (kernels) against
    the same weights on the CPU (plain versions): prefill and decode logits,
    and the greedy tokens of a float32 serve.
@@ -51,6 +58,7 @@ import dataclasses
 import json
 import math
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -58,10 +66,11 @@ import time
 
 ETA_GRID = [0.01, 0.03, 0.1, 0.3, 1.0, 3.0, 10.0, 30.0]
 # H100 SXM: device memory rate, float32 rate outside the tensor cores and
-# the dense bfloat16 tensor-core rate.
+# the dense bfloat16 and TF32 tensor-core rates.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
+TF32_OPS_PER_S = 495e12
 COST_TOL = 1e-5      # relative to max(1, |plain|)
 HEDGE_TOL = 1e-5     # absolute, on probabilities and weights
 KNIFE_EDGE = 1e-6    # |cdf - u*total| / total below which a draw may flip
@@ -78,9 +87,22 @@ FLASH_SHAPES = [     # tests/test_kernels.py:17-39 (BH, BK, Sq, Sk, dh, ...)
 SSD_SHAPES = [       # tests/test_kernels.py:42-62 (Bb, S, H, P, G, N, chunk)
     (2, 256, 4, 64, 1, 64, 64), (1, 200, 2, 32, 1, 16, 64),
     (2, 128, 4, 64, 2, 32, 32), (1, 512, 8, 64, 1, 128, 128)]
-# (arch, kernel on its prefill path, launches: layers x prefill rounds)
-SERVE = [("tinyllama_1_1b", "flash_attention", 22 * 2),
-         ("mamba2_2_7b", "ssd_scan", 64 * 2)]
+# mamba2's widths over 32 chunks: the state passing beyond the 4 chunks of
+# every shape above and of the serve prompts.
+SSD_LONG = (1, 8192, 80, 64, 1, 128, 256)
+# Shapes off the serve path: P 20 and 33, N 18 and 20 (element-wise
+# staging, odd P), P 128 with N 200 (two column tiles, four state row
+# blocks), grouped and ragged; a 4096-row chunk (64 causal tile rows) and
+# 70000 heads (more (batch, head) pairs than a y or z grid dimension holds).
+SSD_ODD = [(1, 77, 2, 20, 2, 18, 32), (1, 130, 2, 33, 1, 20, 64),
+           (2, 700, 4, 128, 2, 200, 256), (1, 4096, 2, 32, 1, 16, 4096),
+           (1, 64, 70000, 8, 1, 16, 64)]
+SSD_PASSES = ("ssd_chunk_state", "ssd_cb", "ssd_state_pass", "ssd_chunk_scan")
+# (arch, kernel on its prefill path, launches: layers x prefill rounds, the
+# device kernel names it launches)
+SERVE = [("tinyllama_1_1b", "flash_attention", 22 * 2,
+          ("flash_fwd_tc", "flash_fwd_kernel")),
+         ("mamba2_2_7b", "ssd_scan", 64 * 2, SSD_PASSES)]
 SERVE_REQUESTS, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 4, 1024, 16
 
 
@@ -147,6 +169,26 @@ def device_ms(torch, fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+def pass_device_ms(torch, fn, names, reps: int = 5) -> dict:
+    """Mean device milliseconds of each kernel of ``fn`` whose name holds
+    one of ``names``, over the launches torch.profiler recorded in ``reps``
+    calls (it may drop some, so the mean is over those it kept)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        hit = kernel_named(e.key, names)
+        if hit and e.device_type == torch.autograd.DeviceType.CUDA:
+            tot, cnt = out.get(hit, (0.0, 0))
+            out[hit] = (tot + e.self_device_time_total / 1e3, cnt + e.count)
+    return {n: out[n][0] / out[n][1] for n in names if n in out}
+
+
 def bound(n_bytes: float, n_ops: float,
           ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
@@ -154,9 +196,18 @@ def bound(n_bytes: float, n_ops: float,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def device_breakdown(torch, prof, wall_s: float, top: int = 8) -> None:
+def kernel_named(key: str, names) -> str | None:
+    """The first of ``names`` that the profiler key ``key`` is a kernel of
+    (the name followed by its template or argument list)."""
+    return next((n for n in names if n + "<" in key or n + "(" in key), None)
+
+
+def device_breakdown(torch, prof, wall_s: float, top: int = 8,
+                     kernel: tuple[str, tuple[str, ...]] | None = None) -> None:
     """Print the device's busy share over ``wall_s`` and its largest
-    entries, from a torch.profiler run."""
+    entries, from a torch.profiler run; with ``kernel`` = (label, names),
+    also the device time, launches and busy share of the entries of those
+    kernel names together."""
     rows = sorted(
         (e for e in prof.key_averages()
          if e.device_type == torch.autograd.DeviceType.CUDA
@@ -169,6 +220,13 @@ def device_breakdown(torch, prof, wall_s: float, top: int = 8) -> None:
     for e in rows[:top]:
         print(f"  device {e.self_device_time_total / 1e3:10.3f} ms "
               f"{e.count:6d} calls  {e.key[:70]}")
+    if kernel:
+        label, names = kernel
+        hits = [e for e in rows if kernel_named(e.key, names)]
+        k_ms = sum(e.self_device_time_total for e in hits) / 1e3
+        print(f"  {label} ({', '.join(names)}): device {k_ms:.3f} ms over "
+              f"{sum(e.count for e in hits)} launches, "
+              f"{k_ms / busy_ms:.6f} of the busy time")
 
 
 def task_ops(n_slots: int) -> int:
@@ -199,18 +257,41 @@ def attn_pairs(Sq: int, Sk: int, causal: bool, window: int,
     return int(ok.sum())
 
 
-def ssd_ops(Bb: int, S: int, H: int, P: int, G: int, N: int, Q: int) -> int:
-    """Operations of the chunked SSD scan on these inputs: C B^T on the
-    causal half once per group, its product with xdt, C times the entering
-    state (none for the first chunk, whose state is zero) and the state
-    update, two operations per multiply-add."""
-    ops = 0
+def ssd_ops(Bb: int, S: int, H: int, P: int, G: int, N: int,
+            Q: int) -> tuple[int, int]:
+    """Operations of the chunked SSD scan on these inputs, two per
+    multiply-add, split by operand: (the products with x: the causal
+    (C B^T .* L .* dt) x and the state update; the others: C B^T on the
+    causal half once per group and C times the entering state, none for the
+    first chunk, whose state is zero)."""
+    x_ops = other_ops = 0
     for c, t0 in enumerate(range(0, S, Q)):
         q = min(Q, S - t0)
         pairs = q * (q + 1) // 2
-        ops += 2 * Bb * (G * pairs * N + H * pairs * P
-                         + H * q * N * P * (2 if c else 1))
-    return ops
+        x_ops += 2 * Bb * H * (pairs * P + q * N * P)
+        other_ops += 2 * Bb * (G * pairs * N + (H * q * N * P if c else 0))
+    return x_ops, other_ops
+
+
+def ssd_bounds(n_bytes: float, x_ops: int, other_ops: int,
+               x_bf16: bool) -> dict:
+    """Bounds of the SSD scan, (ms, by), under four rates for its products:
+    "row", the least time at f32 accuracy on the tensor cores, where a
+    product with a bfloat16 x (exact in bf16) splits its f32 operand into
+    three bf16 parts (three products at the dense bf16 rate) and every
+    other product takes three TF32 products; "kernel", the kernel's own
+    scheme (two TF32 products with a bfloat16 x, three elsewhere);
+    "tf32_3", three TF32 products each; "f32", the CUDA cores in f32."""
+    x3 = x_ops * 3 / TF32_OPS_PER_S
+    rest = other_ops * 3 / TF32_OPS_PER_S
+    t_ops = {
+        "row": (x_ops * 3 / BF16_OPS_PER_S if x_bf16 else x3) + rest,
+        "kernel": (x_ops * 2 / TF32_OPS_PER_S if x_bf16 else x3) + rest,
+        "tf32_3": x3 + rest,
+        "f32": (x_ops + other_ops) / F32_OPS_PER_S}
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    return {k: (t_bytes * 1e3, "bytes") if t_bytes >= t else
+            (t * 1e3, "operations") for k, t in t_ops.items()}
 
 
 def flash_plain_bshd(q, k, v, **kw):
@@ -252,7 +333,7 @@ def serve_phases(torch, np) -> tuple[dict, dict]:
         setattr(mod, attr, wrapper)
         originals[name] = (mod, attr, fn)
     counts = {}
-    for arch, kernel, expected in SERVE:
+    for arch, kernel, expected, device_names in SERVE:
         cfg = get_config(arch)
         prompts = np.random.default_rng(0).integers(
             0, cfg.vocab, (SERVE_REQUESTS, SERVE_PROMPT), dtype=np.int32)
@@ -296,7 +377,8 @@ def serve_phases(torch, np) -> tuple[dict, dict]:
                                             params=state, device="cuda")
             torch.cuda.synchronize()
         t1 = time.perf_counter()
-        device_breakdown(torch, prof, stats_p["wall_s"])
+        device_breakdown(torch, prof, stats_p["wall_s"],
+                         kernel=(kernel, device_names))
         print(f"  first group under torch.profiler (not counted): serve loop "
               f"{stats_p['wall_s']:.3f}s; profiled run and trace collection "
               f"{t1 - t0:.3f}s, reading the trace "
@@ -389,20 +471,55 @@ def lm_kernel_entries(torch, counts, captured) -> list[dict]:
     G, N = Bm.shape[2:]
     n_bytes = sum(t.numel() * t.element_size()
                   for t in (x, dt, A, Bm, Cm, y, st))
-    b_ms, b_by = bound(n_bytes, ssd_ops(Bb, S, H, P, G, N, min(chunk, S)))
+    x_ops, other_ops = ssd_ops(Bb, S, H, P, G, N, min(chunk, S))
+    bounds = ssd_bounds(n_bytes, x_ops, other_ops, x.dtype == torch.bfloat16)
+    b_ms, b_by = bounds["row"]
+    run = lambda: ss.ssd_scan(x, dt, A, Bm, Cm, chunk)  # noqa: E731
+    dev_ms = device_ms(torch, run)
+    passes = pass_device_ms(torch, run, SSD_PASSES)
+    pass_sum = sum(passes.values())
+    smem = ss.smem_bytes(x.dtype, P)
     entries.append({
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:78",
         "launches": counts["ssd_scan"].get("ssd_scan", 0),
         "max_abs_err": max(e_y, e_s),
-        "ms": cuda_ms(torch, lambda: ss.ssd_scan(x, dt, A, Bm, Cm, chunk)),
+        "ms": cuda_ms(torch, run),
         "plain_ms": cuda_ms(torch, lambda: ss.ssd_scan_plain(
             x, dt, A, Bm, Cm, chunk)),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "bound_rate": "products with the bf16 x at bf16 / 3 (f32 operand "
+                      "split in three bf16 parts), the rest at TF32 / 3",
+        "bound_kernel_scheme_ms": bounds["kernel"][0],
+        "bound_tf32_3_ms": bounds["tf32_3"][0],
+        "bound_f32_cuda_core_ms": bounds["f32"][0],
+        "bound_f32_cuda_core_by": bounds["f32"][1],
+        "ops": {"x": x_ops, "other": other_ops},
+        "device_ms": dev_ms, "pass_device_ms": passes,
+        "pass_sum_over_device_ms": pass_sum / dev_ms,
+        "smem_bytes": smem,
         "shape": {"B": Bb, "S": S, "H": H, "P": P, "G": G, "N": N,
                   "chunk": chunk, "dtype": dtype},
         "y_err": e_y, "state_err": e_s, "y_err_float32_x": e_32})
+    e = entries[-1]
+    print(f"ssd_scan at the serve shape, ms per call {e['ms']:.4f}, device "
+          f"{dev_ms:.4f} (passes: " + ", ".join(
+              f"{k} {v:.4f}" for k, v in passes.items())
+          + f", sum {pass_sum:.4f}); {e['launches']} serve calls, each the "
+          "four passes of the one kernel (no route); dynamic shared memory "
+          f"per block {smem}")
+    print(f"ssd_scan bounds at the serve shape: {x_ops / 1e9:.3f} GFLOP with "
+          f"x, {other_ops / 1e9:.3f} GFLOP without, {n_bytes / 1e6:.1f} MB: "
+          f"{b_ms:.4f} ({b_by}; x products at bf16/3, the rest at TF32/3: "
+          f"the row's), {bounds['kernel'][0]:.4f} (the kernel's scheme: x "
+          f"products at TF32/2), {bounds['tf32_3'][0]:.4f} (all at TF32/3), "
+          f"{bounds['f32'][0]:.4f} ({bounds['f32'][1]}, f32 on the CUDA "
+          "cores)")
+    if set(passes) != set(SSD_PASSES) or abs(pass_sum / dev_ms - 1) > 0.05:
+        print(f"WARNING: ssd_scan's profiled passes ({sorted(passes)}) sum to "
+              f"{pass_sum:.4f} ms against {dev_ms:.4f} ms of device time by "
+              "events: the per-pass times are not to be trusted in this run")
     ok = ok_y and ok_s and ok_32
     print(f"ssd_scan vs plain at the serve shape: y ({dtype}) max abs err "
           f"{e_y:.3e} (tol {LM_TOL[dtype]['ssd']} abs + rel), final state "
@@ -423,6 +540,9 @@ def lm_kernel_sweep(torch) -> None:
     rand = lambda *shape: torch.randn(*shape, device="cuda",  # noqa: E731
                                       generator=gen)
     worst = {}
+    smem_limit = getattr(torch.cuda.get_device_properties(0),
+                         "shared_memory_per_block_optin", 232448)
+    smem_max = 0
     for dtype, tdt in (("float32", torch.float32),
                        ("bfloat16", torch.bfloat16)):
         tol = LM_TOL[dtype]
@@ -444,12 +564,16 @@ def lm_kernel_sweep(torch) -> None:
             if tc != (tdt == torch.bfloat16):
                 fail(f"flash_attention {dtype} at {(BH, BK, Sq, Sk, dh)} "
                      f"{kw}: {tc} tensor-core launches")
-        for Bb, S, H, P, G, N, chunk in SSD_SHAPES:
+        for Bb, S, H, P, G, N, chunk in SSD_SHAPES + [SSD_LONG] + SSD_ODD:
             x = rand(Bb, S, H, P).to(tdt)
             dt = torch.rand(Bb, S, H, device="cuda", generator=gen) * 0.19 \
                 + 0.01
             A = -(torch.rand(H, device="cuda", generator=gen) * 1.5 + 0.5)
             Bm, Cm = rand(Bb, S, G, N), rand(Bb, S, G, N)
+            smem_max = max(smem_max, *ss.smem_bytes(tdt, P).values())
+            if smem_max > smem_limit:
+                fail(f"ssd_scan {dtype} P={P}: {smem_max} bytes of shared "
+                     f"memory per block, the card allows {smem_limit}")
             y, st = ss.ssd_scan(x, dt, A, Bm, Cm, chunk)
             yr, sr = ss.ssd_scan_plain(x, dt, A, Bm, Cm, chunk)
             e_y, ok_y = allclose(y, yr, tol["ssd"])
@@ -460,9 +584,12 @@ def lm_kernel_sweep(torch) -> None:
                      f"{e_y:.3e}, state {e_s:.3e}")
     print("LM kernels vs plain at the reference's test shapes (flash: "
           "bfloat16 on the tensor-core route, float32 on the CUDA-core "
-          "kernel): " + ", ".join(
+          f"kernel; SSD also at {SSD_LONG}, 32 chunks, and {SSD_ODD}): "
+          + ", ".join(
         f"{name} {dtype} max abs err {e:.3e}"
-        for (name, dtype), e in sorted(worst.items())) + " OK")
+        for (name, dtype), e in sorted(worst.items()))
+          + f" OK; SSD shared memory per block at most {smem_max} of "
+          f"{smem_limit} bytes")
 
 
 def lm_model_check(torch, np) -> None:
@@ -473,7 +600,7 @@ def lm_model_check(torch, np) -> None:
     from repro_torch.models import build
 
     rms = lambda a: float(a.float().square().mean().sqrt())  # noqa: E731
-    for arch, _, _ in SERVE:
+    for arch, *_ in SERVE:
         for dtype in ("float32", "bfloat16"):
             cfg = dataclasses.replace(smoke_config(arch), dtype=dtype)
             cpu = build(cfg, "cpu")
@@ -556,6 +683,16 @@ def main() -> int:
     for fn_name, regs, spills in ptxas_summary(logs.get("flash_attention", ""),
                                                "flash_fwd_tc"):
         print(f"[ptxas flash_fwd_tc] {fn_name}: {regs}; {spills}")
+    for fn_name, regs, spills in ptxas_summary(logs.get("ssd_scan", ""),
+                                               "ssd_"):
+        # e.g. ..._14ssd_chunk_scanI13__nv_bfloat16Li64EE...: pass<x, PW>
+        m = re.search(r"(ssd_[a-z_]+?)(I(13__nv_bfloat16|f)Li(\d+)E)?E",
+                      fn_name)
+        label = m.group(1) if m else fn_name
+        if m and m.group(2):
+            x_type = "bf16" if m.group(3) == "13__nv_bfloat16" else "f32"
+            label += f"<{x_type}, PW {m.group(4)}>"
+        print(f"[ptxas ssd_scan] {label}: {regs}; {spills}")
     print(f"[phase build: {time.perf_counter() - t0:.3f}s, "
           f"{len(logs)} source(s) compiled]")
     kind = torch.cuda.get_device_name(0)

@@ -13,13 +13,15 @@ version.
   or 128, a CUDA-core kernel for every other call;
   ``ops.flash_attention`` for the models' (B, S, H, dh) layout);
 * ``ssd_scan.ssd_scan`` — the Mamba-2 SSD chunked scan
-  (``csrc/ssd_scan.cu``; ``ops.ssd``).
+  (``csrc/ssd_scan.cu``: four chunk-parallel passes with split-TF32
+  tensor-core products; ``ops.ssd``).
 
 A wrapper given CPU tensors computes its plain version; given CUDA tensors
 it launches its kernel or raises. ``LAUNCHES`` counts kernel launches by
 wrapper name (plain-version calls do not count), so a run can show which
 kernels its path went through; ``flash_attention`` counts both attention
-kernels and ``flash_attention_tc`` the tensor-core ones among them.
+kernels and ``flash_attention_tc`` the tensor-core ones among them;
+``ssd_scan`` counts calls, each of which launches the scan's four passes.
 """
 
 from __future__ import annotations

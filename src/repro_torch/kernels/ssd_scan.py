@@ -2,13 +2,21 @@
 
 Replaces the TPU kernel ``repro/kernels/ssd_scan.py::ssd_scan``. The TPU
 kernel carried the (N, P) inter-chunk state in VMEM across a sequential
-chunk grid dimension; the CUDA kernel (``csrc/ssd_scan.cu``) gives each
-(batch, head) one block that loops over the chunks with the state in shared
-memory. The chunk is Q = min(chunk, S); the sequence is padded to a multiple
-of Q with dt = 0, which is exact (identity decay, zero update). Both versions
+chunk grid dimension; the CUDA kernel (``csrc/ssd_scan.cu``) splits the scan
+into four chunk-parallel passes: the chunk states (with the cumsum of
+A * dt), C Bᵀ once per group, the state passing over the chunks, and the
+chunk scan. Its products run on the tensor cores in TF32, split into high
+and low parts for float32 accuracy (3xTF32). ``ssd_plan`` is its launch
+plan: grids and the scratch the wrapper allocates (the kernels allocate
+nothing); the kernel sizes its own shared memory (``smem_bytes`` asks it).
+The chunk is Q = min(chunk, S); the sequence is padded to a multiple of Q
+with dt = 0, which is exact (identity decay, zero update). Both versions
 take the cumsum of A * dt within a chunk, and its differences, in float64:
 at mamba2's decay rates it reaches a few thousand, where a float32 cumsum
 (the TPU kernel's) loses 1e-4 absolute.
+
+``LAUNCHES["ssd_scan"]`` counts calls of the wrapper that reached the card
+(one per prefill layer), not the four device launches of each.
 
 The plain version runs the same chunked math with torch ops, all (batch,
 head) pairs at once and the chunks in a Python loop.
@@ -17,16 +25,22 @@ head) pairs at once and the chunks in a Python loop.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.device import kernel_library
 from repro_torch.kernels import LAUNCHES
 
-__all__ = ["ssd_scan", "ssd_scan_plain"]
+__all__ = ["ssd_scan", "ssd_scan_plain", "ssd_plan", "smem_bytes",
+           "vector_ok"]
 
-_SMEM_LIMIT = 232448         # bytes of shared memory one H100 block can use
+GRID_X_LIMIT = 2 ** 31 - 1   # largest x grid dimension
+GRID_LIMIT = 65535           # largest y and z grid dimension
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# csrc/ssd_scan.cu: 64-row tiles (output rows, state rows, C Bᵀ tiles), 32
+# state rows per state-pass block.
+BM, PASS_ROWS = 64, 32
 
 
 def _pad_rows(a: torch.Tensor, pad: int) -> torch.Tensor:
@@ -78,18 +92,92 @@ def ssd_scan_plain(x, dt, A, B, C, chunk: int = 128, init_state=None):
     return y, state.transpose(-1, -2)
 
 
-def _smem_bytes(Q: int, P: int, N: int) -> int:
-    """Dynamic shared memory of one block of the kernel (csrc/ssd_scan.cu)."""
-    up = lambda n: -(-n // 64) * 64  # noqa: E731
-    NP, PP, QP = up(N), up(P), up(Q)
-    return 4 * (NP * (PP + 4) + 2 * QP + 2 * NP * 68 + 64 * PP + 64 * 68)
+def _up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def ssd_plan(Bb: int, S: int, H: int, P: int, G: int, N: int, chunk: int,
+             dtype=torch.bfloat16) -> dict:
+    """The kernel's launch plan for x of ``dtype``: the chunk Q, its padding
+    QP (a multiple of 64), the chunk count nc, the state's padded width PS,
+    the P tile width PW, each pass's grid, and the scratch shapes (cum
+    float64, scaled by log2(e); cb, the causal 64 x 64 tiles of C Bᵀ, and
+    states float32). Raises ValueError for a shape the kernel does not take."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"ssd_scan: no kernel for x of {dtype}")
+    if min(Bb, S, H, P, G, N, chunk) < 1 or H % G:
+        raise ValueError("ssd_scan: inconsistent shapes")
+    if P > 128:
+        raise ValueError(f"ssd_scan: P={P} exceeds the kernel's 128 columns")
+    Q = min(chunk, S)
+    QP, nc, PS = _up(Q, BM), -(-S // Q), _up(P, 4)
+    PW = 64 if P <= 64 else 128
+    t64 = QP // BM
+    ntiles = t64 * (t64 + 1) // 2       # causal 64 x 64 tiles of C Bᵀ
+    grids = {
+        "chunk_state": (Bb * H * nc, -(-N // BM), 1),
+        "cb": (Bb * nc * G * ntiles, 1, 1),
+        "state_pass": (Bb * H, -(-N // PASS_ROWS), 1),
+        "chunk_scan": (Bb * H * nc, t64, 1),
+    }
+    if max(g[0] for g in grids.values()) > GRID_X_LIMIT \
+            or max(g[1] for g in grids.values()) > GRID_LIMIT:
+        raise ValueError(f"ssd_scan: Bb*H*nc={Bb * H * nc}, N={N} or chunk "
+                         f"{Q} exceeds the grid limits")
+    return {"Q": Q, "QP": QP, "nc": nc, "PS": PS, "PW": PW,
+            "grids": grids,
+            "scratch": {"cum": (Bb, H, nc, QP),
+                        "cb": (Bb, nc, G, ntiles, BM, BM),
+                        "states": (Bb, H, nc, N, PS)}}
+
+
+def vector_ok(t: torch.Tensor, width: int) -> bool:
+    """Whether the kernel may read rows of ``width`` elements of ``t`` by
+    16-byte copies: base pointer, the strides of every dimension but the
+    last, and the width all multiples of 16 bytes."""
+    es = t.element_size()
+    return t.data_ptr() % 16 == 0 and width * es % 16 == 0 and \
+        all(s * es % 16 == 0 for s in t.stride()[:-1])
+
+
+@functools.cache
+def _entry():
+    """The kernel's C entry point, its ctypes signature set once."""
+    fn = kernel_library("ssd_scan").ssd_scan_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong)]
+                   + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+                   + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p])
+    return fn
+
+
+def smem_bytes(dtype, P: int) -> dict:
+    """Dynamic shared memory per block of each pass for x of ``dtype`` and
+    ``P`` columns, as the kernel sizes it (none depends on the chunk, N or
+    the batch)."""
+    out = (ctypes.c_int * 4)()
+    rc = kernel_library("ssd_scan").ssd_scan_smem(_DTYPES[dtype], P, out)
+    if rc:
+        raise ValueError(f"ssd_scan_smem: error {rc} for {dtype}, P={P}")
+    return dict(zip(("chunk_state", "cb", "state_pass", "chunk_scan"), out))
+
+
+@functools.lru_cache(maxsize=64)
+def _plan_args(Bb, S, H, P, G, N, chunk, dtype, x_stride):
+    """The plan and its ctypes arrays, cached: a serve calls with the same
+    shapes again and again."""
+    plan = ssd_plan(Bb, S, H, P, G, N, chunk, dtype)
+    ints = (ctypes.c_int * 4)(plan["Q"], plan["QP"], plan["nc"], plan["PS"])
+    return plan, ints, (ctypes.c_longlong * 3)(*x_stride[:3])
 
 
 def ssd_scan(x, dt, A, B, C, chunk: int = 128):
     """x: (Bb, S, H, P) float32 or bfloat16; dt: (Bb, S, H); A: (H,);
     B/C: (Bb, S, G, N), float32. Returns (y, final_state): y (Bb, S, H, P)
     in x.dtype, state (Bb, H, P, N) float32. CPU tensors take the plain
-    version; CUDA tensors launch the kernel."""
+    version; CUDA tensors launch the kernel, which reads x through its
+    strides (a copy only when its last dim is not contiguous)."""
     Bb, S, H, P = x.shape
     G, N = B.shape[2], B.shape[3]
     if dt.shape != (Bb, S, H) or A.shape != (H,) \
@@ -99,24 +187,27 @@ def ssd_scan(x, dt, A, B, C, chunk: int = 128):
         return ssd_scan_plain(x, dt, A, B, C, chunk)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan has no kernel for {x.device}")
-    if x.dtype not in _DTYPES:
-        raise ValueError(f"ssd_scan: no kernel for x of {x.dtype}")
     for name, t in (("dt", dt), ("A", A), ("B", B), ("C", C)):
         if t.device != x.device or t.dtype != torch.float32:
             raise ValueError(f"{name} must be float32 on {x.device}")
-    Q = min(chunk, S)
-    if not 1 <= P <= 128 or Q < 1 or _smem_bytes(Q, P, N) > _SMEM_LIMIT:
-        raise ValueError(f"ssd_scan: P={P}, N={N}, chunk {Q} exceed the "
-                         "kernel's shared memory")
-    x, dt, A, B, C = (t.contiguous() for t in (x, dt, A, B, C))
-    y = torch.empty_like(x)
+    if x.stride(-1) != 1:
+        x = x.contiguous()
+    dt, A, B, C = (t.contiguous() for t in (dt, A, B, C))
+    plan, ints, x_strides = _plan_args(Bb, S, H, P, G, N, chunk, x.dtype,
+                                       x.stride())
+    y = torch.empty((Bb, S, H, P), dtype=x.dtype, device=x.device)
     state = torch.empty((Bb, H, P, N), dtype=torch.float32, device=x.device)
-    fn = kernel_library("ssd_scan").ssd_scan_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    rc = fn(*(t.data_ptr() for t in (x, dt, A, B, C, y, state)),
-            _DTYPES[x.dtype], Bb, S, H, P, G, N, Q,
-            torch.cuda.current_stream(x.device).cuda_stream)
+    sc = plan["scratch"]
+    cum = torch.empty(sc["cum"], dtype=torch.float64, device=x.device)
+    cb = torch.empty(sc["cb"], dtype=torch.float32, device=x.device)
+    states = torch.empty(sc["states"], dtype=torch.float32, device=x.device)
+    rc = _entry()(x.data_ptr(), x_strides,
+                  *(t.data_ptr() for t in (dt, A, B, C, y, state, cum, cb,
+                                           states)),
+                  _DTYPES[x.dtype], Bb, S, H, P, G, N, ints,
+                  int(vector_ok(x, P)),
+                  int(vector_ok(B, N) and vector_ok(C, N)),
+                  torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ssd_scan_launch: CUDA error {rc} at launch")
     LAUNCHES["ssd_scan"] += 1
