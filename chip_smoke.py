@@ -16,7 +16,22 @@ Phases, each failing the run with a non-zero exit:
    printed with its largest device entries;
 3. each of those kernels against its plain PyTorch version on the card, on
    the inputs of its last main-path launch: max abs error, kernel and plain
-   times (CUDA events, median of 5 after a warm-up) and the bound;
+   times (CUDA events, median of 5 after a warm-up), device time and the
+   bound. The chain: every main-path launch must take the shared-memory
+   route (their routes and shares of tasks with work are printed); both
+   routes are held bit for bit to the plain version and timed (per call,
+   device, the kernel alone), and so is a synthetic horizon on each side of
+   the route's slot limit (58111 slots: shared memory, 70000: global). The
+   task kernel is held bit for bit too. Hedge: the final log-weights and
+   sampled trajectory rows equal to the plain version's, each pass's device
+   time (a warning when their sum leaves the device time by over 5 %), the
+   trajectory pass of one instance alone, the ring's shared memory (as the
+   ``.cu`` lays it out) against the card's limit, and the step's
+   dependency chain read from the SASS (``cuobjdump``) at latencies a
+   probe kernel measures, times J at the card's maximum SM clock: the
+   dependency floor. The
+   ptxas registers and spills of the cost and Hedge kernels are printed in
+   phase 1;
 4. correctness on a small input: the cost tensor against the float64 host
    simulator and the Hedge replay against the float64 host loop;
 5. the LM substrate's serving path at full width —
@@ -104,6 +119,40 @@ SERVE = [("tinyllama_1_1b", "flash_attention", 22 * 2,
           ("flash_fwd_tc", "flash_fwd_kernel")),
          ("mamba2_2_7b", "ssd_scan", 64 * 2, SSD_PASSES)]
 SERVE_REQUESTS, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 4, 1024, 16
+# Chain cases off Table 6's path: a synthetic horizon at the shared-memory
+# route's last slot count and one beyond it (the global route), with
+# (B, S, R, L) and the seed of their data.
+CHAIN_LONG = [(58111, "smem"), (70000, "global")]
+CHAIN_LONG_SHAPE, CHAIN_LONG_SEED = (1, 2, 20000, 49), 7
+HEDGE_PASSES = ("trajectory_kernel", "sample_kernel")
+# Dependent-latency probe of the operations on the Hedge step's chain, in SM
+# cycles: 4096 dependent iterations of one warp, timed with clock64.
+LATENCY_PROBE = r"""
+#include <cuda_runtime.h>
+#define N 4096
+__global__ void probe(long long* cyc, int* sink, float y, int m) {
+  float x = threadIdx.x * 1e-3f;
+  int v = threadIdx.x;
+  long long t[5];
+  t[0] = clock64();
+  for (int i = 0; i < N; ++i) x = x - y;                        // FADD
+  t[1] = clock64();
+  for (int i = 0; i < N; ++i) x = fmaxf(x, y * (float)(i & 1));  // FMNMX
+  t[2] = clock64();
+  for (int i = 0; i < N; ++i) v = v ^ ((v >> 31) & m);           // SHF + LOP3
+  t[3] = clock64();
+  for (int i = 0; i < N; ++i)                                    // REDUX,
+    v = __reduce_max_sync(0xffffffffu, v) ^ (int)threadIdx.x;    // move, LOP3
+  t[4] = clock64();
+  sink[threadIdx.x] = v + (int)x;
+  if (threadIdx.x == 0)
+    for (int k = 0; k < 4; ++k) cyc[k] = t[k + 1] - t[k];
+}
+extern "C" int latency_probe(long long* cyc, int* sink) {
+  probe<<<1, 32>>>(cyc, sink, 1.0001f, 0x7fffffff);
+  return (int)cudaDeviceSynchronize();
+}
+"""
 
 
 def fail(msg: str) -> None:
@@ -202,6 +251,101 @@ def kernel_named(key: str, names) -> str | None:
     return next((n for n in names if n + "<" in key or n + "(" in key), None)
 
 
+def start_latency_probe(build_dir: pathlib.Path, nvcc: str):
+    """Start compiling the latency probe beside the kernels' builds."""
+    build_dir.mkdir(parents=True, exist_ok=True)
+    src = build_dir / "latency_probe.cu"
+    src.write_text(LATENCY_PROBE)
+    lib = build_dir / "liblatency_probe.so"
+    return subprocess.Popen(
+        [nvcc, "-gencode=arch=compute_90a,code=sm_90a", "-O3", "-fmad=false",
+         "-shared", "-Xcompiler", "-fPIC", "-o", str(lib), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib
+
+
+def latency_table(torch, lib_path) -> dict:
+    """SM cycles of one dependent FADD, FMNMX, integer operation (SHF or
+    LOP3) and redux.sync with the move of its result to a register."""
+    import ctypes
+    lib = ctypes.CDLL(str(lib_path))
+    cyc = torch.zeros(4, dtype=torch.int64, device="cuda")
+    sink = torch.zeros(32, dtype=torch.int32, device="cuda")
+    if lib.latency_probe(ctypes.c_void_p(cyc.data_ptr()),
+                         ctypes.c_void_p(sink.data_ptr())) != 0:
+        fail("the latency probe did not run")
+    fadd, fmnmx, map2, redux = (float(c) / 4096 for c in cyc.tolist())
+    return {"fp": fadd, "fmnmx": fmnmx, "int": map2 / 2,
+            "redux_move": redux - map2 / 2}
+
+
+def sass_function(cuobjdump, lib_path, name: str) -> list[tuple[str, str]]:
+    """(opcode, operands) of the SASS of the function whose mangled name
+    holds ``name``, from ``cuobjdump -sass``."""
+    out = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
+                         capture_output=True, text=True, timeout=120).stdout
+    body = next((part for part in out.split("Function : ")[1:]
+                 if part.split("\n", 1)[0].strip().find(name) >= 0), "")
+    ins = []
+    for line in body.splitlines():
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z0-9_.]+)"
+                      r"\s*([^;]*);", line)
+        if m:
+            ins.append((m.group(2), m.group(3)))
+    return ins
+
+
+def step_chain(ins, lat: dict) -> tuple[list[str], float]:
+    """The dependency chain of one Hedge step in the SASS: from the result
+    of one REDUX to the operand of the next, the longest path by ``lat``'s
+    latencies. Every pair of consecutive REDUXes is walked (the compiler
+    also emits REDUXes in divergent fallback blocks, where no chain joins
+    them); returns the median chain over the pairs that do join: its
+    opcodes, ending with the REDUX, and its cycles."""
+    regs = lambda s: re.findall(r"\bU?R(?:\d+)\b", s)  # noqa: E731
+
+    def cost(op):
+        if op.startswith(("FADD", "FMUL")):
+            return lat["fp"]
+        if op.startswith("FMNMX"):
+            return lat["fmnmx"]
+        if op.startswith(("MOV", "IMAD.U32", "IMAD.MOV")):
+            return 0.0            # the move of REDUX's result: in redux_move
+        return lat["int"]
+
+    def walk(a, b):
+        ready = {regs(ins[a][1])[0]: (lat["redux_move"], ["REDUX"])}
+        for op, args in ins[a + 1:b]:
+            rs = regs(args)
+            if not rs or op.startswith(("ST", "BRA", "BAR")) or "SETP" in op:
+                continue               # no register written
+            hit = [ready[r] for r in rs[1:] if r in ready]
+            if hit and not op.startswith(("LD", "SHFL")):
+                t, path = max(hit, key=lambda h: h[0])
+                ready[rs[0]] = (t + cost(op), path + [op.split(".")[0]])
+            else:
+                ready.pop(rs[0], None)     # overwritten off the chain
+        rs = regs(ins[b][1])
+        return ready.get(rs[1]) if len(rs) > 1 else None
+
+    reduxes = [i for i, (op, _) in enumerate(ins) if op.startswith("REDUX")]
+    joined = sorted((c for c in (walk(a, b) for a, b in
+                                 zip(reduxes, reduxes[1:])) if c),
+                    key=lambda c: c[0])
+    if not joined:
+        return [], float("nan")
+    t, path = joined[len(joined) // 2]
+    return path + ["REDUX"], t
+
+
+def smi_clocks() -> dict:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    sm, sm_max = (float(v) for v in out[0].split(",")) if out else (0, 0)
+    return {"sm_mhz": sm, "max_sm_mhz": sm_max}
+
+
 def device_breakdown(torch, prof, wall_s: float, top: int = 8,
                      kernel: tuple[str, tuple[str, ...]] | None = None) -> None:
     """Print the device's busy share over ``wall_s`` and its largest
@@ -235,12 +379,6 @@ def task_ops(n_slots: int) -> int:
     (four interpolations, the two inversions, the flexibility test and
     the cost sums)."""
     return 2 * math.ceil(math.log2(n_slots + 2)) + 60
-
-
-def rel_err(got, ref):
-    d = (got.double() - ref.double()).abs()
-    return float(d.max()), bool((d <= COST_TOL * ref.double().abs()
-                                 .clamp_min(1.0)).all())
 
 
 def attn_pairs(Sq: int, Sk: int, causal: bool, window: int,
@@ -657,8 +795,9 @@ def main() -> int:
 
     from repro_torch.core import (
         benchmark_bid_policies, generate_chain_jobs, selfowned_policies)
-    from repro_torch.core.simulate import simulate_chains_early, simulate_tasks
-    from repro_torch.device import build_kernels
+    from repro_torch.core.simulate import (
+        _WORK_EPS, simulate_chains_early, simulate_tasks)
+    from repro_torch.device import BUILD_DIR, _library_path, _nvcc, build_kernels
     from repro_torch.engine import build_grid_plan, evaluate_grid, make_scenarios
     from repro_torch.experiments import table6
     from repro_torch.kernels import LAUNCHES
@@ -674,7 +813,11 @@ def main() -> int:
 
     # -- 1. build and device ------------------------------------------------
     t0 = time.perf_counter()
+    probe_proc, probe_lib = start_latency_probe(BUILD_DIR, _nvcc())
     logs = build_kernels()
+    probe_log, _ = probe_proc.communicate()
+    if probe_proc.returncode != 0:
+        fail(f"the latency probe did not build:\n{probe_log}")
     for name, log in logs.items():
         for line in log.splitlines():
             if "ptxas" in line and ("registers" in line or "spill" in line
@@ -693,6 +836,18 @@ def main() -> int:
             x_type = "bf16" if m.group(3) == "13__nv_bfloat16" else "f32"
             label += f"<{x_type}, PW {m.group(4)}>"
         print(f"[ptxas ssd_scan] {label}: {regs}; {spills}")
+    regs_of = {}
+    for src, names in (("policy_cost", ("chain_smem_kernel", "chain_kernel",
+                                        "task_kernel")),
+                       ("hedge_replay", ("trajectory_kernel",
+                                         "sample_kernel"))):
+        for fn_name, regs, spills in ptxas_summary(logs.get(src, ""), "_"):
+            label = next((n for n in names if n in fn_name), None)
+            m = re.search(r"ILi(\d+)E", fn_name)
+            if label:
+                label += f"<{m.group(1)}>" if m else ""
+                regs_of[label] = f"{regs}; {spills or 'no spill line'}"
+                print(f"[ptxas {src}] {label}: {regs_of[label]}")
     print(f"[phase build: {time.perf_counter() - t0:.3f}s, "
           f"{len(logs)} source(s) compiled]")
     kind = torch.cuda.get_device_name(0)
@@ -716,6 +871,19 @@ def main() -> int:
     chain_fn = record(pc, "policy_cost_chain")
     task_fn = record(pc, "policy_cost")
     hedge_fn = record(wu, "hedge_replay")
+    # Each chain launch's route and share of tasks with work (kept on the
+    # device, read after the run).
+    chain_seen, recorded_chain = [], pc.policy_cost_chain
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def chain_probe(A, C, arrival, ends, z_t, *rest, **kw):
+        zz = z_t if z_t.dim() == 4 else z_t[:, None]
+        B_, S_, n1_ = A.shape
+        plan = pc.chain_plan(B_, S_, zz.shape[1], *ends.shape[-2:], n1_ - 1,
+                             sms)
+        chain_seen.append((plan.route, (zz > _WORK_EPS).float().mean()))
+        return recorded_chain(A, C, arrival, ends, z_t, *rest, **kw)
+    pc.policy_cost_chain = chain_probe
 
     if args.jobs != 10000:
         print(f"CUT: Table 6 stream cut from 10000 to {args.jobs} jobs")
@@ -760,13 +928,26 @@ def main() -> int:
     # -- 3. kernels against their plain versions, main-path inputs ----------
     kernels = []
 
+    def max_err(got, ref, keys):
+        return max(float((got[key].double() - ref[key].double()).abs().max())
+                   for key in keys)
+
+    # The chain: each main-path launch's route, then both routes on the
+    # inputs of the last launch, each bit for bit against the plain version.
+    routes = [r for r, _ in chain_seen]
+    shares = [round(float(f), 4) for _, f in chain_seen]
+    print(f"policy_cost_chain main-path launches: routes {routes}, share of "
+          f"tasks with work {shares}; LAUNCHES policy_cost_chain "
+          f"{launches.get('policy_cost_chain', 0)}, policy_cost_chain_smem "
+          f"{launches.get('policy_cost_chain_smem', 0)}")
+    if not routes or any(r != "smem" for r in routes) or \
+            launches.get("policy_cost_chain_smem", 0) != len(routes):
+        fail(f"a Table 6 chain launch left the shared-memory route: {routes}")
     (a, k) = captured["policy_cost_chain"]
     A, C, arrival, ends, z, d, pins = a
-    got = chain_fn(*a, **k)
     ref = pc.policy_cost_chain_plain(*a, **k)
-    torch.cuda.synchronize()
-    errs = [rel_err(got[key], ref[key]) for key in pc.OUT_KEYS]
-    err, ok = max(e for e, _ in errs), all(o for _, o in errs)
+    err = max_err(chain_fn(*a, **k), ref, pc.OUT_KEYS)
+    err_g = max_err(pc._chain_global_route(*a, **k), ref, pc.OUT_KEYS)
     B, S, n1 = A.shape
     R, L = ends.shape[-2:]
     zz = z if z.dim() == 4 else z[:, None]
@@ -776,46 +957,102 @@ def main() -> int:
     b_ms, b_by = bound(4 * (2 * B * S * n1 + B * R + B * R * L
                             + 3 * B * Sp * R * L + 4 * B * S * R),
                        active * task_ops(n1 - 1))
+    run = lambda: chain_fn(*a, **k)  # noqa: E731
+    run_g = lambda: pc._chain_global_route(*a, **k)  # noqa: E731
+    names = ("chain_smem_kernel", "chain_kernel")
     kernels.append({
         "name": "policy_cost_chain", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/policy_cost.cu",
         "replaces": "src/repro/kernels/policy_cost.py:288",
         "launches": launches["policy_cost_chain"], "max_abs_err": err,
-        "ms": cuda_ms(torch, lambda: chain_fn(*a, **k)),
+        "ms": cuda_ms(torch, run),
         "plain_ms": cuda_ms(torch, lambda: pc.policy_cost_chain_plain(*a, **k)),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "device_ms": device_ms(torch, run),
+        "kernel_device_ms": pass_device_ms(torch, run, names).get(names[0]),
+        "launches_smem": launches.get("policy_cost_chain_smem", 0),
+        "main_path_routes": routes, "active_share": shares,
+        "global_route_ms": cuda_ms(torch, run_g),
+        "global_route_device_ms": device_ms(torch, run_g),
+        "global_route_kernel_device_ms":
+            pass_device_ms(torch, run_g, names).get(names[1]),
+        "global_route_max_abs_err": err_g,
+        "registers": {n: regs_of.get(n) for n in names},
         "shape": {"B": B, "S": S, "Sp": Sp, "R": R, "L": L, "n_slots": n1 - 1}})
-    print(f"policy_cost_chain vs plain: max abs err {err:.3e} "
-          f"(tol {COST_TOL} x max(1,|ref|)) {'OK' if ok else 'FAIL'}")
-    if not ok:
-        fail("policy_cost_chain disagrees with its plain version")
+    e = kernels[-1]
+    print(f"policy_cost_chain vs plain at the last launch's inputs: max abs "
+          f"err {err:.3e} (shared-memory route), {err_g:.3e} (global route) "
+          f"{'OK' if err == err_g == 0.0 else 'FAIL'} (bit-equal required)")
+    print(f"policy_cost_chain, ms per call (device; the kernel alone): shared"
+          f"-memory route {e['ms']:.4f} ({e['device_ms']:.4f}; "
+          f"{e['kernel_device_ms']}), global route {e['global_route_ms']:.4f} "
+          f"({e['global_route_device_ms']:.4f}; "
+          f"{e['global_route_kernel_device_ms']}), bound {b_ms:.4f} ({b_by})")
+    if err != 0.0 or err_g != 0.0:
+        fail("policy_cost_chain is not bit-equal to its plain version")
+    # Horizons off Table 6's path, on both sides of the route's slot limit.
+    Bl, Sl, Rl, Ll = CHAIN_LONG_SHAPE
+    for n_slots, want in CHAIN_LONG:
+        g = np.random.default_rng(CHAIN_LONG_SEED)
+        frac = g.random((Bl, Sl, n_slots)) * (g.random((Bl, Sl, n_slots)) < 0.7)
+        price = 0.2 + 0.8 * g.random((Bl, Sl, n_slots))
+        zero = np.zeros((Bl, Sl, 1))
+        A_l = np.concatenate([zero, np.cumsum(frac / 12, -1)], -1)
+        C_l = np.concatenate([zero, np.cumsum(frac * price / 12, -1)], -1)
+        arr_l = g.random((Bl, Rl)) * n_slots / 12 * 0.7
+        ends_l = arr_l[..., None] + np.cumsum(g.exponential(1.0, (Bl, Rl, Ll)),
+                                              -1)
+        z_l = g.random((Bl, Sl, Rl, Ll)) * 3 * (g.random((Bl, Sl, Rl, Ll)) < 0.4)
+        d_l = g.integers(1, 4, (Bl, Sl, Rl, Ll)).astype(np.float64)
+        p_l = (g.random((Bl, Sl, Rl, Ll)) < 0.03).astype(np.float64)
+        args_l = [torch.tensor(x, dtype=torch.float32, device="cuda")
+                  for x in (A_l, C_l, arr_l, ends_l, z_l, d_l, p_l)]
+        n_smem = LAUNCHES["policy_cost_chain_smem"]
+        err_l = max_err(chain_fn(*args_l), pc.policy_cost_chain_plain(*args_l),
+                        pc.OUT_KEYS)
+        took = "smem" if LAUNCHES["policy_cost_chain_smem"] > n_smem \
+            else "global"
+        print(f"policy_cost_chain at {n_slots} slots (B {Bl}, S {Sl}, R {Rl}, "
+              f"L {Ll}, synthetic A from seed {CHAIN_LONG_SEED}): route "
+              f"{took}, max abs err vs plain {err_l:.3e} "
+              f"{'OK' if err_l == 0.0 and took == want else 'FAIL'}")
+        if err_l != 0.0 or took != want:
+            fail(f"policy_cost_chain at {n_slots} slots: route {took} "
+                 f"(expected {want}), max abs err {err_l:.3e}")
 
     (a, k) = captured["policy_cost"]
     A, C, start, end, z, d = a
     got = task_fn(*a, **k)
     ref = pc.policy_cost_plain(*a, **k)
     torch.cuda.synchronize()
-    errs = [rel_err(got[key], ref[key]) for key in pc.OUT_KEYS + ("finish",)]
-    err, ok = max(e for e, _ in errs), all(o for _, o in errs)
+    err = max_err(got, ref, pc.OUT_KEYS + ("finish",))
     S, n1 = A.shape
     T = start.shape[0]
     Sp = z.shape[0] if z.dim() == 2 else 1
     active = int((z > 0).sum()) * (S // Sp)
     b_ms, b_by = bound(4 * (2 * S * n1 + 2 * T + 2 * Sp * T + 5 * S * T),
                        active * task_ops(n1 - 1))
+    run = lambda: task_fn(*a, **k)  # noqa: E731
     kernels.append({
         "name": "policy_cost", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/policy_cost.cu",
         "replaces": "src/repro/kernels/policy_cost.py:132",
         "launches": launches["policy_cost"], "max_abs_err": err,
-        "ms": cuda_ms(torch, lambda: task_fn(*a, **k)),
+        "ms": cuda_ms(torch, run),
         "plain_ms": cuda_ms(torch, lambda: pc.policy_cost_plain(*a, **k)),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "device_ms": device_ms(torch, run),
+        "kernel_device_ms": pass_device_ms(torch, run, ("task_kernel",))
+        .get("task_kernel"),
+        "registers": {"task_kernel": regs_of.get("task_kernel")},
         "shape": {"S": S, "Sp": Sp, "T": T, "n_slots": n1 - 1}})
+    e = kernels[-1]
     print(f"policy_cost vs plain: max abs err {err:.3e} "
-          f"(tol {COST_TOL} x max(1,|ref|)) {'OK' if ok else 'FAIL'}")
-    if not ok:
-        fail("policy_cost disagrees with its plain version")
+          f"{'OK' if err == 0.0 else 'FAIL'} (bit-equal required); ms per "
+          f"call {e['ms']:.4f}, device {e['device_ms']:.4f}, the kernel "
+          f"alone {e['kernel_device_ms']}")
+    if err != 0.0:
+        fail("policy_cost is not bit-equal to its plain version")
 
     (a, k) = captured["hedge_replay"]
     Ch, etas, u, n_done = a
@@ -838,24 +1075,93 @@ def main() -> int:
     n_bad = int((differ & ~knife).sum())
     S, J, P = Ch.shape
     K = etas.shape[0]
+    # The trajectory bit for bit: the final weights, and sampled rows
+    # against the plain version run over that many updates.
+    logw_equal = torch.equal(got["logw"], ref["logw"])
+    rows = sorted({1, 2, 17, J // 2, J - 1} & set(range(1, J)))
+    rows_equal = {n: torch.equal(got["trajectory"][:, :, n],
+                                 wu.hedge_replay_plain(
+                                     Ch[:, :n], etas[:, :n], u[:, :n],
+                                     n_done[:n].clamp_max(n))["logw"])
+                  for n in rows}
+    del ref
     b_ms, b_by = bound(4 * (S * J * P + K * J + S * J + J + 3 * S * K * J
                             + S * K * P), 12 * S * K * J * P)
-    ok = n_bad == 0 and max(e_p, e_w) <= HEDGE_TOL and e_c <= COST_TOL
+    run = lambda: hedge_fn(*a, **k)  # noqa: E731
+    dev_ms = device_ms(torch, run)
+    passes = pass_device_ms(torch, run, HEDGE_PASSES)
+    pass_sum = sum(passes.values())
+    # One instance alone on the card: the trajectory pass's time per step
+    # with nothing beside it, and the step's dependency chain in the SASS
+    # at the SM clock nvidia-smi reports as the card's maximum.
+    one = (Ch[:1].contiguous(), etas[:1].contiguous(), u[:1].contiguous(),
+           n_done)
+    one_ms = pass_device_ms(torch, lambda: hedge_fn(*one),
+                            HEDGE_PASSES[:1]).get(HEDGE_PASSES[0])
+    lat = latency_table(torch, probe_lib)
+    # The ring the .cu lays out, here and at the largest P it takes,
+    # against the shared memory a block may have on this card.
+    smem_limit = getattr(torch.cuda.get_device_properties(0),
+                         "shared_memory_per_block_optin", 232448)
+    ring = wu.ring(P)
+    ring_max = wu.ring(1024)["smem_bytes"]
+    nj = ring["nj"]
+    print(f"hedge_replay trajectory layout at P {P}: {ring}; ring at P 1024 "
+          f"{ring_max} bytes; shared memory per block {smem_limit}")
+    if max(ring["smem_bytes"], ring_max) > smem_limit:
+        fail(f"hedge_replay's ring needs {max(ring['smem_bytes'], ring_max)} "
+             f"bytes of shared memory, the card gives a block {smem_limit}")
+    chain_ops, chain_cycles = step_chain(
+        sass_function(pathlib.Path(_nvcc()).parent / "cuobjdump",
+                      _library_path("hedge_replay"),
+                      f"trajectory_kernelILi{nj}E"), lat)
+    clocks = smi_clocks()
+    floor_ms = J * chain_cycles / (clocks["max_sm_mhz"] * 1e3) \
+        if clocks["max_sm_mhz"] else None
+    ok = n_bad == 0 and max(e_p, e_w) <= HEDGE_TOL and e_c <= COST_TOL \
+        and logw_equal and all(rows_equal.values())
     kernels.append({
         "name": "hedge_replay", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/hedge_replay.cu",
         "replaces": "src/repro/kernels/weight_update.py:136",
         "launches": launches["hedge_replay"], "max_abs_err": max(e_p, e_w),
-        "ms": cuda_ms(torch, lambda: hedge_fn(*a, **k)),
+        "ms": cuda_ms(torch, run),
         "plain_ms": cuda_ms(torch, lambda: wu.hedge_replay_plain(*a, **k)),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "shape": {"S": S, "K": K, "J": J, "P": P},
+        "device_ms": dev_ms, "pass_device_ms": passes,
+        "pass_sum_over_device_ms": pass_sum / dev_ms,
+        "one_instance_trajectory_ms": one_ms,
+        "step_chain": chain_ops, "step_chain_cycles": chain_cycles,
+        "latency_cycles": lat, "sm_clocks_mhz": clocks,
+        "dependency_floor_ms": floor_ms,
+        "registers": {n: v for n, v in regs_of.items()
+                      if n.startswith(("trajectory_kernel<" + str(nj) + ">",
+                                       "sample_kernel"))},
+        "shape": {"S": S, "K": K, "J": J, "P": P, "nj": nj}, "ring": ring,
+        "logw_equal": logw_equal,
+        "trajectory_rows_equal": {str(n): v for n, v in rows_equal.items()},
         "chosen_differ": int(differ.sum()), "knife_edges": n_knife})
-    print(f"hedge_replay vs plain: p_chosen {e_p:.3e}, weights {e_w:.3e} "
-          f"(tol {HEDGE_TOL}), expected_cost rel {e_c:.3e}; chosen differ at "
-          f"{int(differ.sum())} of {differ.numel()} draws, {n_knife} knife "
-          f"edges (|cdf - u*total| < {KNIFE_EDGE} total), {n_bad} elsewhere "
-          f"{'OK' if ok else 'FAIL'}")
+    e = kernels[-1]
+    print(f"hedge_replay vs plain: final logw equal {logw_equal}, trajectory "
+          f"rows {rows} equal {list(rows_equal.values())}; p_chosen "
+          f"{e_p:.3e}, weights {e_w:.3e} (tol {HEDGE_TOL}), expected_cost rel "
+          f"{e_c:.3e}; chosen differ at {int(differ.sum())} of "
+          f"{differ.numel()} draws, {n_knife} knife edges (|cdf - u*total| < "
+          f"{KNIFE_EDGE} total), {n_bad} elsewhere {'OK' if ok else 'FAIL'}")
+    print(f"hedge_replay, ms per call {e['ms']:.4f}, device {dev_ms:.4f} "
+          "(passes: " + ", ".join(f"{n} {v:.4f}" for n, v in passes.items())
+          + f", sum {pass_sum:.4f}); one instance alone: trajectory {one_ms} "
+          f"ms, {one_ms * 1e6 / J if one_ms else float('nan'):.1f} ns per "
+          f"step")
+    print(f"hedge_replay step chain in the SASS of trajectory_kernel<{nj}>: "
+          f"{' '.join(chain_ops)}, {chain_cycles:.1f} cycles at the probe's "
+          f"latencies {lat}; SM clock {clocks}: dependency floor "
+          f"{floor_ms} ms over {J} steps; operations bound {b_ms:.4f} ms")
+    if set(passes) != set(HEDGE_PASSES) or abs(pass_sum / dev_ms - 1) > 0.05:
+        print(f"WARNING: hedge_replay's profiled passes ({sorted(passes)}) "
+              f"sum to {pass_sum:.4f} ms against {dev_ms:.4f} ms of device "
+              "time by events: the per-pass times are not to be trusted in "
+              "this run")
     if not ok:
         fail("hedge_replay disagrees with its plain version")
 

@@ -2,7 +2,9 @@
 version.
 
 * ``policy_cost.policy_cost_chain`` — early-start chain costs over a
-  (bid x scenario x row) sweep (``csrc/policy_cost.cu``);
+  (bid x scenario x row) sweep (``csrc/policy_cost.cu``: A in shared
+  memory where it fits, ``chain_plan``'s rule, else a global-memory
+  kernel);
 * ``policy_cost.policy_cost`` — planned-start task costs, scenarios as a
   grid dimension (``csrc/policy_cost.cu``);
 * ``weight_update.hedge_replay`` — the Hedge weight-update replay
@@ -19,8 +21,10 @@ version.
 A wrapper given CPU tensors computes its plain version; given CUDA tensors
 it launches its kernel or raises. ``LAUNCHES`` counts kernel launches by
 wrapper name (plain-version calls do not count), so a run can show which
-kernels its path went through; ``flash_attention`` counts both attention
-kernels and ``flash_attention_tc`` the tensor-core ones among them;
+kernels its path went through; ``policy_cost_chain`` counts both chain
+kernels and ``policy_cost_chain_smem`` the shared-memory ones among them;
+``flash_attention`` counts both attention kernels and
+``flash_attention_tc`` the tensor-core ones among them;
 ``ssd_scan`` counts calls, each of which launches the scan's four passes.
 """
 

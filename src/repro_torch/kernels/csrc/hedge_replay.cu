@@ -4,34 +4,56 @@
 // Replaces the TPU kernel repro/kernels/weight_update.py::hedge_replay
 // (_hedge_kernel via _hedge_call). Plain C interface, loaded with ctypes by
 // repro_torch/kernels/weight_update.py, which also holds the plain PyTorch
-// version.
+// version and chooses the blocks (hedge_plan); this file lays out the
+// registers and the ring (hedge_replay_ring reports the layout).
 //
 // Two passes per (scenario s, schedule k) instance b = s * K + k:
 //   1. trajectory: sequential over the J update events,
 //        logw <- logw - eta[k, j] * C[s, j, :];  logw <- logw - max(logw),
-//      every state stored to a global (S*K, J+1, P) scratch. One block per
-//      instance, one thread per policy lane, one block-wide max per step.
-//      The TPU kept this trajectory in VMEM; at J = 10000, P = 175 it is
-//      7 MB per instance, far beyond one SM's 227 KB of shared memory, so
-//      it lives in device memory (and mostly in L2).
+//      every state stored to a global (S*K, J+1, P) scratch (7 MB per
+//      instance at J = 10000, P = 175: it cannot stay on chip).
 //   2. sampling: one warp per (instance, job j): read trajectory row
 //      n_done[j] (delayed feedback), softmax, inclusive cumsum, inverse-CDF
 //      draw count(cdf <= u[s, j] * total) clamped to P - 1, and the chosen
 //      probability and the expected cost sum(p * C[s, j, :]).
-// Bound: pass 1 is a chain of J dependent steps (latency: one load, one
-// block reduction and one barrier per step), not bytes or operations; the
-// next step's cost row is loaded before the current reduction to overlap
-// the two. The one-hot matmul gathers and triangular-matmul cumsum of the
-// TPU kernel become direct loads and a warp scan. Built with -fmad=false.
+//
+// What bounds pass 1 is the dependency chain of one step, J times over:
+// not bytes, not operations. A block per instance (one thread per policy)
+// would put two shuffle-tree maxes, a shared-memory round trip, a block
+// barrier and a global load on that chain. This kernel keeps it to
+// register operations and one warp instruction:
+// * one warp per instance; its P log-weights live in registers, NJ per
+//   lane (policy p = j * 32 + lane), so the step's products and
+//   subtractions are independent register operations;
+// * the step's max is an in-lane fmaxf tree, then __reduce_max_sync
+//   (redux.sync) over the lanes on the order-preserving integer image of
+//   the float, i ^ ((i >> 31) & 0x7fffffff), its own inverse: exact, as a
+//   max is in any order;
+// * the cost rows come from a shared-memory ring of kStages stages of
+//   `rows` rows, filled kStages - 1 stages ahead by cp.async (16-byte
+//   copies where the stage's source is aligned, 4-byte ones elsewhere);
+//   a block holds the warps of up to four schedules of one scenario,
+//   which share C[s]: one barrier per stage, none per step. The etas of a
+//   stage sit one per lane, loaded a stage ahead, and reach the step by
+//   shuffle; the next step's row and eta are read while a step runs;
+// * each state is stored a step late, while the next step's redux.sync
+//   runs, so no store waits for the chain's result.
+// The one-hot matmul gathers and triangular-matmul cumsum of the TPU
+// kernel become direct loads and a warp scan in pass 2. Built with
+// -fmad=false: each product and difference rounds as in the plain version,
+// so the trajectory is bit-equal to it (up to the sign of a zero).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kWarp = 32;
 constexpr int kSampleWarps = 8;
+constexpr int kStages = 4;         // ring stages
+constexpr int kMaxBlockWarps = 4;  // one schedule per warp scheduler
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -52,48 +74,200 @@ __device__ __forceinline__ int warp_sum_int(int v) {
   return v;
 }
 
-// grid (S*K); block: P rounded up to a warp multiple (<= 1024).
-__global__ void trajectory_kernel(const float* __restrict__ C,
-                                  const float* __restrict__ etas,
-                                  float* __restrict__ traj,
-                                  float* __restrict__ logw_out, int K, int J,
-                                  int P, float logw0) {
-  __shared__ float red[2][kWarp];
-  const int b = blockIdx.x;
-  const int s = b / K;
-  const int k = b % K;
-  const int p = threadIdx.x;
-  const int lane = p % kWarp;
-  const int warp = p / kWarp;
-  const int n_warps = blockDim.x / kWarp;
-  const bool real = p < P;
+// The order-preserving integer image of a float (and its inverse): signed
+// integer order on the images is the float order, -0 just below +0.
+__device__ __forceinline__ int ordered(int i) {
+  return i ^ ((i >> 31) & 0x7fffffff);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// Copy `count` floats from global src to shared dst (16-byte aligned)
+// with cp.async, shared by the block's threads; one commit group per call.
+__device__ __forceinline__ void fill_stage(float* dst, const float* src,
+                                           int count) {
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  int head = 0;
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    head = count & ~3;
+    for (int q = 4 * tid; q < head; q += 4 * nt)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                       smem_addr(dst + q)), "l"(src + q));
+  }
+  for (int q = head + tid; q < count; q += nt)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                     smem_addr(dst + q)), "l"(src + q));
+}
+
+__device__ __forceinline__ void commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Rows per ring stage for nj values per lane: 32 up to 384 policies, 16 up
+// to 768, 8 above, so that four stages fit a block's shared memory; a
+// stage's etas are one per lane, so at most 32.
+__host__ __device__ constexpr int rows_for(int nj) {
+  return nj <= 12 ? 32 : nj <= 24 ? 16 : 8;
+}
+template <int NJ>
+constexpr int kRows = rows_for(NJ);
+
+// The values per lane the kernel is built for; a launch takes the least
+// that holds P.
+constexpr int kLaneCounts[] = {1, 2, 3, 4, 5, 6, 7, 8, 12, 16, 24, 32};
+
+int lanes_for(int P) {
+  for (int n : kLaneCounts)
+    if (n * kWarp >= P) return n;
+  return 0;
+}
+
+// A ring stage's stride in floats (its rows of P, padded to 16 bytes) and
+// the ring's bytes.
+int stage_stride(int nj, int P) { return (rows_for(nj) * P + 3) / 4 * 4; }
+int ring_bytes(int nj, int P) {
+  return (int)sizeof(float) * kStages * stage_stride(nj, P);
+}
+
+// Row `row` of a stage into c: policy p = j * 32 + lane, 0 past P.
+template <int NJ>
+__device__ __forceinline__ void load_row(float (&c)[NJ], const float* row,
+                                         int P, int lane) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int p = j * kWarp + lane;
+    c[j] = p < P ? row[p] : 0.f;
+  }
+}
+
+// The state lw to trajectory row `out`.
+template <int NJ>
+__device__ __forceinline__ void store_row(const float (&lw)[NJ], float* out,
+                                          int P, int lane) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int p = j * kWarp + lane;
+    if (p < P) out[p] = lw[j];
+  }
+}
+
+// One update event of one instance: lw <- lw - e * c, lw <- lw - max(lw).
+// The state entering the step is stored to its trajectory row `prev` while
+// redux.sync runs, a step late, so no store waits for the chain's result.
+// A slot past P holds -inf with c = 0, so it stays -inf with no select on
+// the chain. The chain: one subtraction, the in-lane fmaxf tree, the
+// integer map, redux.sync, the map back, the second subtraction.
+template <int NJ>
+__device__ __forceinline__ void hedge_step(float (&lw)[NJ],
+                                           const float (&c)[NJ], float e,
+                                           float* __restrict__ prev, int P,
+                                           int lane) {
+  float x[NJ], m[NJ];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    x[j] = lw[j] - e * c[j];
+    m[j] = x[j];
+  }
+#pragma unroll
+  for (int w = 1; w < NJ; w *= 2)
+#pragma unroll
+    for (int j = 0; j + w < NJ; j += 2 * w) m[j] = fmaxf(m[j], m[j + w]);
+  const int top = __reduce_max_sync(kFull, ordered(__float_as_int(m[0])));
+  store_row(lw, prev, P, lane);
+  const float mx = __int_as_float(ordered(top));
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) lw[j] = x[j] - mx;
+}
+
+// grid (S * groups); block warps * 32 threads, warp w of group g runs
+// schedule k = g * warps + w (none if k >= K); dynamic shared memory: the
+// cost ring, kStages stages of stage_stride(NJ, P) floats. The barrier at
+// each stage's start lets the slot that stage t - 1 used be refilled.
+// NJ >= ceil(P / 32).
+template <int NJ>
+__global__ void __launch_bounds__(kMaxBlockWarps * kWarp)
+trajectory_kernel(const float* __restrict__ C, const float* __restrict__ etas,
+                  float* __restrict__ traj, float* __restrict__ logw_out,
+                  int K, int J, int P, int groups, int stride, float logw0) {
+  constexpr int rows = kRows<NJ>;
+  extern __shared__ __align__(16) float ring[];
+  const int s = blockIdx.x / groups;
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int k = blockIdx.x % groups * (blockDim.x / kWarp) + warp;
+  const bool has = k < K;
   const float* Cs = C + (size_t)s * J * P;
-  const float* eta = etas + (size_t)k * J;
-  float* tb = traj + (size_t)b * (J + 1) * P;
-  float lw = real ? logw0 : -INFINITY;
-  if (real) tb[p] = lw;
-  float c_next = (real && J > 0) ? Cs[p] : 0.f;
-  float e_next = J > 0 ? eta[0] : 0.f;
-  int par = 0;
-  for (int i = 0; i < J; ++i) {
-    const float c = c_next;
-    const float e = e_next;
-    if (i + 1 < J) {
-      if (real) c_next = Cs[(size_t)(i + 1) * P + p];
-      e_next = eta[i + 1];
-    }
-    if (real) lw = lw - e * c;
-    float m = warp_max(real ? lw : -INFINITY);
-    if (lane == 0) red[par][warp] = m;
+  const int n_stages = (J + rows - 1) / rows;
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < n_stages)
+      fill_stage(ring + t * stride, Cs + (size_t)t * rows * P,
+                 min(rows, J - t * rows) * P);
+    commit();
+  }
+  const size_t b = (size_t)s * K + (has ? k : 0);
+  float* tb = traj + b * (size_t)(J + 1) * P;
+  const float* eta = etas + (size_t)(has ? k : 0) * J;
+  float lw[NJ];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int p = j * kWarp + lane;
+    lw[j] = p < P ? logw0 : -INFINITY;
+  }
+  // Lane l holds eta[k, t * rows + l] of the stage t being stepped.
+  float e_next = has && lane < rows && lane < J ? __ldg(eta + lane) : 0.f;
+  for (int t = 0; t < n_stages; ++t) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2));
     __syncthreads();
-    m = warp_max(lane < n_warps ? red[par][lane] : -INFINITY);
-    par ^= 1;
-    if (real) {
-      lw = lw - m;
-      tb[(size_t)(i + 1) * P + p] = lw;
+    const int tf = t + kStages - 1;     // refill the slot stage t-1 used
+    if (tf < n_stages)
+      fill_stage(ring + (tf % kStages) * stride,
+                 Cs + (size_t)tf * rows * P, min(rows, J - tf * rows) * P);
+    commit();
+    const float e_cur = e_next;
+    const int i0 = t * rows;
+    if (has && t + 1 < n_stages && lane < rows && i0 + rows + lane < J)
+      e_next = __ldg(eta + i0 + rows + lane);
+    if (!has) continue;
+    const float* cr = ring + (t % kStages) * stride;
+    float* out = tb + (size_t)i0 * P;    // row i0 + r, stored in step r
+    float c[NJ];
+    load_row(c, cr, P, lane);
+    float e = __shfl_sync(kFull, e_cur, 0);
+    if (J - i0 >= rows) {
+      // A full stage, unrolled: the next step's row and eta are read
+      // while this step's chain runs.
+#pragma unroll
+      for (int r = 0; r < rows; ++r) {
+        float cn[NJ];
+        float en = 0.f;
+        if (r + 1 < rows) {
+          load_row(cn, cr + (r + 1) * P, P, lane);
+          en = __shfl_sync(kFull, e_cur, r + 1);
+        }
+        hedge_step(lw, c, e, out + r * P, P, lane);
+        if (r + 1 < rows) {
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) c[j] = cn[j];
+          e = en;
+        }
+      }
+    } else {
+      for (int r = 0; r < J - i0; ++r) {    // the last, partial stage
+        hedge_step(lw, c, e, out + r * P, P, lane);
+        if (r + 1 < J - i0) {
+          load_row(c, cr + (r + 1) * P, P, lane);
+          e = __shfl_sync(kFull, e_cur, r + 1);
+        }
+      }
     }
   }
-  if (real) logw_out[(size_t)b * P + p] = lw;
+  asm volatile("cp.async.wait_all;\n" ::);
+  if (!has) return;
+  store_row(lw, tb + (size_t)J * P, P, lane);
+  store_row(lw, logw_out + b * P, P, lane);
 }
 
 // grid (ceil(J / kSampleWarps), S*K); one warp per (instance, job).
@@ -151,22 +325,64 @@ sample_kernel(const float* __restrict__ C, const float* __restrict__ traj,
   }
 }
 
+template <int NJ>
+cudaError_t launch_trajectory(const float* C, const float* etas, float* traj,
+                              float* logw, int S, int K, int J, int P,
+                              int groups, int warps, float logw0,
+                              cudaStream_t stream) {
+  const int smem_bytes = ring_bytes(NJ, P);
+  cudaError_t err = cudaFuncSetAttribute(
+      trajectory_kernel<NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes);
+  if (err != cudaSuccess) return err;
+  trajectory_kernel<NJ><<<S * groups, warps * kWarp, smem_bytes, stream>>>(
+      C, etas, traj, logw, K, J, P, groups, stage_stride(NJ, P), logw0);
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+// The trajectory pass's layout for P policies: out[0] values per lane,
+// out[1] rows per ring stage, out[2] a stage's bytes, out[3] the ring's
+// (the dynamic shared memory per block).
+extern "C" int hedge_replay_ring(int P, int* out) {
+  if (P < 1 || P > 1024) return (int)cudaErrorInvalidValue;
+  const int nj = lanes_for(P);
+  out[0] = nj;
+  out[1] = rows_for(nj);
+  out[2] = (int)sizeof(float) * stage_stride(nj, P);
+  out[3] = ring_bytes(nj, P);
+  return 0;
+}
 
 // C: (S, J, P); etas: (K, J); u: (S, J); n_done: (J,); traj: (S*K, J+1, P)
 // scratch; outputs chosen/p_chosen/expected (S*K, J) and logw (S*K, P).
+// groups (blocks per scenario) and warps (per block) come from hedge_plan
+// (repro_torch/kernels/weight_update.py).
 extern "C" int hedge_replay_launch(const float* C, const float* etas,
                                    const float* u, const int* n_done,
                                    float* traj, int* chosen, float* p_chosen,
                                    float* expected, float* logw, int S, int K,
-                                   int J, int P, float logw0,
-                                   cudaStream_t stream) {
+                                   int J, int P, float logw0, int groups,
+                                   int warps, cudaStream_t stream) {
   if (S <= 0 || K <= 0) return 0;
-  if (P < 1 || P > 1024 || S * K > 65535) return (int)cudaErrorInvalidValue;
-  const int threads = (P + kWarp - 1) / kWarp * kWarp;
-  trajectory_kernel<<<S * K, threads, 0, stream>>>(C, etas, traj, logw, K, J,
-                                                   P, logw0);
-  cudaError_t err = cudaGetLastError();
+  if (P < 1 || P > 1024 || S * K > 65535 || warps < 1 ||
+      warps > kMaxBlockWarps || groups * warps < K)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+#define HEDGE_NJ(N)                                                        \
+  case N:                                                                  \
+    err = launch_trajectory<N>(C, etas, traj, logw, S, K, J, P, groups,    \
+                               warps, logw0, stream);                      \
+    break;
+  switch (lanes_for(P)) {
+    HEDGE_NJ(1) HEDGE_NJ(2) HEDGE_NJ(3) HEDGE_NJ(4) HEDGE_NJ(5) HEDGE_NJ(6)
+    HEDGE_NJ(7) HEDGE_NJ(8) HEDGE_NJ(12) HEDGE_NJ(16) HEDGE_NJ(24)
+    HEDGE_NJ(32)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef HEDGE_NJ
   if (err != cudaSuccess || J <= 0) return (int)err;
   const dim3 grid((J + kSampleWarps - 1) / kSampleWarps, S * K);
   sample_kernel<<<grid, kSampleWarps * kWarp, 0, stream>>>(

@@ -8,29 +8,36 @@ arrays A (availability), C (spot payment) and H = k*slot - A: interpolate A
 and C at the start, invert H for the turning time and A for the spot-alone
 finish, apply the flexibility epsilon, interpolate again at the end.
 
-On the H100 (``csrc/policy_cost.cu``): one thread per (bid, scenario, row)
-for chains — the L-window recurrence runs inside the thread, carrying the
-realized start — and one thread per (scenario, task) for planned starts.
-What bounds it: the plan tensors are read once (bytes), but each task does
-four dependent binary searches and eight point loads into the A/C/H arrays;
-those arrays (about 400 KB per (bid, scenario) at 33k slots) stay resident
-in the 50 MB L2, so the searches cost L2 latency, not device-memory bytes.
-The design answers that with occupancy: many independent rows in flight per
-SM hide the latency of each search. The TPU's comparison counts over
-2048-slot chunks and one-hot matmul gathers become ``lower_bound`` searches
-and direct loads. Plans are passed window-major ((B, Sp, L, R)) so a warp's
-loads of one window are coalesced; scenario-shared plans are read through a
-scenario stride of 0.
+On the H100 (``csrc/policy_cost.cu``) each active task's two binary
+searches are what bound it: about 49 x 32 dependent probes per chain row.
+Chains take one of two kernels by a route rule (``chain_plan``):
 
-Semantics (kernel and plain version alike, as in ``_chain_kernel``): a
+* ``"smem"`` wherever a (bid, scenario)'s A fits one block's shared memory
+  (232448 bytes: up to 58111 slots, Table 6 has 33021): one block per
+  (bid, scenario) slice of rows, persistent at about one block per SM,
+  stages A once and computes each probed H from it, so the searches never
+  leave the SM; a task with no work skips the closed form (its outputs are
+  fixed). C is read through L2.
+* ``"global"`` for a longer horizon: one thread per (bid, scenario,
+  row), the L-window recurrence inside the thread, A/C/H read through L2.
+
+Planned starts take one thread per (scenario, task), A/C/H from global
+memory. The TPU's comparison counts over 2048-slot chunks and one-hot
+matmul gathers become ``lower_bound`` searches and direct loads. Plans are
+passed window-major ((B, Sp, L, R)) so a warp's loads of one window are
+coalesced; scenario-shared plans are read through a scenario stride of 0.
+
+Semantics (kernels and plain version alike, as in ``_chain_kernel``): a
 position is ``lower_bound`` over the n+1 unpadded entries (``torch.
 searchsorted(side="left")``); a position past n means +inf, and an A
-target <= 0 means t = 0. H is precomputed in f32 by ``h_cum`` for both.
+target <= 0 means t = 0. H is ``h_cum``'s f32 product and subtraction, which
+the shared-memory kernel repeats per probe; all are bit-equal.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import torch
@@ -40,10 +47,41 @@ from repro_torch.device import kernel_library
 from repro_torch.kernels import LAUNCHES
 
 __all__ = ["policy_cost_chain", "policy_cost_chain_plain", "policy_cost",
-           "policy_cost_plain", "h_cum", "OUT_KEYS"]
+           "policy_cost_plain", "h_cum", "chain_plan", "ChainPlan", "OUT_KEYS"]
 
 OUT_KEYS = ("spot_cost", "ondemand_cost", "spot_work", "ondemand_work")
 _F32 = torch.float32
+SMEM_PER_BLOCK = 232448     # shared memory a block may opt in to on sm_90
+H100_SMS = 132
+
+
+@dataclasses.dataclass(frozen=True)
+class ChainPlan:
+    """How one chain call launches: the route (``"smem"`` or ``"global"``),
+    the bytes of one (bid, scenario)'s A, which the rule weighs against a
+    block's shared memory, and on the shared-memory route the blocks per
+    (bid, scenario) (0 on the global route)."""
+    route: str
+    a_bytes: int
+    blocks_per_pair: int
+
+
+def chain_plan(B: int, S: int, Sp: int, R: int, L: int, n_slots: int,
+               sms: int = H100_SMS) -> ChainPlan:
+    """The chain route rule. A (bid, scenario)'s A of n_slots + 1 floats
+    that fits one block's shared memory takes the shared-memory kernel:
+    the B x S pairs share the card's ``sms`` SMs, one block per SM, each
+    pair's blocks striding over its R rows (``csrc/policy_cost.cu`` fixes
+    the block size and drops blocks that would find no row). A longer
+    horizon takes the global-memory kernel, one thread per row. (``Sp``,
+    ``R`` and ``L`` size the plans, not the choice.)"""
+    if min(B, S, Sp, n_slots) < 1 or min(R, L) < 0 or Sp not in (1, S):
+        raise ValueError("chain_plan: need B, S, n_slots >= 1, R, L >= 0 "
+                         "and Sp in (1, S)")
+    a_bytes = 4 * (n_slots + 1)
+    if a_bytes <= SMEM_PER_BLOCK:
+        return ChainPlan("smem", a_bytes, max(1, sms // (B * S)))
+    return ChainPlan("global", a_bytes, 0)
 
 
 def h_cum(A: torch.Tensor, slot: float) -> torch.Tensor:
@@ -174,9 +212,30 @@ def policy_cost_chain(A, C, arrival, ends, z_t, d_eff, pins, *,
     across scenarios or (B, S, R, L) per scenario (pins as 0/1 floats).
     Rows may be zero-padded (z_t == 0). Returns a dict of (B, S, R) f32
     per-row sums: spot_cost, ondemand_cost, spot_work, ondemand_work.
-    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    CPU tensors take the plain version; CUDA tensors launch the kernel that
+    ``chain_plan`` picks.
     """
     z_t, d_eff, pins = map(_per_scenario, (z_t, d_eff, pins))
+    if A.device.type == "cpu":
+        _chain_shapes(A, C, arrival, ends, z_t, d_eff, pins)
+        return policy_cost_chain_plain(A, C, arrival, ends, z_t, d_eff, pins,
+                                       slot=slot, p_od=p_od)
+    return _chain_on_card(False, A, C, arrival, ends, z_t, d_eff, pins,
+                          slot, p_od)
+
+
+def _chain_global_route(A, C, arrival, ends, z_t, d_eff, pins, *,
+                        slot: float = 1.0 / 12.0, p_od: float = 1.0):
+    """:func:`policy_cost_chain` through the global-memory kernel
+    whatever the horizon, so that ``chip_smoke.py`` can time it on the
+    inputs the shared-memory route takes."""
+    z_t, d_eff, pins = map(_per_scenario, (z_t, d_eff, pins))
+    return _chain_on_card(True, A, C, arrival, ends, z_t, d_eff, pins,
+                          slot, p_od)
+
+
+def _chain_shapes(A, C, arrival, ends, z_t, d_eff, pins):
+    """(B, S, Sp, R, L, n_slots) of a chain call, or ValueError."""
     B, S, n1 = A.shape
     R, L = ends.shape[-2:]
     Sp = z_t.shape[1]
@@ -184,29 +243,42 @@ def policy_cost_chain(A, C, arrival, ends, z_t, d_eff, pins, *,
             or ends.shape != (B, R, L) or Sp not in (1, S) \
             or any(a.shape != (B, Sp, R, L) for a in (z_t, d_eff, pins)):
         raise ValueError("policy_cost_chain: inconsistent shapes")
-    if A.device.type == "cpu":
-        return policy_cost_chain_plain(A, C, arrival, ends, z_t, d_eff, pins,
-                                       slot=slot, p_od=p_od)
+    return B, S, Sp, R, L, n1 - 1
+
+
+def _chain_on_card(force_global, A, C, arrival, ends, z_t, d_eff, pins,
+                   slot, p_od):
+    B, S, Sp, R, L, n_slots = _chain_shapes(A, C, arrival, ends, z_t, d_eff,
+                                            pins)
     if A.device.type != "cuda":
         raise ValueError(f"policy_cost_chain has no kernel for {A.device}")
-    if n1 < 2 or max(S, B) > 65535:
+    if n_slots < 1 or max(S, B) > 65535:
         raise ValueError("policy_cost_chain: need n_slots >= 1 and "
                          "B, S <= 65535")
     _check({"A": A, "C": C, "arrival": arrival, "ends": ends, "z_t": z_t,
             "d_eff": d_eff, "pins": pins}, A.device)
+    plan = chain_plan(B, S, Sp, R, L, n_slots, torch.cuda.get_device_properties(
+        A.device).multi_processor_count)
     A, C, arrival = A.contiguous(), C.contiguous(), arrival.contiguous()
-    H = h_cum(A, slot)
     ends_w = ends.transpose(1, 2).contiguous()             # (B, L, R)
     z_w, d_w, p_w = (a.transpose(2, 3).contiguous()        # (B, Sp, L, R)
                      for a in (z_t, d_eff, pins))
     out = torch.empty((4, B, S, R), dtype=_F32, device=A.device)
     f = ctypes.c_float
-    _launch("policy_cost_chain_launch",
-            [*map(_ptr, (A, C, H, arrival, ends_w, z_w, d_w, p_w, out)),
-             ctypes.c_int(B), ctypes.c_int(S), ctypes.c_int(Sp),
-             ctypes.c_int(R), ctypes.c_int(L), ctypes.c_int(n1 - 1),
-             f(slot), f(inverse_slot(slot)), f(p_od), f(FLEX_REL), f(FLEX_ABS), f(_WORK_EPS)],
-            A.device)
+    scalars = [ctypes.c_int(B), ctypes.c_int(S), ctypes.c_int(Sp),
+               ctypes.c_int(R), ctypes.c_int(L), ctypes.c_int(n_slots),
+               f(slot), f(inverse_slot(slot)), f(p_od), f(FLEX_REL),
+               f(FLEX_ABS), f(_WORK_EPS)]
+    plans = map(_ptr, (arrival, ends_w, z_w, d_w, p_w, out))
+    if plan.route == "smem" and not force_global:
+        _launch("policy_cost_chain_smem_launch",
+                [_ptr(A), _ptr(C), *plans, *scalars,
+                 ctypes.c_int(plan.blocks_per_pair)], A.device)
+        LAUNCHES["policy_cost_chain_smem"] += 1
+    else:
+        _launch("policy_cost_chain_launch",
+                [_ptr(A), _ptr(C), _ptr(h_cum(A, slot)), *plans, *scalars],
+                A.device)
     LAUNCHES["policy_cost_chain"] += 1
     return dict(zip(OUT_KEYS, out.unbind(0)))
 

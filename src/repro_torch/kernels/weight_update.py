@@ -7,20 +7,26 @@ not depend on the sampled trace, so each (scenario, schedule) instance
 factors into a sequential trajectory pass and a parallel sampling pass
 (see ``csrc/hedge_replay.cu``).
 
-On the H100 the trajectory pass is one block per instance stepping through
-the J update events, so it is bound by the latency of J dependent steps
-(a load, a block-wide max and a barrier each), not by bytes or operations;
-the next cost row is loaded before the current reduction to overlap them.
-The trajectory (J+1, P) per instance does not fit one SM's shared memory
-at J = 10000, so it goes to a device scratch the wrapper allocates. The
-sampling pass is one warp per (instance, job): direct loads of trajectory
-row ``n_done[j]`` and a warp scan replace the TPU kernel's one-hot matmul
-gather and triangular-matmul cumsum.
+On the H100 the trajectory pass is bound by the dependency chain of its J
+steps, not by bytes or operations. One warp runs one instance with its P
+log-weights in registers (``nj`` per lane); a step's max is an in-lane max
+and one ``redux.sync`` over the lanes on the floats' order-preserving
+integer images, exact; the cost rows reach the warps from a shared-memory
+ring that cp.async fills stages ahead, shared by the up to four schedules
+of one scenario that a block holds (``hedge_plan`` chooses the blocks; the
+``.cu`` lays out the registers and the ring, and ``ring`` reports that
+layout). The trajectory
+(J+1, P) per instance does not fit on chip at J = 10000, so it goes to a
+device scratch the wrapper allocates. The sampling pass is one warp per
+(instance, job): direct loads of trajectory row ``n_done[j]`` and a warp
+scan replace the TPU kernel's one-hot matmul gather and triangular-matmul
+cumsum.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 
 import torch
@@ -28,7 +34,42 @@ import torch
 from repro_torch.device import kernel_library
 from repro_torch.kernels import LAUNCHES
 
-__all__ = ["hedge_replay", "hedge_replay_plain"]
+__all__ = ["hedge_replay", "hedge_replay_plain", "hedge_plan", "HedgePlan",
+           "ring"]
+
+MAX_BLOCK_WARPS = 4         # kMaxBlockWarps: one schedule per scheduler
+
+
+@dataclasses.dataclass(frozen=True)
+class HedgePlan:
+    """The trajectory pass's blocks: ``warps`` schedules per block,
+    ``groups`` blocks per scenario, ``grid`` = S x groups blocks."""
+    warps: int
+    groups: int
+    grid: int
+
+
+def hedge_plan(S: int, K: int, J: int, P: int) -> HedgePlan:
+    """The trajectory pass's blocks for S scenarios x K schedules, J events
+    and P policies: the K warps of a scenario in ``groups`` blocks of at
+    most four, as even as they split."""
+    if not 1 <= P <= 1024 or min(S, K) < 1 or J < 0:
+        raise ValueError("hedge_plan: need 1 <= P <= 1024, S, K >= 1 and "
+                         "J >= 0")
+    groups = math.ceil(K / min(K, MAX_BLOCK_WARPS))
+    return HedgePlan(math.ceil(K / groups), groups, S * groups)
+
+
+def ring(P: int) -> dict:
+    """The trajectory kernel's layout at P policies, as the ``.cu`` sets it:
+    ``nj`` log-weights per lane, ``rows`` cost rows per ring stage, a
+    stage's bytes and the ring's (``smem_bytes``, per block). Needs the
+    built kernel library."""
+    out = (ctypes.c_int * 4)()
+    rc = kernel_library("hedge_replay").hedge_replay_ring(P, out)
+    if rc:
+        raise ValueError(f"hedge_replay_ring: error {rc} for P={P}")
+    return dict(zip(("nj", "rows", "stage_bytes", "smem_bytes"), out))
 
 
 def hedge_replay_plain(C, etas, u, n_done):
@@ -74,8 +115,9 @@ def hedge_replay(C, etas, u, n_done):
     ``n_done``: (J,) int32 updates applied before each job's sample.
     Returns ``chosen`` (S, K, J) int64, ``p_chosen`` and ``expected_cost``
     (S, K, J) and the final log-weights ``logw`` (S, K, P), float32 for
-    the kernel. CPU tensors take the plain version; CUDA tensors launch
-    the kernel.
+    the kernel, which also returns its ``trajectory`` (S, K, J+1, P): the
+    log-weights after each update. CPU tensors take the plain version;
+    CUDA tensors launch the kernel.
     """
     S, J, P = C.shape
     K = etas.shape[0]
@@ -99,16 +141,18 @@ def hedge_replay(C, etas, u, n_done):
     p_chosen = torch.empty((S, K, J), dtype=torch.float32, device=dev)
     expected = torch.empty((S, K, J), dtype=torch.float32, device=dev)
     logw = torch.empty((S, K, P), dtype=torch.float32, device=dev)
+    plan = hedge_plan(S, K, J, P)
     fn = kernel_library("hedge_replay").hedge_replay_launch
     fn.restype = ctypes.c_int
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
     rc = fn(*map(ptr, (C, etas, u, n_done, traj, chosen, p_chosen, expected,
                        logw)),
-            ctypes.c_int(S), ctypes.c_int(K), ctypes.c_int(J), ctypes.c_int(P),
-            ctypes.c_float(-math.log(P)),
+            *map(ctypes.c_int, (S, K, J, P)), ctypes.c_float(-math.log(P)),
+            *map(ctypes.c_int, (plan.groups, plan.warps)),
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if rc != 0:
         raise RuntimeError(f"hedge_replay_launch: CUDA error {rc} at launch")
     LAUNCHES["hedge_replay"] += 1
     return {"chosen": chosen.long(), "p_chosen": p_chosen,
-            "expected_cost": expected, "logw": logw}
+            "expected_cost": expected, "logw": logw,
+            "trajectory": traj.view(S, K, J + 1, P)}
