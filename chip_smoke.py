@@ -22,7 +22,12 @@ Phases, each failing the run with a non-zero exit:
    routes are held bit for bit to the plain version and timed (per call,
    device, the kernel alone), and so is a synthetic horizon on each side of
    the route's slot limit (58111 slots: shared memory, 70000: global). The
-   task kernel is held bit for bit too. Hedge: the final log-weights and
+   task kernel is held bit for bit too, timed the same three ways, its
+   call checked to launch that one kernel and no other device operation,
+   and held bit for bit again at synthetic horizons of 1, 2 and 3 slots,
+   its search tree's node count and one slot either side, 58111, 70000
+   and 300000 slots, each with shared and per-scenario plans (its one
+   route takes them all). Hedge: the final log-weights and
    sampled trajectory rows equal to the plain version's, each pass's device
    time (a warning when their sum leaves the device time by over 5 %), the
    trajectory pass of one instance alone, the ring's shared memory (as the
@@ -30,8 +35,9 @@ Phases, each failing the run with a non-zero exit:
    dependency chain read from the SASS (``cuobjdump``) at latencies a
    probe kernel measures, times J at the card's maximum SM clock: the
    dependency floor. The
-   ptxas registers and spills of the cost and Hedge kernels are printed in
-   phase 1;
+   ptxas registers and spills of the cost and Hedge kernels, and the task
+   kernel's search tree (levels, shared memory per block) and blocks per
+   SM, are printed in phase 1;
 4. correctness on a small input: the cost tensor against the float64 host
    simulator and the Hedge replay against the float64 host loop;
 5. the LM substrate's serving path at full width —
@@ -124,6 +130,11 @@ SERVE_REQUESTS, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 4, 1024, 16
 # (B, S, R, L) and the seed of their data.
 CHAIN_LONG = [(58111, "smem"), (70000, "global")]
 CHAIN_LONG_SHAPE, CHAIN_LONG_SEED = (1, 2, 20000, 49), 7
+# Task cases off Table 6's path: horizons around the task kernel's search
+# tree (its node count is added at run time, from the .cu's layout) and
+# long ones, with (S, T) and the seed of their data.
+TASK_HORIZONS = (1, 2, 3, 58111, 70000, 300000)
+TASK_LONG_SHAPE, TASK_LONG_SEED = (2, 20000), 9
 HEDGE_PASSES = ("trajectory_kernel", "sample_kernel")
 # Dependent-latency probe of the operations on the Hedge step's chain, in SM
 # cycles: 4096 dependent iterations of one warp, timed with clock64.
@@ -371,6 +382,43 @@ def device_breakdown(torch, prof, wall_s: float, top: int = 8,
         print(f"  {label} ({', '.join(names)}): device {k_ms:.3f} ms over "
               f"{sum(e.count for e in hits)} launches, "
               f"{k_ms / busy_ms:.6f} of the busy time")
+
+
+def task_case(torch, np, n_slots: int, Sp: int, seed: int):
+    """Synthetic inputs of one task call: a market of ``n_slots`` slots
+    (availability 0-1, 30 % of the slots out, prices 0.2-1), windows that
+    start anywhere up to a tenth past the horizon, 40 % of the tasks
+    without work, shared (Sp 1) or per-scenario (Sp 2) plans."""
+    S, T = TASK_LONG_SHAPE
+    g = np.random.default_rng(seed)
+    frac = g.random((S, n_slots)) * (g.random((S, n_slots)) < 0.7)
+    price = 0.2 + 0.8 * g.random((S, n_slots))
+    zero = np.zeros((S, 1))
+    A = np.concatenate([zero, np.cumsum(frac / 12, -1)], -1)
+    C = np.concatenate([zero, np.cumsum(frac * price / 12, -1)], -1)
+    start = g.random(T) * n_slots / 12 * 1.1
+    end = start + g.exponential(2.0, T)
+    z = g.random((Sp, T)) * 3 * (g.random((Sp, T)) < 0.6)
+    d = g.integers(1, 4, (Sp, T)).astype(np.float64)
+    if Sp == 1:
+        z, d = z[0], d[0]
+    return [torch.tensor(x, dtype=torch.float32, device="cuda")
+            for x in (A, C, start, end, z, d)]
+
+
+def device_ops(torch, fn, reps: int = 5) -> dict:
+    """{device entry: count} of ``reps`` calls of ``fn`` under
+    torch.profiler: every kernel, copy and fill they put on the device (the
+    profiler may drop some launches, never invent one)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
 
 
 def task_ops(n_slots: int) -> int:
@@ -838,7 +886,7 @@ def main() -> int:
         print(f"[ptxas ssd_scan] {label}: {regs}; {spills}")
     regs_of = {}
     for src, names in (("policy_cost", ("chain_smem_kernel", "chain_kernel",
-                                        "task_kernel")),
+                                        "task_tree_kernel")),
                        ("hedge_replay", ("trajectory_kernel",
                                          "sample_kernel"))):
         for fn_name, regs, spills in ptxas_summary(logs.get(src, ""), "_"):
@@ -848,6 +896,14 @@ def main() -> int:
                 label += f"<{m.group(1)}>" if m else ""
                 regs_of[label] = f"{regs}; {spills or 'no spill line'}"
                 print(f"[ptxas {src}] {label}: {regs_of[label]}")
+    # The task kernel's search tree at a horizon long enough for all its
+    # levels.
+    tree = pc.task_layout(max(TASK_HORIZONS))
+    print(f"[policy_cost task_tree_kernel] layout at {max(TASK_HORIZONS)} "
+          f"slots: {tree['depth']} tree levels, {tree['smem_bytes']} bytes "
+          f"of shared memory per block, {tree['threads']} threads per block, "
+          f"{tree['blocks_per_sm']} blocks per SM; registers "
+          f"{regs_of.get('task_tree_kernel')}")
     print(f"[phase build: {time.perf_counter() - t0:.3f}s, "
           f"{len(logs)} source(s) compiled]")
     kind = torch.cuda.get_device_name(0)
@@ -1025,7 +1081,8 @@ def main() -> int:
     got = task_fn(*a, **k)
     ref = pc.policy_cost_plain(*a, **k)
     torch.cuda.synchronize()
-    err = max_err(got, ref, pc.OUT_KEYS + ("finish",))
+    task_keys = pc.OUT_KEYS + ("finish",)
+    err = max_err(got, ref, task_keys)
     S, n1 = A.shape
     T = start.shape[0]
     Sp = z.shape[0] if z.dim() == 2 else 1
@@ -1033,6 +1090,12 @@ def main() -> int:
     b_ms, b_by = bound(4 * (2 * S * n1 + 2 * T + 2 * Sp * T + 5 * S * T),
                        active * task_ops(n1 - 1))
     run = lambda: task_fn(*a, **k)  # noqa: E731
+    layout = pc.task_layout(n1 - 1)
+    blocks = pc.task_plan(S, T, layout["threads"], layout["blocks_per_sm"],
+                          sms)
+    ops_five_calls = device_ops(torch, run)
+    one_kernel = len(ops_five_calls) == 1 and \
+        kernel_named(next(iter(ops_five_calls)), ("task_tree_kernel",))
     kernels.append({
         "name": "policy_cost", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/policy_cost.cu",
@@ -1042,17 +1105,44 @@ def main() -> int:
         "plain_ms": cuda_ms(torch, lambda: pc.policy_cost_plain(*a, **k)),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "device_ms": device_ms(torch, run),
-        "kernel_device_ms": pass_device_ms(torch, run, ("task_kernel",))
-        .get("task_kernel"),
-        "registers": {"task_kernel": regs_of.get("task_kernel")},
+        "kernel_device_ms": pass_device_ms(torch, run, ("task_tree_kernel",))
+        .get("task_tree_kernel"),
+        "registers": {"task_tree_kernel": regs_of.get("task_tree_kernel")},
+        "layout": layout, "blocks_per_scenario": blocks,
+        "device_ops_five_calls": ops_five_calls,
         "shape": {"S": S, "Sp": Sp, "T": T, "n_slots": n1 - 1}})
     e = kernels[-1]
     print(f"policy_cost vs plain: max abs err {err:.3e} "
           f"{'OK' if err == 0.0 else 'FAIL'} (bit-equal required); ms per "
           f"call {e['ms']:.4f}, device {e['device_ms']:.4f}, the kernel "
-          f"alone {e['kernel_device_ms']}")
+          f"alone {e['kernel_device_ms']}, bound {b_ms:.4f} ({b_by}); "
+          f"{layout['depth']} tree levels, {layout['smem_bytes']} bytes of "
+          f"shared memory and {layout['threads']} threads per block, "
+          f"{blocks} blocks per scenario; device operations of five calls "
+          f"{ops_five_calls} {'OK' if one_kernel else 'FAIL'} (the kernel "
+          "alone required)")
     if err != 0.0:
         fail("policy_cost is not bit-equal to its plain version")
+    if not one_kernel:
+        fail(f"policy_cost calls put other operations than their kernel on "
+             f"the device, or the profiler saw none: {ops_five_calls}")
+    # Horizons off Table 6's path: around the tree's node count and far
+    # past the chain's slot limit, all on the one route.
+    nodes = (1 << tree["depth"]) - 1
+    horizons = sorted({*TASK_HORIZONS, nodes - 1, nodes, nodes + 1})
+    worst = 0.0
+    for n_slots in horizons:
+        for Sp in (1, 2):
+            args_t = task_case(torch, np, n_slots, Sp, TASK_LONG_SEED)
+            err_t = max_err(task_fn(*args_t), pc.policy_cost_plain(*args_t),
+                            task_keys)
+            worst = max(worst, err_t)
+            if err_t != 0.0:
+                fail(f"policy_cost at {n_slots} slots, Sp {Sp}: max abs err "
+                     f"{err_t:.3e} against its plain version")
+    print(f"policy_cost at synthetic horizons {horizons} slots (S, T "
+          f"{TASK_LONG_SHAPE}, Sp 1 and 2, seed {TASK_LONG_SEED}): max abs "
+          f"err vs plain {worst:.3e} OK")
 
     (a, k) = captured["hedge_replay"]
     Ch, etas, u, n_done = a

@@ -21,9 +21,16 @@ Chains take one of two kernels by a route rule (``chain_plan``):
 * ``"global"`` for a longer horizon: one thread per (bid, scenario,
   row), the L-window recurrence inside the thread, A/C/H read through L2.
 
-Planned starts take one thread per (scenario, task), A/C/H from global
-memory. The TPU's comparison counts over 2048-slot chunks and one-hot
-matmul gathers become ``lower_bound`` searches and direct loads. Plans are
+Planned starts take one kernel at any horizon (``task_tree_kernel``): the
+A and H searches walk the same ``lower_bound`` tree, whose top levels (A
+and H at their nodes, the intervals below them: 16 KB) each block keeps in
+shared memory; they finish ATen's loop on the interval reached through
+L1/L2, computing H per probe. A grid of blocks that fills the SMs once
+(``task_plan``), each on an even share of one scenario's tasks. The
+wrapper launches that one kernel and nothing else on the device.
+
+The TPU's comparison counts over 2048-slot chunks and one-hot matmul
+gathers become ``lower_bound`` searches and direct loads. Plans are
 passed window-major ((B, Sp, L, R)) so a warp's loads of one window are
 coalesced; scenario-shared plans are read through a scenario stride of 0.
 
@@ -31,13 +38,15 @@ Semantics (kernels and plain version alike, as in ``_chain_kernel``): a
 position is ``lower_bound`` over the n+1 unpadded entries (``torch.
 searchsorted(side="left")``); a position past n means +inf, and an A
 target <= 0 means t = 0. H is ``h_cum``'s f32 product and subtraction, which
-the shared-memory kernel repeats per probe; all are bit-equal.
+the shared-memory chain kernel and the task kernel repeat per probe (the
+task kernel also at its tree's nodes); all are bit-equal.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -47,7 +56,8 @@ from repro_torch.device import kernel_library
 from repro_torch.kernels import LAUNCHES
 
 __all__ = ["policy_cost_chain", "policy_cost_chain_plain", "policy_cost",
-           "policy_cost_plain", "h_cum", "chain_plan", "ChainPlan", "OUT_KEYS"]
+           "policy_cost_plain", "h_cum", "chain_plan", "ChainPlan",
+           "task_plan", "task_layout", "OUT_KEYS"]
 
 OUT_KEYS = ("spot_cost", "ondemand_cost", "spot_work", "ondemand_work")
 _F32 = torch.float32
@@ -84,11 +94,24 @@ def chain_plan(B: int, S: int, Sp: int, R: int, L: int, n_slots: int,
     return ChainPlan("global", a_bytes, 0)
 
 
+def task_plan(S: int, T: int, threads: int, blocks_per_sm: int,
+              sms: int = H100_SMS) -> int:
+    """Blocks per scenario of a task call: the grid fills the card's
+    ``sms`` SMs once at the ``blocks_per_sm`` the kernel's occupancy allows
+    (``task_layout``), shared out over the S scenarios, at least one each
+    and none without a task of its own (``threads`` per block)."""
+    if min(S, threads, blocks_per_sm, sms) < 1 or T < 0:
+        raise ValueError("task_plan: need S, threads, blocks_per_sm, sms "
+                         ">= 1 and T >= 0")
+    return max(1, min(sms * blocks_per_sm // S, -(-T // threads)))
+
+
 def h_cum(A: torch.Tensor, slot: float) -> torch.Tensor:
     """H = k * slot - A in f32 (non-decreasing up to an f32 ulp)."""
     return torch.arange(A.shape[-1], dtype=_F32, device=A.device) * slot - A
 
 
+@functools.cache
 def inverse_slot(slot: float) -> float:
     """1/slot rounded to float32. The reference's programs divide by the
     slot constant, which XLA compiles to a multiply by this reciprocal;
@@ -190,17 +213,51 @@ def _check(named: dict, device: torch.device) -> None:
             raise ValueError(f"{name} must be float32, got {t.dtype}")
 
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# The C entry points of csrc/policy_cost.cu: pointers, then the shapes and
+# the scalars; every launch ends with the stream.
+_SIGNATURES = {
+    "policy_cost_chain_smem_launch": [_P] * 8 + [_I] * 6 + [_F] * 6
+    + [_I, _P],
+    "policy_cost_chain_launch": [_P] * 9 + [_I] * 6 + [_F] * 6 + [_P],
+    "policy_cost_launch": [_P] * 7 + [_I] * 4 + [_F] * 6 + [_I, _P],
+    "policy_cost_task_layout": [_I, ctypes.POINTER(_I)],
+}
+TASK_LAYOUT_KEYS = ("threads", "blocks_per_sm", "depth", "smem_bytes")
+
+
+@functools.cache
+def _entry(fn_name: str):
+    """A C entry point of the library, its ctypes signature set once."""
+    fn = getattr(kernel_library("policy_cost"), fn_name)
+    fn.restype, fn.argtypes = ctypes.c_int, _SIGNATURES[fn_name]
+    return fn
 
 
 def _launch(fn_name: str, args: list, device: torch.device) -> None:
-    fn = getattr(kernel_library("policy_cost"), fn_name)
-    fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(device).cuda_stream
-    rc = fn(*args, ctypes.c_void_p(stream))
+    rc = _entry(fn_name)(*args, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{fn_name}: CUDA error {rc} at launch")
+
+
+@functools.cache
+def task_layout(n_slots: int, device_index: int = 0) -> dict:
+    """The task kernel's layout at ``n_slots`` on a card, as the ``.cu``
+    sets it: threads per block, the blocks an SM holds, the search tree's
+    levels in shared memory and its bytes per block. Needs the built
+    kernel library and the card."""
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device_index):
+        rc = _entry("policy_cost_task_layout")(n_slots, out)
+    if rc:
+        raise ValueError(f"policy_cost_task_layout: error {rc} at "
+                         f"{n_slots} slots")
+    return dict(zip(TASK_LAYOUT_KEYS, out))
+
+
+@functools.cache
+def _sms(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def policy_cost_chain(A, C, arrival, ends, z_t, d_eff, pins, *,
@@ -257,27 +314,24 @@ def _chain_on_card(force_global, A, C, arrival, ends, z_t, d_eff, pins,
                          "B, S <= 65535")
     _check({"A": A, "C": C, "arrival": arrival, "ends": ends, "z_t": z_t,
             "d_eff": d_eff, "pins": pins}, A.device)
-    plan = chain_plan(B, S, Sp, R, L, n_slots, torch.cuda.get_device_properties(
-        A.device).multi_processor_count)
+    plan = chain_plan(B, S, Sp, R, L, n_slots, _sms(A.device.index))
     A, C, arrival = A.contiguous(), C.contiguous(), arrival.contiguous()
     ends_w = ends.transpose(1, 2).contiguous()             # (B, L, R)
     z_w, d_w, p_w = (a.transpose(2, 3).contiguous()        # (B, Sp, L, R)
                      for a in (z_t, d_eff, pins))
     out = torch.empty((4, B, S, R), dtype=_F32, device=A.device)
-    f = ctypes.c_float
-    scalars = [ctypes.c_int(B), ctypes.c_int(S), ctypes.c_int(Sp),
-               ctypes.c_int(R), ctypes.c_int(L), ctypes.c_int(n_slots),
-               f(slot), f(inverse_slot(slot)), f(p_od), f(FLEX_REL),
-               f(FLEX_ABS), f(_WORK_EPS)]
-    plans = map(_ptr, (arrival, ends_w, z_w, d_w, p_w, out))
+    scalars = [B, S, Sp, R, L, n_slots, slot, inverse_slot(slot), p_od,
+               FLEX_REL, FLEX_ABS, _WORK_EPS]
+    plans = map(torch.Tensor.data_ptr, (arrival, ends_w, z_w, d_w, p_w, out))
     if plan.route == "smem" and not force_global:
         _launch("policy_cost_chain_smem_launch",
-                [_ptr(A), _ptr(C), *plans, *scalars,
-                 ctypes.c_int(plan.blocks_per_pair)], A.device)
+                [A.data_ptr(), C.data_ptr(), *plans, *scalars,
+                 plan.blocks_per_pair], A.device)
         LAUNCHES["policy_cost_chain_smem"] += 1
     else:
+        H = h_cum(A, slot)                 # held until the launch is queued
         _launch("policy_cost_chain_launch",
-                [_ptr(A), _ptr(C), _ptr(h_cum(A, slot)), *plans, *scalars],
+                [A.data_ptr(), C.data_ptr(), H.data_ptr(), *plans, *scalars],
                 A.device)
     LAUNCHES["policy_cost_chain"] += 1
     return dict(zip(OUT_KEYS, out.unbind(0)))
@@ -314,7 +368,8 @@ def policy_cost(A, C, start, end, z_t, d_eff, *, slot: float = 1.0 / 12.0,
     A/C: (S, n_slots+1) f32; start/end: (T,) planned windows; z_t/d_eff:
     (T,) shared or (S, T) per scenario. Returns a dict of (S, T) f32:
     spot_cost, ondemand_cost, spot_work, ondemand_work, finish.
-    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    CPU tensors take the plain version; CUDA tensors launch the kernel,
+    and nothing else on the device where the inputs are contiguous.
     """
     S, n1 = A.shape
     T = start.shape[0]
@@ -328,19 +383,19 @@ def policy_cost(A, C, start, end, z_t, d_eff, *, slot: float = 1.0 / 12.0,
                                  p_od=p_od)
     if A.device.type != "cuda":
         raise ValueError(f"policy_cost has no kernel for {A.device}")
-    if n1 < 2 or S > 65535:
-        raise ValueError("policy_cost: need n_slots >= 1 and S <= 65535")
+    if n1 < 2 or S > 65535 or T >= 2 ** 30:
+        raise ValueError("policy_cost: need n_slots >= 1, S <= 65535 and "
+                         "T < 2**30")
     _check({"A": A, "C": C, "start": start, "end": end, "z_t": z2,
             "d_eff": d2}, A.device)
-    A, C = A.contiguous(), C.contiguous()
-    H = h_cum(A, slot)
-    args = [t.contiguous() for t in (start, end, z2, d2)]
+    ins = [t.contiguous() for t in (A, C, start, end, z2, d2)]
+    layout = task_layout(n1 - 1, A.device.index)
+    blocks = task_plan(S, T, layout["threads"], layout["blocks_per_sm"],
+                       _sms(A.device.index))
     out = torch.empty((5, S, T), dtype=_F32, device=A.device)
-    f = ctypes.c_float
     _launch("policy_cost_launch",
-            [*map(_ptr, (A, C, H, *args, out)), ctypes.c_int(S),
-             ctypes.c_int(Sp), ctypes.c_int(T), ctypes.c_int(n1 - 1),
-             f(slot), f(inverse_slot(slot)), f(p_od), f(FLEX_REL), f(FLEX_ABS), f(_WORK_EPS)],
+            [*map(torch.Tensor.data_ptr, (*ins, out)), S, Sp, T, n1 - 1, slot,
+             inverse_slot(slot), p_od, FLEX_REL, FLEX_ABS, _WORK_EPS, blocks],
             A.device)
     LAUNCHES["policy_cost"] += 1
     return dict(zip(OUT_KEYS + ("finish",), out.unbind(0)))
