@@ -19,9 +19,15 @@ from __future__ import annotations
 
 import numpy as np
 
-from repro_torch.core.types import ChainJob
+from repro_torch.core.types import Allocation, ChainJob
 
-__all__ = ["window_sizes", "window_sizes_batch"]
+__all__ = [
+    "dealloc",
+    "window_sizes",
+    "window_sizes_batch",
+    "expected_spot_work",
+    "allocation_windows",
+]
 
 # Named epsilon guards (DESIGN.md §5/§6).
 # _FEAS_EPS: f64 noise floor on the slack omega = window - sum(e) — windows
@@ -120,3 +126,37 @@ def window_sizes_batch(
     np.put_along_axis(out, np.broadcast_to(order[None], (G, J, L)), sizes_s,
                       axis=2)
     return out
+
+
+def expected_spot_work(
+    z: np.ndarray | float,
+    delta: np.ndarray | float,
+    sizes: np.ndarray | float,
+    x: float,
+) -> np.ndarray:
+    """Vectorized z_o of Prop 4.2/4.5 for window sizes ``sizes``."""
+    z = np.asarray(z, dtype=np.float64)
+    delta = np.asarray(delta, dtype=np.float64)
+    sizes = np.asarray(sizes, dtype=np.float64)
+    e = z / delta
+    if x >= 1.0:
+        return np.where(sizes >= e - _CAP_EPS, z, 0.0)
+    slack = np.maximum(sizes - e, 0.0)
+    return np.minimum(z, x / (1.0 - x) * delta * slack)
+
+
+def allocation_windows(job: ChainJob, sizes: np.ndarray) -> tuple[tuple[float, float], ...]:
+    """Chain windows from sizes: task i runs in [s_{i-1}, s_i] (Eq. 4)."""
+    bounds = job.arrival + np.concatenate([[0.0], np.cumsum(sizes)])
+    return tuple((float(bounds[i]), float(bounds[i + 1])) for i in range(job.l))
+
+
+def dealloc(job: ChainJob, x: float, r: np.ndarray | None = None) -> Allocation:
+    """Full Allocation from Algorithm 1 (self-owned counts default to zero)."""
+    sizes = window_sizes(job, x)
+    windows = allocation_windows(job, sizes)
+    if r is None:
+        r_t = tuple(0.0 for _ in range(job.l))
+    else:
+        r_t = tuple(float(v) for v in r)
+    return Allocation(job=job, windows=windows, r=r_t)

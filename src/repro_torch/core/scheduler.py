@@ -19,10 +19,12 @@ Events (paper Alg. 2):
                    windows are prescriptive ("tasks are executed and
                    finished in the specified windows", Section 6.1).
 
-This is the host half of the port: ``_allocate_pool`` + ``_simulate_plan``
-are the realized system (shared-pool contention included) that TOLA's
-rounds replay, and the plan builders feed the engine's cost kernels. The
-counterfactual grid evaluation itself lives in ``repro_torch.engine``.
+``run_jobs`` is the realized system (shared-pool contention included, host
+float64): ``_allocate_pool`` + ``_simulate_plan``, which TOLA's rounds
+replay; the plan builders feed the engine's cost kernels.
+``evaluate_policy_fullpool`` is the counterfactual evaluator — each
+candidate policy sees the pool as if dedicated — routed through the port's
+``repro_torch.engine.evaluate_grid`` (on the card by default).
 """
 
 from __future__ import annotations
@@ -46,6 +48,8 @@ __all__ = [
     "job_arrays",
     "build_plans",
     "build_plans_batch",
+    "run_jobs",
+    "evaluate_policy_fullpool",
 ]
 
 
@@ -464,3 +468,53 @@ def _simulate_plan(
             np.add.at(out.spot_work, owner, sim.spot_work)
             np.add.at(out.ondemand_work, owner, sim.ondemand_work)
     return out
+
+
+def run_jobs(
+    jobs: list[ChainJob],
+    policy: Policy | list[Policy],
+    market: SpotMarket,
+    r_total: int = 0,
+    windows: str = "dealloc",
+    selfowned: str = "prop12",
+    early_start: bool = True,
+    return_pool: bool = False,
+) -> StreamCosts | tuple[StreamCosts, np.ndarray, SelfOwnedPool | None]:
+    """Realized processing of a job stream (shared pool, chronological)."""
+    plan = build_plans(jobs, policy, r_total, windows)
+    r_alloc, pool = _allocate_pool(plan, r_total, selfowned, market.slots_per_unit)
+    costs = _simulate_plan(plan, r_alloc, market, early_start)
+    if return_pool:
+        return costs, r_alloc, pool
+    return costs
+
+
+def evaluate_policy_fullpool(
+    jobs: list[ChainJob],
+    policy: Policy,
+    market: SpotMarket,
+    r_total: int = 0,
+    windows: str = "dealloc",
+    selfowned: str = "prop12",
+    early_start: bool = True,
+    availability=None,
+    device="cuda",
+) -> StreamCosts:
+    """Counterfactual per-job costs with a dedicated (uncontended) pool.
+
+    ``availability``: optional callable ``(starts, ends) -> (J, L) array`` of
+    per-task self-owned availability. Defaults to the dedicated pool
+    (``r_total`` everywhere); TOLA's pool-aware refinement passes the
+    realized residual-occupancy query instead.
+
+    Routed through the engine as a 1-policy grid (on the card unless
+    ``device="cpu"``); grids should call ``repro_torch.engine.evaluate_grid``
+    directly.
+    """
+    from repro_torch.engine import evaluate_grid  # engine depends on this module
+
+    res = evaluate_grid(
+        jobs, [policy], market, r_total, windows=windows,
+        selfowned=selfowned, early_start=early_start,
+        availability=availability, pool="dedicated", device=device)
+    return res.stream_costs(0, 0)

@@ -18,7 +18,7 @@ from typing import Sequence
 
 import numpy as np
 
-__all__ = ["Task", "ChainJob", "DAGJob", "chain_from_arrays"]
+__all__ = ["Task", "ChainJob", "DAGJob", "Allocation", "chain_from_arrays"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,6 +145,29 @@ class DAGJob:
         q = self.earliest_starts()
         e = np.array([t.e for t in self.tasks], dtype=np.float64)
         return float(np.max(q + e)) if self.l else 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class Allocation:
+    """The scheduler's decision for one chain job.
+
+    ``windows[i] = (start_i, deadline_i)`` — task i executes in this window;
+    start_0 = arrival, start_i = deadline_{i-1} (planned starts, Alg. 2).
+    ``r[i]`` — self-owned instances reserved for task i over its whole window.
+    """
+
+    job: ChainJob
+    windows: tuple[tuple[float, float], ...]
+    r: tuple[float, ...]
+
+    def __post_init__(self) -> None:
+        if len(self.windows) != self.job.l or len(self.r) != self.job.l:
+            raise ValueError("allocation arity mismatch")
+
+    @property
+    def sizes(self) -> np.ndarray:
+        """hat-sigma_i — window sizes."""
+        return np.array([b - a for a, b in self.windows], dtype=np.float64)
 
 
 def chain_from_arrays(

@@ -6,6 +6,8 @@ import dataclasses
 
 import numpy as np
 
+from repro_torch.core.scheduler import StreamCosts
+
 __all__ = ["EngineResult"]
 
 
@@ -38,6 +40,10 @@ class EngineResult:
         return self.unit_cost.shape[0]
 
     @property
+    def total_cost(self) -> np.ndarray:
+        return self.spot_cost + self.ondemand_cost
+
+    @property
     def matrix(self) -> np.ndarray:
         """(J, P) unit-cost matrix — requires a single scenario."""
         if self.unit_cost.shape[0] != 1:
@@ -45,3 +51,30 @@ class EngineResult:
                 f"matrix is ambiguous over {self.unit_cost.shape[0]} "
                 "scenarios; index unit_cost[s] explicitly")
         return self.unit_cost[0]
+
+    def avg_unit_cost(self) -> np.ndarray:
+        """alpha[s, p] = sum_j c_j / sum_j Z_j (paper Section 6.1)."""
+        return self.total_cost.sum(axis=1) / self.workload.sum()
+
+    def best(self, s: int | None = None) -> tuple[int, float]:
+        """(policy index, alpha) minimizing the (scenario-mean) stream cost."""
+        alpha = self.avg_unit_cost()
+        a = alpha.mean(axis=0) if s is None else alpha[s]
+        p = int(np.argmin(a))
+        return p, float(a[p])
+
+    def stream_costs(self, p: int, s: int = 0) -> StreamCosts:
+        """Per-job StreamCosts of policy p in scenario s."""
+        so_w = self.selfowned_work if self.selfowned_work.ndim == 2 \
+            else self.selfowned_work[s]
+        so_r = self.selfowned_reserved if self.selfowned_reserved.ndim == 2 \
+            else self.selfowned_reserved[s]
+        return StreamCosts(
+            spot_cost=self.spot_cost[s, :, p].copy(),
+            ondemand_cost=self.ondemand_cost[s, :, p].copy(),
+            spot_work=self.spot_work[s, :, p].copy(),
+            ondemand_work=self.ondemand_work[s, :, p].copy(),
+            selfowned_work=so_w[:, p].copy(),
+            workload=self.workload.copy(),
+            selfowned_reserved=so_r[:, p].copy(),
+        )

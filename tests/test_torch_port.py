@@ -17,7 +17,11 @@ from repro.core import SpotMarket, generate_chain_jobs, spot_od_policies  # noqa
 from repro_torch import device as port_device  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.core import cost_matrix, run_tola, run_tola_scenarios  # noqa: E402
+from repro_torch.core import evaluate_policy_fullpool, sweep_policies  # noqa: E402
 from repro_torch.engine import evaluate_grid  # noqa: E402
+from repro_torch.experiments import exp1_spot_ondemand as exp1  # noqa: E402
+from repro_torch.experiments import exp2_self_owned as exp2  # noqa: E402
+from repro_torch.experiments import exp3_policy12 as exp3  # noqa: E402
 from repro_torch.experiments import table6  # noqa: E402
 from repro_torch.kernels import policy_cost as pc  # noqa: E402
 from repro_torch.learn import replay  # noqa: E402
@@ -80,6 +84,12 @@ ENTRY_POINTS = {
     "run_tola_scenarios": lambda j, m, p: run_tola_scenarios(j, p, [m]),
     "replay": lambda j, m, p: replay(np.ones((4, 3)), np.arange(4.0), 1.0),
     "table6.run": lambda j, m, p: table6.run(4, [0]),
+    "exp1.run": lambda j, m, p: exp1.run(4, [1]),
+    "exp2.run": lambda j, m, p: exp2.run(4, [1], [0]),
+    "exp3.run": lambda j, m, p: exp3.run(4, [1], [0]),
+    "sweep_policies": lambda j, m, p: sweep_policies(j, p, m),
+    "evaluate_policy_fullpool":
+        lambda j, m, p: evaluate_policy_fullpool(j, p[0], m),
 }
 
 
