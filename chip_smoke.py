@@ -10,10 +10,12 @@ Phases, each failing the run with a non-zero exit:
    per source, in parallel) and print the device;
 2. the scheduler's main path — ``repro_torch.experiments.table6.run`` (TOLA
    on the proposed grid and on the Even benchmark, r in {0, 1200}, plus the
-   Hedge learner comparison over 9 schedule instances) under torch.profiler,
-   with every kernel's launch counter set to 0 just before and read just
-   after; each kernel must have launched; the device's busy share is
-   printed with its largest device entries;
+   learner comparison over 21 instances: hedge and exp3 each with the
+   paper's schedule and 8 constant etas, ucb1, egreedy and ftl) under
+   torch.profiler, with every kernel's launch counter set to 0 just before
+   and read just after; each kernel must have launched (``learner_replay``
+   once per r); the device's busy share is printed with its largest device
+   entries;
 3. each of those kernels against its plain PyTorch version on the card, on
    the inputs of its last main-path launch: max abs error, kernel and plain
    times (CUDA events, median of 5 after a warm-up), device time and the
@@ -34,12 +36,25 @@ Phases, each failing the run with a non-zero exit:
    ``.cu`` lays it out) against the card's limit, and the step's
    dependency chain read from the SASS (``cuobjdump``) at latencies a
    probe kernel measures, times J at the card's maximum SM clock: the
-   dependency floor. The
-   ptxas registers and spills of the cost and Hedge kernels, and the task
+   dependency floor. The learner kernel (exp3, ucb1, egreedy, ftl): every
+   instance's trace and final state bit for bit against the plain version
+   (which follows the kernel's order of operations); then all 21
+   comparison instances of both scenarios against the float64 host loop
+   ``_replay_numpy_one``, each instance's first divergence printed with
+   its float64 margin and ``learner_replay.margin_bound`` (and, for the
+   argmin kinds, the gap between the two lowest scores and ``gap_bound``),
+   failing where a trace leaves the loop at a draw above the bound, or
+   where the bound is 1 or more; a planted fault (chosen + 1 at the first
+   draw of an exp3 instance) must fail both checks. The ptxas registers
+   and spills of the cost, Hedge and learner kernels, and the task
    kernel's search tree (levels, shared memory per block) and blocks per
    SM, are printed in phase 1;
 4. correctness on a small input: the cost tensor against the float64 host
-   simulator and the Hedge replay against the float64 host loop;
+   simulator and all five learner kinds (two Hedge schedules) against the
+   float64 host loop: identical traces, weights and probabilities within
+   1e-5 (exp3 within 1e-4: the reference's own float32 scan misses 1e-5
+   there), and the learner kernel bit for bit with its plain version on
+   the CPU;
 5. the LM substrate's serving path at full width —
    ``repro_torch.launch.serve.serve_requests`` on tinyllama-1.1b (22
    layers, the flash attention kernel in every prefill: 44 launches, each
@@ -78,7 +93,12 @@ Phases, each failing the run with a non-zero exit:
    policy and mode, and the phase's last chain and task launches are
    bit-equal to their plain versions; it prints the knife-edge count, the
    (job, policy) unit costs of exp1's proposed sweeps (r = 0) that leave
-   the host's ``run_jobs`` by more than 1e-5, and the largest gap.
+   the host's ``run_jobs`` by more than 1e-5, and the largest gap;
+9. the fleet orchestrator — ``repro_torch.sched.FleetOrchestrator`` on 30
+   training DAG jobs with 4 reserved pods (``schedule`` with and without
+   learning) and ``stage_plan``, on the card against ``device="cpu"``:
+   every ``ScheduleReport`` field within 1e-5, the same best policy, the
+   stage plan bit for bit, and the chain kernel launched.
 
 Then one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` name and
 power-limit line, and last ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -100,6 +120,11 @@ import sys
 import time
 
 ETA_GRID = [0.01, 0.03, 0.1, 0.3, 1.0, 3.0, 10.0, 30.0]
+LEARNERS = ["hedge", "exp3", "ucb1", "egreedy", "ftl"]
+# Comparison rows per r: hedge and exp3 with the paper's schedule and each
+# grid eta, ucb1, egreedy and ftl with their defaults (comparison_specs).
+COMPARE_ROWS = 2 * (1 + len(ETA_GRID)) + 3
+FLEET_TOL = 1e-5     # absolute, on ScheduleReport fields
 # H100 SXM: device memory rate, float32 rate outside the tensor cores and
 # the dense bfloat16 and TF32 tensor-core rates.
 HBM_BYTES_PER_S = 3.35e12
@@ -111,6 +136,12 @@ TABLE_TOL = 1e-5     # absolute, on alphas and unit costs of Tables 2-5
 TABLE_JOBS = 1500    # jobs per stream of Tables 2-5 (benchmarks/common.py)
 PROFILE_ATTEMPTS = 5  # profiled windows a device-time measurement may take
 HEDGE_TOL = 1e-5     # absolute, on probabilities and weights
+# exp3 at phase 4's small input, on weights and chosen probabilities: the
+# reference's own float32 scan leaves its float64 loop by 5.4e-5 there
+# (tests/test_torch_learn_bandits.py::
+# test_exp3_no_further_from_float64_than_reference_scan); a typical
+# probability at 25 policies is 0.04.
+EXP3_SMALL_TOL = 1e-4
 KNIFE_EDGE = 1e-6    # |cdf - u*total| / total below which a draw may flip
 # The reference's kernel bars (tests/test_kernels.py:37,59): flash attention
 # 2e-5 in float32 and 2e-2 in bfloat16; the SSD scan 1e-4 in float32, and a
@@ -1025,6 +1056,328 @@ def tables_phase(torch, np, n_jobs: int) -> dict:
             "knife_edges": n_off, "cells": n_cells, "gap_max": gap_max}
 
 
+def small_learners(torch, np, Cs, arr, specs) -> None:
+    """Phase 4's learners: every kind on the card against the float64 host
+    loop on a small input. Traces identical; weights and chosen
+    probabilities within HEDGE_TOL, the reference's bar, except exp3's,
+    within EXP3_SMALL_TOL: its importance weight amplifies rounding, so
+    that the reference's own float32 scan misses 1e-5 here too (ROADMAP
+    queue C). The learner kernel's results also equal its plain version's
+    on the CPU, bit for bit."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.learn import replay
+
+    n_before = LAUNCHES["learner_replay"]
+    lr_d = replay(Cs, arr, 3.0, learners=specs, seed=5, backend="torch",
+                  device="cuda")
+    launched = LAUNCHES["learner_replay"] - n_before
+    lr_h = replay(Cs, arr, 3.0, learners=specs, seed=5, backend="numpy")
+    lr_c = replay(Cs, arr, 3.0, learners=specs, seed=5, backend="torch",
+                  device="cpu")
+    J, P = Cs.shape[1:]
+    lines, bad = [], []
+    for k, sp in enumerate(specs):
+        e_w = float(np.abs(lr_d.weights[:, k] - lr_h.weights[:, k]).max())
+        e_p = float(np.abs(lr_d.p_chosen[:, k] - lr_h.p_chosen[:, k]).max())
+        tol = EXP3_SMALL_TOL if sp.kind == "exp3" else HEDGE_TOL
+        same = np.array_equal(lr_d.chosen[:, k], lr_h.chosen[:, k])
+        plain = sp.kind == "hedge" or all(
+            np.array_equal(getattr(lr_d, key)[:, k], getattr(lr_c, key)[:, k])
+            for key in ("chosen", "p_chosen", "expected_unit", "weights"))
+        lines.append(f"{sp.label} weights {e_w:.3e}, p_chosen {e_p:.3e} (tol "
+                     f"{tol:.0e})")
+        if not (same and plain and max(e_w, e_p) <= tol):
+            bad.append(f"{sp.label}: chosen equal {same}, equal to the plain "
+                       f"version {plain}, weights {e_w:.3e}, p_chosen "
+                       f"{e_p:.3e} (tol {tol:.0e})")
+    if bad or launched != 1:
+        fail(f"learner replay off the float64 host loop ({launched} "
+             f"learner_replay launches): " + "; ".join(bad))
+    print(f"small input (2 x {J} jobs x {P} policies) vs the float64 host "
+          f"loop: traces identical; " + "; ".join(lines) + "; the learner "
+          "kernel bit for bit with its plain version on the CPU")
+
+
+def host_draw(np, C, spec, u, ev_kind, ev_j, etas, gammas, j_star: int):
+    """The float64 host loop (``_replay_numpy_one``'s arithmetic) up to the
+    sample of job ``j_star``: that draw's margin min |cdf / total - u|, the
+    argmin kinds' gap (second-lowest score minus the lowest, inf for the
+    weights kinds), the state's largest magnitude (as the plain version's
+    ``scale``) and the updates applied before it."""
+    from repro_torch.learn.learners import (
+        _NEG, init_state, sample_probs, update_state)
+    from repro_torch.learn.replay import _sample_cdf
+    m = C.shape[1]
+    st = init_state(m)
+    chosen, p_sel, n_done = {}, {}, 0
+    for kind, j in zip(ev_kind, ev_j):
+        if kind == 1:
+            oh = np.where(np.arange(m) == chosen[j], 1.0, 0.0)
+            st = update_state(spec.kind, st, C[j], oh, p_sel[j], etas[j])
+            n_done += 1
+            continue
+        p = sample_probs(spec.kind, st, gammas[j])
+        if j != j_star:
+            chosen[j] = _sample_cdf(p, u[j])
+            p_sel[j] = p[chosen[j]]
+            continue
+        cdf = np.cumsum(p)
+        margin = float(np.abs(cdf / cdf[-1] - u[j]).min())
+        if spec.kind in ("hedge", "exp3"):
+            return margin, np.inf, float(np.abs(st["logw"]).max()), n_done
+        counts, sums = st["counts"], st["sums"]
+        cs = np.maximum(counts, 1.0)
+        mean = sums / cs
+        score, size = mean, np.abs(mean)
+        if spec.kind == "ucb1":
+            bonus = np.sqrt(2.0 * np.log(max(counts.sum(), 1.0)) / cs)
+            score, size = mean - bonus, size + bonus
+        untried = counts < 0.5
+        score = np.where(untried, -_NEG, score)
+        size = np.where(untried, 0.0, size)
+        if spec.kind == "ftl":
+            score, size = sums, np.abs(sums)
+        low = np.sort(score)[:2]
+        gap = float(low[-1] - low[0]) if m > 1 else np.inf
+        return margin, gap, float(size.max()), n_done
+    raise ValueError(f"job {j_star} has no sample event")
+
+
+def plain_mismatches(kinds, got, ref) -> tuple[list, float]:
+    """Every (kind, scenario, instance) whose trace or final state is not
+    bit-equal between the kernel's outputs ``got`` and the plain
+    version's ``ref``, and the largest absolute difference."""
+    keys = ("chosen", "p_chosen", "expected_cost", "weights", "logw", "sums",
+            "counts")
+    bad, err = [], 0.0
+    for kk, kind in enumerate(kinds):
+        for s in range(got["chosen"].shape[0]):
+            for key in keys:
+                g_, r_ = got[key][s, kk], ref[key][s, kk]
+                if not torch_equal(g_, r_):
+                    bad.append(f"{kind} (s {s}, k {kk}) {key}")
+                if key != "chosen" and g_.numel():
+                    err = max(err, float((g_.double() - r_.double()).abs()
+                                         .nan_to_num(0.0).max()))
+    return bad, err
+
+
+def torch_equal(a, b) -> bool:
+    """Bit-equality of two tensors of one shape (-inf padding included)."""
+    return a.shape == b.shape and bool((a == b).all())
+
+
+def host_divergence(np, C, spec, u, ev_k, ev_j, eta, gam, got, host):
+    """One comparison instance's trace ``got`` against the float64 host
+    loop's ``host``: None where they agree, else the first divergence with
+    its float64 margin and bound, the argmin kinds' gap and bound, and
+    whether a float32 replay may part there (``ok``)."""
+    from repro_torch.kernels import learner_replay as lk
+    diff = np.nonzero(got != host)[0]
+    if not len(diff):
+        return None
+    j = int(diff[0])
+    mg, gp, sc, n_d = host_draw(np, C, spec, u, ev_k, ev_j, eta, gam, j)
+    mb = lk.margin_bound(spec.kind, sc, C.shape[-1])
+    row = {"job": j, "differ": int(len(diff)), "margin": mg,
+           "margin_bound": mb, "scale": sc, "n_done": n_d}
+    ok = mg <= mb < 1
+    if spec.kind in ("ucb1", "egreedy", "ftl"):
+        row["gap"], row["gap_bound"] = gp, lk.gap_bound(spec.kind, n_d, sc)
+        ok = ok or 0 < gp <= row["gap_bound"]
+    row["ok"] = ok
+    return row
+
+
+def learner_checks(torch, np, learner_fn, last, comparison, launches,
+                   regs_of) -> dict:
+    """Phase 3's learner kernel checks: the main path's last launch bit for
+    bit against its plain version on the card, every comparison instance
+    against the float64 host loop, a planted fault that both checks must
+    catch, times and bound; returns the kernel's entry."""
+    from repro_torch.kernels import learner_replay as lk
+    from repro_torch.learn.replay import _replay_numpy_one, build_events
+
+    a, k = last
+    kinds, Cl, etas = a[:3]
+    S, J, P = Cl.shape
+    K = etas.shape[0]
+    C64, arrivals, d, kw, lr = comparison       # the same replay's inputs
+    ev_k, ev_jj, _ = build_events(arrivals, d)
+    got = learner_fn(*a, **k)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    ref = lk.learner_replay_plain(*a, **k)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    bad, err = plain_mismatches(kinds, got, ref)
+    n_inst = {kind: S * list(kinds).count(kind) for kind in set(kinds)}
+    print("learner_replay vs plain: " + ", ".join(
+        f"{kind} {n - sum(b.startswith(kind + ' ') for b in bad)} of {n}"
+        for kind, n in sorted(n_inst.items()))
+        + " instances bit for bit (trace and final state)")
+    if bad:
+        fail("learner_replay not bit-equal to its plain version: "
+             + "; ".join(bad[:8]))
+
+    # Every comparison instance against the float64 host loop.
+    specs = lr.specs
+    m = C64.shape[-1]
+    et = np.stack([sp.eta.values(arrivals, d, m) for sp in specs])
+    ga = np.stack([sp.explore.values(arrivals, d, m) for sp in specs])
+    seed = kw.get("seed", 0)
+    uu = np.stack([np.random.default_rng(seed + s).random(len(arrivals))
+                   for s in range(C64.shape[0])])
+    t = time.perf_counter()
+    host_rows = []
+    for s in range(C64.shape[0]):
+        for kk, sp in enumerate(specs):
+            host = _replay_numpy_one(C64[s], sp, uu[s], ev_k, ev_jj, et[kk],
+                                     ga[kk])[0]
+            host_rows.append((s, sp.label, host_divergence(
+                np, C64[s], sp, uu[s], ev_k, ev_jj, et[kk], ga[kk],
+                lr.chosen[s, kk], host)))
+    print(f"comparison instances vs the float64 host loop (r = 1200, "
+          f"{C64.shape[0]} scenarios x {len(specs)} instances, J "
+          f"{len(arrivals)}, P {m}) [{time.perf_counter() - t:.3f}s]:")
+    for s, label, row in host_rows:
+        gap = (f", gap {row['gap']:.3e} (bound {row['gap_bound']:.3e})"
+               if row and "gap" in row else "")
+        print(f"  s {s} {label}: " + ("identical trace" if row is None else
+              f"first divergence at job {row['job']} ({row['differ']} draws "
+              f"differ): float64 margin {row['margin']:.3e} (bound "
+              f"{row['margin_bound']:.3e}){gap}, scale {row['scale']:.4g} "
+              f"after {row['n_done']} updates "
+              f"{'OK' if row['ok'] else 'FAIL'}"))
+    off = [(s, label, row) for s, label, row in host_rows
+           if row and not row["ok"]]
+    if off:
+        fail(f"{len(off)} comparison trace(s) leave the float64 host loop at "
+             f"a draw above the bound: {off[:4]}")
+
+    # A planted fault, chosen + 1 at the first draw of the first exp3
+    # instance of scenario 0, must fail both checks.
+    ke, kc = ([sp.kind for sp in specs].index("exp3"),
+              list(kinds).index("exp3"))
+    j0 = int(ev_jj[list(ev_k).index(0)])
+    planted = {key: v.clone() for key, v in got.items()}
+    planted["chosen"][0, kc, j0] = (planted["chosen"][0, kc, j0] + 1) % P
+    caught_plain = bool(plain_mismatches(kinds, planted, ref)[0])
+    trace = lr.chosen[0, ke].copy()
+    trace[j0] = (trace[j0] + 1) % m
+    host = _replay_numpy_one(C64[0], specs[ke], uu[0], ev_k, ev_jj, et[ke],
+                             ga[ke])[0]
+    row = host_divergence(np, C64[0], specs[ke], uu[0], ev_k, ev_jj, et[ke],
+                          ga[ke], trace, host)
+    caught_host = row is not None and not row["ok"]
+    print(f"planted fault (chosen + 1 at job {j0}, s 0, {specs[ke].label}): "
+          f"caught by the plain check {caught_plain}, by the host check "
+          f"{caught_host} (margin {row['margin']:.3e}, bound "
+          f"{row['margin_bound']:.3e})")
+    if not (caught_plain and caught_host):
+        fail("a planted fault in the learner trace passes the checks")
+    del ref
+
+    # Times and the bound: each input read once, each output written once;
+    # operations per (instance, job) as the kernel does them: exp3 14 P
+    # (max, difference, exp, sum, quotient, product, sum of the
+    # distribution; the cdf's sums, quotients and comparisons; the expected
+    # cost's products and sums; the update's max and shift), ucb1 12 P,
+    # egreedy 10 P, ftl 7 P.
+    run = lambda: learner_fn(*a, **k)  # noqa: E731
+    per_job = {"exp3": 14, "ucb1": 12, "egreedy": 10, "ftl": 7}
+    n_bytes = 4 * (S * J * P + 2 * K * J + S * J + 4 * J + K
+                   + 3 * S * K * J + 4 * S * K * P)
+    n_ops = S * J * P * sum(per_job[kind] for kind in kinds)
+    b_ms, b_by = bound(n_bytes, n_ops)
+    nj = lk.lanes(P)
+    entry = {
+        "name": "learner_replay", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/learner_replay.cu",
+        "replaces": "src/repro/learn/replay.py:119",
+        "launches": launches["learner_replay"], "max_abs_err": err,
+        "ms": cuda_ms(torch, run), "plain_ms": plain_ms,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "device_ms": device_ms(torch, run, reps=5),
+        "cost_row_read_bytes": 4 * S * K * J * P,
+        "registers": {n: v for n, v in regs_of.items()
+                      if n == f"learner_kernel<{nj}>"},
+        "shape": {"S": S, "K": K, "J": J, "P": P, "nj": nj,
+                  "kinds": list(kinds)},
+        "vs_plain": {kind: {"instances": n, "bit_equal": n}
+                     for kind, n in sorted(n_inst.items())},
+        "vs_host_float64": [{"s": s, "learner": label, "first": row}
+                            for s, label, row in host_rows]}
+    print(f"learner_replay ({K} instances x {S} scenarios, J {J}, P {P}): ms "
+          f"per call {entry['ms']:.3f}, device {entry['device_ms']:.3f}, "
+          f"plain {plain_ms:.1f}; bound {b_ms:.4f} ({b_by}); launches "
+          f"{entry['launches']}; registers {entry['registers']}")
+    return entry
+
+
+def fleet_phase(torch, np) -> None:
+    """Phase 9: the fleet orchestrator on the card against the CPU, at the
+    reference's system-test inputs (tests/test_system.py:50-80)."""
+    from repro_torch.core import Policy
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.sched import FleetOrchestrator, FleetSpec, training_job_dag
+
+    rng = np.random.default_rng(0)
+    arrivals = np.cumsum(rng.exponential(1.0, 30))
+    jobs = [training_job_dag("llama3_8b", float(a), deadline_factor=2.0,
+                             max_pods=8, cache=[]) for a in arrivals]
+    fleet, horizon = FleetSpec(reserved_pods=4), float(arrivals[-1] + 50)
+    card = FleetOrchestrator(fleet, horizon, device="cuda")
+    host = FleetOrchestrator(fleet, horizon, device="cpu")
+    LAUNCHES.clear()
+    got = {learn: card.schedule(jobs, learn=learn) for learn in (True, False)}
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    want = {learn: host.schedule(jobs, learn=learn) for learn in (True, False)}
+    worst = 0.0
+    for learn in (True, False):
+        g, w = dataclasses.asdict(got[learn]), dataclasses.asdict(want[learn])
+        for key, v in g.items():
+            if key == "best_policy":
+                if v != w[key]:
+                    fail(f"fleet schedule(learn={learn}): best policy {v} on "
+                         f"the card, {w[key]} on the CPU")
+                continue
+            worst = max(worst, abs(v - w[key]))
+            if not abs(v - w[key]) <= FLEET_TOL:
+                fail(f"fleet schedule(learn={learn}) {key}: {v!r} on the "
+                     f"card, {w[key]!r} on the CPU")
+        print(f"fleet schedule(learn={learn}) on the card: unit cost "
+              f"{got[learn].unit_cost:.6f}, spot / self-owned / on-demand "
+              f"{got[learn].spot_fraction:.4f} / "
+              f"{got[learn].selfowned_fraction:.4f} / "
+              f"{got[learn].ondemand_fraction:.4f}, best policy "
+              f"{got[learn].best_policy}, top weight "
+              f"{got[learn].weights_top:.4f}")
+    if launches.get("policy_cost_chain", 0) < 1:
+        fail(f"the fleet orchestrator launched no chain kernel: {launches}")
+    dag = training_job_dag("mamba2_2_7b", 0.0, max_pods=4, cache=[])
+    pol = Policy(beta=0.625, bid=0.24, beta0=0.5)
+    plans = [FleetOrchestrator(FleetSpec(reserved_pods=2), 200.0,
+                               device=dv).stage_plan(dag, pol)
+             for dv in ("cuda", "cpu")]
+    same = all(np.array_equal(getattr(plans[0], f.name),
+                              getattr(plans[1], f.name), equal_nan=True)
+               for f in dataclasses.fields(plans[0]))
+    sizes = plans[0].sizes[plans[0].mask]
+    feasible = bool(np.all(sizes > 0)) and \
+        plans[0].ends[0, plans[0].mask[0]][-1] <= dag.deadline + 1e-6
+    if not (same and feasible):
+        fail(f"fleet stage_plan: card equal to CPU {same}, feasible "
+             f"{feasible}")
+    print(f"fleet vs CPU: report fields within {worst:.3e} (tol "
+          f"{FLEET_TOL}), best policies equal; stage_plan bit for bit and "
+          f"feasible; launches {launches}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--jobs", type=int, default=10000,
@@ -1050,8 +1403,9 @@ def main() -> int:
     from repro_torch.experiments import table6
     from repro_torch.kernels import LAUNCHES
     from repro_torch.kernels import policy_cost as pc
+    from repro_torch.kernels import learner_replay as lk
     from repro_torch.kernels import weight_update as wu
-    from repro_torch.learn import LearnerSpec, Schedule, replay
+    from repro_torch.learn import LearnerSpec, Schedule
 
     t_all = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -1088,7 +1442,8 @@ def main() -> int:
     for src, names in (("policy_cost", ("chain_smem_kernel", "chain_kernel",
                                         "task_tree_kernel")),
                        ("hedge_replay", ("trajectory_kernel",
-                                         "sample_kernel"))):
+                                         "sample_kernel")),
+                       ("learner_replay", ("learner_kernel",))):
         for fn_name, regs, spills in ptxas_summary(logs.get(src, ""), "_"):
             label = next((n for n in names if n in fn_name), None)
             m = re.search(r"ILi(\d+)E", fn_name)
@@ -1127,6 +1482,15 @@ def main() -> int:
     chain_fn = record(pc, "policy_cost_chain")
     task_fn = record(pc, "policy_cost")
     hedge_fn = record(wu, "hedge_replay")
+    learner_fn = record(lk, "learner_replay")
+    # The comparison replays' inputs and results (the last is r = 1200's).
+    compare, replay_fn = [], table6.replay
+
+    def compare_replay(C, arrivals, d, **kw):
+        lr = replay_fn(C, arrivals, d, **kw)
+        compare.append((C, arrivals, d, kw, lr))
+        return lr
+    table6.replay = compare_replay
     # Each chain launch's route and share of tasks with work (kept on the
     # device, read after the run).
     chain_seen, recorded_chain = [], pc.policy_cost_chain
@@ -1152,16 +1516,20 @@ def main() -> int:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         res = table6.run(args.jobs, [0, 1200], seed=0, scenarios=2,
-                         eta_grid=ETA_GRID, device="cuda")
+                         learners=LEARNERS, eta_grid=ETA_GRID, device="cuda")
         torch.cuda.synchronize()
     t_main = time.perf_counter() - t0
     launches = dict(LAUNCHES)
     table6.print_tables(res)
     print(f"[phase main path: {t_main:.3f}s; launches {launches}]")
     device_breakdown(torch, prof, t_main)
-    for name in ("policy_cost_chain", "policy_cost", "hedge_replay"):
+    for name in ("policy_cost_chain", "policy_cost", "hedge_replay",
+                 "learner_replay"):
         if launches.get(name, 0) < 1:
             fail(f"kernel {name} was not launched on the main path")
+    if launches["learner_replay"] != 2:
+        fail(f"learner_replay launched {launches['learner_replay']} times on "
+             "the main path, not once per r")
     for r in (0, 1200):
         row = res[r]
         for key in ("alpha_tola", "alpha_bench", "rho_bar", "best_fixed"):
@@ -1170,7 +1538,7 @@ def main() -> int:
         if not (0.0 < row["alpha_tola"] <= 1.0 and
                 0.0 < row["alpha_bench"] <= 1.0):
             fail(f"Table 6 r={r} unit costs outside (0, p_od]: {row}")
-        if len(row["comparison"]) != 1 + len(ETA_GRID):
+        if len(row["comparison"]) != COMPARE_ROWS:
             fail(f"learner comparison r={r} has {len(row['comparison'])} rows")
         for c in row["comparison"]:
             if not all(math.isfinite(c[k]) for k in
@@ -1180,6 +1548,8 @@ def main() -> int:
     for name, fn in (("policy_cost_chain", chain_fn), ("policy_cost", task_fn)):
         setattr(pc, name, fn)
     wu.hedge_replay = hedge_fn
+    lk.learner_replay = learner_fn
+    table6.replay = replay_fn
 
     # -- 3. kernels against their plain versions, main-path inputs ----------
     kernels = []
@@ -1455,6 +1825,9 @@ def main() -> int:
               "this run")
     if not ok:
         fail("hedge_replay disagrees with its plain version")
+    kernels.append(learner_checks(torch, np, learner_fn,
+                                  captured["learner_replay"], compare[-1],
+                                  launches, regs_of))
 
     # -- 4. small input against the float64 host references -----------------
     jobs = generate_chain_jobs(60, 2, seed=3)
@@ -1501,22 +1874,14 @@ def main() -> int:
         if not np.all(diff <= COST_TOL + COST_TOL * np.abs(oracle)):
             fail(f"cost tensor ({label}) off the float64 oracle by "
                  f"{diff.max():.3e}")
+    print(f"small input: cost tensors vs float64 oracle max abs {worst:.3e} "
+          f"(tol {COST_TOL} abs + rel)")
     rng = np.random.default_rng(4)
     Cs = rng.random((2, 300, 25)) * 0.6 + np.linspace(0, 0.4, 25)
     arr = np.cumsum(rng.exponential(0.25, 300))
     specs = [LearnerSpec("hedge"), LearnerSpec("hedge", eta=Schedule("const", 0.3))]
-    lr_d = replay(Cs, arr, 3.0, learners=specs, seed=5, backend="torch",
-                  device="cuda")
-    lr_h = replay(Cs, arr, 3.0, learners=specs, seed=5, backend="numpy")
-    e_w = float(np.abs(lr_d.weights - lr_h.weights).max())
-    e_p = float(np.abs(lr_d.p_chosen - lr_h.p_chosen).max())
-    if not np.array_equal(lr_d.chosen, lr_h.chosen) or max(e_w, e_p) > HEDGE_TOL:
-        fail(f"hedge replay off the float64 host loop (weights {e_w:.3e}, "
-             f"p_chosen {e_p:.3e}, chosen equal "
-             f"{np.array_equal(lr_d.chosen, lr_h.chosen)})")
-    print(f"small input: cost tensors vs float64 oracle max abs {worst:.3e} "
-          f"(tol {COST_TOL} abs + rel); hedge vs host loop weights "
-          f"{e_w:.3e}, p_chosen {e_p:.3e}, chosen equal")
+    specs += [LearnerSpec(kind) for kind in LEARNERS[1:]]
+    small_learners(torch, np, Cs, arr, specs)
 
     # -- 5-7. the LM substrate's serving path -------------------------------
     t0 = time.perf_counter()
@@ -1534,6 +1899,11 @@ def main() -> int:
             k["tables_launches"] = tables["launches"][k["name"]]
             k["tables_max_abs_err"] = tables["max_abs_err"][k["name"]]
     print(f"[phase tables with checks: {time.perf_counter() - t0:.3f}s]")
+
+    # -- 9. the fleet orchestrator -------------------------------------------
+    t0 = time.perf_counter()
+    fleet_phase(torch, np)
+    print(f"[phase fleet: {time.perf_counter() - t0:.3f}s]")
 
     for k in kernels:    # the same two numbers under their other names
         k["max_abs_diff"], k["kernel_ms"] = k["max_abs_err"], k["ms"]

@@ -20,6 +20,7 @@ from repro_torch.core.dealloc import (
 )
 from repro_torch.core.market import SpotMarket
 from repro_torch.core.policy import f_selfowned, selfowned_allocation, spot_ondemand_split
+from repro_torch.core.pool import LazySegmentTree, SelfOwnedPool
 from repro_torch.core.scheduler import (
     Policy,
     StreamCosts,
@@ -32,12 +33,22 @@ from repro_torch.core.tola import (
     run_tola,
     run_tola_scenarios,
 )
-from repro_torch.core.types import Allocation, ChainJob, Task, chain_from_arrays
+from repro_torch.core.transform import chain_of, transform
+from repro_torch.core.types import (
+    Allocation,
+    ChainJob,
+    DAGJob,
+    JobCost,
+    Task,
+    TaskCost,
+    chain_from_arrays,
+)
 from repro_torch.core.workload import generate_chain_jobs
 
 __all__ = [
-    "Allocation", "ChainJob", "Task", "chain_from_arrays", "SpotMarket",
-    "Policy", "StreamCosts", "dealloc", "window_sizes", "window_sizes_batch",
+    "Allocation", "ChainJob", "DAGJob", "Task", "TaskCost", "JobCost",
+    "chain_from_arrays", "SpotMarket", "SelfOwnedPool", "LazySegmentTree",
+    "transform", "chain_of", "Policy", "StreamCosts", "dealloc", "window_sizes", "window_sizes_batch",
     "expected_spot_work", "f_selfowned", "selfowned_allocation",
     "spot_ondemand_split", "run_jobs", "evaluate_policy_fullpool",
     "TolaResult", "cost_matrix", "run_tola", "run_tola_scenarios",

@@ -27,6 +27,7 @@ searchsorted-plus-interpolation queries, vectorized over tasks.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 
@@ -35,6 +36,8 @@ __all__ = [
     "SpotMarket",
     "BidView",
     "stacked_view_arrays",
+    "truncated_exp_rate",
+    "sample_truncated_exp",
 ]
 
 SLOTS_PER_UNIT = 12  # paper Section 6.1
@@ -44,6 +47,42 @@ PRICE_MEAN = 0.13
 PRICE_LO = 0.12
 PRICE_HI = 1.0
 P_ONDEMAND = 1.0
+
+
+@functools.lru_cache(maxsize=1024)  # bounded: (mean, lo, hi) triples
+def truncated_exp_rate(mean: float, lo: float, hi: float) -> float:
+    """Rate lambda of an exponential truncated to [lo, hi] with given mean.
+
+    Solved by bisection on the monotone map lambda -> truncated mean.
+    """
+    if not lo < mean < hi:
+        raise ValueError(f"mean {mean} outside ({lo}, {hi})")
+    span = hi - lo
+
+    def trunc_mean(lam: float) -> float:
+        # E[X] = lo + 1/lam - span * q / (1 - q), q = exp(-lam * span)
+        q = np.exp(-lam * span)
+        return lo + 1.0 / lam - span * q / (1.0 - q)
+
+    lo_l, hi_l = 1e-9, 1e6
+    for _ in range(200):
+        mid = 0.5 * (lo_l + hi_l)
+        if trunc_mean(mid) > mean:
+            lo_l = mid  # mean too high -> need larger rate
+        else:
+            hi_l = mid
+    return 0.5 * (lo_l + hi_l)
+
+
+def sample_truncated_exp(
+    rng: np.random.Generator, n: int, mean: float, lo: float, hi: float
+) -> np.ndarray:
+    """Exact inverse-CDF sampling of the truncated exponential."""
+    lam = truncated_exp_rate(mean, lo, hi)
+    u = rng.random(n)
+    # F(x) on [lo, hi]: (1 - exp(-lam (x - lo))) / (1 - exp(-lam (hi - lo)))
+    tail = 1.0 - np.exp(-lam * (hi - lo))
+    return lo - np.log1p(-u * tail) / lam
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,19 +193,33 @@ class SpotMarket:
         price_lo: float = PRICE_LO,
         price_hi: float = PRICE_HI,
         p_ondemand: float = P_ONDEMAND,
+        price_model: str = "shifted",
     ) -> None:
         self.slots_per_unit = slots_per_unit
         self.slot = 1.0 / slots_per_unit
         self.n_slots = int(np.ceil(horizon_units * slots_per_unit)) + 1
         self.p_ondemand = float(p_ondemand)
         rng = np.random.default_rng(seed)
-        # "Bounded exponential, mean 0.13, bounds [0.12, 1]" read as
-        # price = lo + Exp(mean 0.13), clipped above at 1 — the reading
-        # whose realized per-bid availabilities bracket the paper's beta
-        # grid (the reference's DESIGN.md Section 4).
-        self.price = np.minimum(
-            price_lo + rng.exponential(price_mean, self.n_slots), price_hi
-        )
+        if price_model == "shifted":
+            # "Bounded exponential, mean 0.13, bounds [0.12, 1]" read as
+            # price = lo + Exp(mean 0.13), clipped above at 1 — the reading
+            # whose realized per-bid availabilities bracket the paper's
+            # beta grid (the reference's DESIGN.md Section 4).
+            self.price = np.minimum(
+                price_lo + rng.exponential(price_mean, self.n_slots), price_hi
+            )
+        elif price_model == "clip":
+            # Exponential with mean 0.13 clipped to the bounds (availability
+            # 0.75-0.90 across B) — kept as an ablation.
+            self.price = np.clip(
+                rng.exponential(price_mean, self.n_slots), price_lo, price_hi
+            )
+        elif price_model == "truncate":
+            self.price = sample_truncated_exp(
+                rng, self.n_slots, price_mean, price_lo, price_hi
+            )
+        else:
+            raise ValueError(f"unknown price_model {price_model!r}")
         self.boundaries = np.arange(self.n_slots + 1, dtype=np.float64) * self.slot
         self._views: dict[float, BidView] = {}
 
@@ -219,3 +272,7 @@ class SpotMarket:
             view.__dict__["price"] = self.price
             self._views[key] = view
         return self._views[key]
+
+    def beta_realized(self, bid: float) -> float:
+        """Realized average availability for a bid — the market's true beta."""
+        return float(np.mean(self.availability(bid)))

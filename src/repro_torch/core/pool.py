@@ -4,9 +4,11 @@
 ``N(t1, t2) = min_{t in [t1, t2]} N(t)`` is what policy (12) consumes.
 Reservations are half-open intervals [t1, t2) at integer instance counts,
 tracked on the market's slot grid: a reservation occupies every slot it
-overlaps (conservative — a partially covered slot counts as fully used).
-``scheduler._allocate_pool`` fills the occupancy array; ``RangeMax``
-answers range queries over it for TOLA's refinement rounds.
+overlaps (conservative — a partially covered slot counts as fully used
+when answering availability queries, so a feasible answer is always truly
+feasible). ``available``/``reserve`` answer and commit one window;
+``scheduler._allocate_pool`` fills the occupancy array in bulk and
+``RangeMax`` answers range queries over it for TOLA's refinement rounds.
 """
 
 from __future__ import annotations
@@ -25,6 +27,41 @@ class SelfOwnedPool:
         # Exact continuous accounting for utilization metrics.
         self.reserved_instance_time = 0.0
         self.worked_instance_time = 0.0
+
+    def _span(self, t1: float, t2: float) -> tuple[int, int]:
+        """Slots overlapping [t1, t2) — conservative full-slot coverage."""
+        k1 = max(int(np.floor(t1 / self.slot + 1e-9)), 0)
+        k2 = min(int(np.ceil(t2 / self.slot - 1e-9)), self.n_slots)
+        return k1, max(k2, k1 + 1)
+
+    def available(self, t1: float, t2: float) -> int:
+        """N(t1, t2): instances free throughout the window."""
+        if self.total == 0:
+            return 0
+        k1, k2 = self._span(t1, t2)
+        return int(self.total - int(self.used[k1:k2].max(initial=0)))
+
+    def reserve(self, t1: float, t2: float, count: int, worked: float | None = None):
+        """Commit ``count`` instances over [t1, t2).
+
+        ``worked`` is the instance-time actually used for task workload
+        (min(count * window, z)); defaults to the full reservation.
+        """
+        count = int(count)
+        if count <= 0:
+            return
+        k1, k2 = self._span(t1, t2)
+        if int(self.used[k1:k2].max(initial=0)) + count > self.total:
+            raise ValueError("over-reservation of self-owned pool")
+        self.used[k1:k2] += count
+        span = max(t2 - t1, 0.0)
+        self.reserved_instance_time += count * span
+        self.worked_instance_time += count * span if worked is None else worked
+
+    def utilization(self, horizon: float) -> float:
+        """Fraction of the pool's capacity that processed real workload."""
+        cap = self.total * horizon
+        return self.worked_instance_time / cap if cap > 0 else 0.0
 
 
 class LazySegmentTree:

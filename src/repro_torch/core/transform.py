@@ -62,3 +62,10 @@ def transform(job: DAGJob) -> ChainJob:
         # Degenerate: all tasks empty. Keep a single zero-ish task.
         tasks = [Task(z=0.0, delta=1.0)]
     return ChainJob(arrival=job.arrival, deadline=job.deadline, tasks=tuple(tasks))
+
+
+def chain_of(job: ChainJob | DAGJob) -> ChainJob:
+    """Algorithm 3: pass chains through, transform DAGs."""
+    if isinstance(job, ChainJob):
+        return job
+    return transform(job)

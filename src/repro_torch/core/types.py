@@ -18,7 +18,8 @@ from typing import Sequence
 
 import numpy as np
 
-__all__ = ["Task", "ChainJob", "DAGJob", "Allocation", "chain_from_arrays"]
+__all__ = ["Task", "ChainJob", "DAGJob", "Allocation", "TaskCost", "JobCost",
+           "chain_from_arrays"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -181,3 +182,47 @@ def chain_from_arrays(
         deadline=float(deadline),
         tasks=tuple(Task(z=float(a), delta=float(b)) for a, b in zip(z, delta, strict=True)),
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class TaskCost:
+    """Realized cost decomposition for one task under one policy."""
+
+    spot_cost: float
+    ondemand_cost: float
+    spot_work: float       # workload processed by spot instances
+    ondemand_work: float   # workload processed by on-demand instances
+    selfowned_work: float  # workload processed by self-owned instances
+    finish_time: float     # realized completion time
+    turning_point: float | None  # None if the task never lost flexibility
+
+    @property
+    def total(self) -> float:
+        return self.spot_cost + self.ondemand_cost
+
+
+@dataclasses.dataclass(frozen=True)
+class JobCost:
+    """Aggregate over a job's tasks."""
+
+    tasks: tuple[TaskCost, ...]
+
+    @property
+    def total(self) -> float:
+        return float(sum(t.total for t in self.tasks))
+
+    @property
+    def spot_cost(self) -> float:
+        return float(sum(t.spot_cost for t in self.tasks))
+
+    @property
+    def ondemand_cost(self) -> float:
+        return float(sum(t.ondemand_cost for t in self.tasks))
+
+    @property
+    def spot_work(self) -> float:
+        return float(sum(t.spot_work for t in self.tasks))
+
+    @property
+    def selfowned_work(self) -> float:
+        return float(sum(t.selfowned_work for t in self.tasks))

@@ -30,15 +30,15 @@ __all__ = ["resolve_device", "build_kernels", "kernel_library",
 _PKG = pathlib.Path(__file__).resolve().parent
 CSRC = _PKG / "kernels" / "csrc"
 BUILD_DIR = _PKG.parents[1] / "build" / "torch_kernels"
-KERNEL_SOURCES = ("policy_cost", "hedge_replay", "flash_attention",
-                  "ssd_scan")
+KERNEL_SOURCES = ("policy_cost", "hedge_replay", "learner_replay",
+                  "flash_attention", "ssd_scan")
 
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
-# No fused multiply-add contraction in the cost and Hedge kernels: they
+# No fused multiply-add contraction in the cost and learner kernels: they
 # round like their plain versions, one IEEE operation at a time, and agree
 # with them bit for bit. The attention and SSD kernels contract freely.
-EXACT_SOURCES = ("policy_cost", "hedge_replay")
+EXACT_SOURCES = ("policy_cost", "hedge_replay", "learner_replay")
 
 
 def resolve_device(device="cuda") -> torch.device:

@@ -4,12 +4,18 @@ rho_bar = 1 - alpha_bar(P) / alpha_bar(P'): realized average unit cost when
 TOLA drives the proposed grid vs when it drives the benchmark grid (Even
 windows + naive self-owned, bid-only policies, planned starts). Job type 2,
 r in {0, 300, 600, 900, 1200} by default. The cost tensors are computed on
-the card (``device="cuda"``); ``--eta-grid`` adds the learner-comparison
-table, a Hedge replay of every (learner, eta) instance over the last
-round's cost tensor in one kernel launch.
+the card (``device="cuda"``); ``--learner`` (several kinds) or
+``--eta-grid`` adds the learner-comparison table, a replay of every
+(learner, eta) instance over the last round's cost tensor: the Hedge
+instances in one ``hedge_replay`` launch, the exp3, ucb1, egreedy and ftl
+instances in one ``learner_replay`` launch. Its rows are the reference's
+(``benchmarks/exp4_online_learning.py``, same ``comparison_specs``):
+``--learner hedge exp3 ucb1 egreedy ftl`` with an 8-point ``--eta-grid``
+gives 2 * (1 + 8) + 3 = 21 rows per r.
 
     PYTHONPATH=src python -m repro_torch.experiments.table6 --jobs 10000 \
-        --r 0 1200 --scenarios 2 --eta-grid 0.01 0.03 0.1 0.3 1 3 10 30
+        --r 0 1200 --scenarios 2 --learner hedge exp3 ucb1 egreedy ftl \
+        --eta-grid 0.01 0.03 0.1 0.3 1 3 10 30
 """
 
 from __future__ import annotations

@@ -9,6 +9,9 @@ version.
   grid dimension (``csrc/policy_cost.cu``);
 * ``weight_update.hedge_replay`` — the Hedge weight-update replay
   (``csrc/hedge_replay.cu``);
+* ``learner_replay.learner_replay`` — the exp3, ucb1, egreedy and ftl
+  replay, one warp per (scenario, instance) walking the event stream
+  (``csrc/learner_replay.cu``);
 * ``flash_attention.flash_attention_fwd`` — online-softmax attention
   forward with GQA, causal, window and prefix masks
   (``csrc/flash_attention.cu``: a tensor-core kernel for bfloat16 at dh 64

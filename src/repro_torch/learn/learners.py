@@ -11,9 +11,10 @@ plus two pure functions:
   (counterfactual) costs are observable.
 
 Both are float64 numpy: they run the sequential host replay (the exact
-oracle, and the loop TOLA's rounds use). The Hedge kernel
-``repro_torch.kernels.weight_update`` computes the same Hedge recurrence on
-the card. Feedback model per kind:
+oracle, and the loop TOLA's rounds use). On the card the Hedge kernel
+``repro_torch.kernels.weight_update`` and the learner kernel
+``repro_torch.kernels.learner_replay`` compute the same recurrences in
+float32. Feedback model per kind:
 
 * ``hedge``   — the paper's Alg. 4: full information (the whole cost row
   enters the update), exponentiated weights, log-space renormalization
@@ -42,6 +43,7 @@ import numpy as np
 
 __all__ = [
     "LEARNER_KINDS",
+    "FULL_INFO_KINDS",
     "Schedule",
     "LearnerSpec",
     "as_spec",
@@ -51,6 +53,8 @@ __all__ = [
 ]
 
 LEARNER_KINDS = ("hedge", "exp3", "ucb1", "egreedy", "ftl")
+# Learners whose update consumes the whole cost row (vs the sampled entry).
+FULL_INFO_KINDS = frozenset({"hedge", "ftl"})
 
 _NEG = 3.0e38  # "minus infinity" that stays finite in float32
 

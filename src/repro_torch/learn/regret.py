@@ -20,7 +20,7 @@ import dataclasses
 
 import numpy as np
 
-__all__ = ["LearnResult"]
+__all__ = ["LearnResult", "prop_b1_bound"]
 
 
 @dataclasses.dataclass
@@ -97,6 +97,17 @@ class LearnResult:
             fixed, p_star[:, None, None], axis=2)[..., 0]           # (S, J)
         return (cum_real - cum_best[:, None]) / np.cumsum(Z)
 
+    def confidence_bands(self, z: float = 1.96, expected: bool = False):
+        """Per-learner regret-curve bands across scenarios.
+
+        Returns ``(mean, lo, hi)``, each (K, J): scenario mean +- z standard
+        errors (the S market scenarios are the independent replicates).
+        """
+        curves = self.regret_curve(expected=expected)
+        mean = curves.mean(axis=0)
+        se = curves.std(axis=0) / np.sqrt(max(self.n_scenarios, 1))
+        return mean, mean - z * se, mean + z * se
+
     def summary(self) -> list[dict]:
         """Scenario-mean headline numbers per learner (bench/table rows)."""
         realized = self.realized_unit().mean(axis=0)
@@ -110,3 +121,21 @@ class LearnResult:
              "top_weight": float(top_w[k])}
             for k, sp in enumerate(self.specs)
         ]
+
+
+def prop_b1_bound(arrivals, d: float, m: int, c_max: float = 1.0) -> float:
+    """Prop. B.1-style regret bound for delayed-feedback Hedge.
+
+    With losses in [0, c_max] and feedback delayed until ``a_j + d``, at
+    most ``D = max_j #{k != j : a_k in [a_j, a_j + d)}`` other samples are
+    drawn between a job's sample and its update, and exponentiated weights
+    suffer regret at most ``c_max * (sqrt(2 (D + 1) n log m) + (D + 1))``
+    over n jobs (the ``+ (D + 1)`` absorbs the un-updated prefix). The
+    constant is not tight.
+    """
+    a = np.asarray(arrivals, dtype=np.float64)
+    n = len(a)
+    # a is arrival-ordered: jobs in [a_j, a_j + d) form a contiguous run.
+    hi = np.searchsorted(a, a + d, side="left")
+    D = int((hi - np.arange(n) - 1).max()) if n else 0
+    return float(c_max * (np.sqrt(2.0 * (D + 1) * n * np.log(m)) + D + 1))

@@ -12,7 +12,9 @@ policies) cost tensor:
   schedule it consumes the uniform stream exactly as ``rng.choice`` would.
 * ``backend="torch"`` — Hedge instances go through the fused
   ``kernels/weight_update.py`` kernel, all (scenario x schedule) instances
-  in one launch. Other learner kinds are not ported to the card yet.
+  in one launch; every other instance (exp3, ucb1, egreedy, ftl) through
+  ``kernels/learner_replay.py``, one warp per (scenario, instance) walking
+  the event stream, all of them in one launch.
 
 Sampling is inverse-CDF against a per-scenario uniform stream drawn up
 front in numpy, so every backend consumes the SAME randomness and produces
@@ -26,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels import learner_replay as lk
 from repro_torch.kernels import weight_update as wu
 from repro_torch.learn.learners import (
     as_spec,
@@ -110,7 +113,7 @@ def replay(
     the result keeps their order. ``rng`` (single-scenario only) draws the
     uniform stream from a live generator — the hook TOLA's rounds use;
     otherwise scenario s uses ``seed + s``. ``device`` is where
-    ``backend="torch"`` runs the Hedge kernel.
+    ``backend="torch"`` runs its kernels.
     """
     if hasattr(C, "unit_cost"):
         if workload is None:
@@ -132,12 +135,6 @@ def replay(
     if backend not in ("numpy", "torch"):
         raise ValueError(f"unknown replay backend {backend!r}")
     if backend == "torch":
-        other = sorted({sp.kind for sp in specs if sp.kind != "hedge"})
-        if other:
-            raise NotImplementedError(
-                f"learners {other} have no port on the card yet (ROADMAP "
-                "queue A, item 3); backend='torch' replays hedge only — use "
-                "backend='numpy' for the float64 host loop")
         dev = resolve_device(device)
 
     ev_kind, ev_j, n_done = build_events(arrivals, d)
@@ -163,19 +160,47 @@ def replay(
                     _replay_numpy_one(C[s], sp, u[s], ev_kind, ev_j,
                                       etas[k], gammas[k])
     else:
-        f32 = lambda a: torch.from_numpy(  # noqa: E731
-            np.ascontiguousarray(a, dtype=np.float32)).to(dev)
-        out = wu.hedge_replay(f32(C), f32(etas), f32(u),
-                              torch.from_numpy(n_done).to(dev))
-        chosen = out["chosen"].cpu().numpy().astype(np.int64)
-        p_sel = out["p_chosen"].cpu().numpy().astype(np.float64)
-        e_cost = out["expected_cost"].cpu().numpy().astype(np.float64)
-        # Final sampling weights: normalized on the host in float64.
-        logw = out["logw"].cpu().numpy().astype(np.float64)
-        weights = np.exp(logw - logw.max(axis=-1, keepdims=True))
-        weights /= weights.sum(axis=-1, keepdims=True)
+        chosen, p_sel, e_cost, weights = _replay_torch(
+            C, specs, etas, gammas, u, ev_kind, ev_j, n_done, dev)
 
     return LearnResult(
         specs=specs, chosen=chosen, p_chosen=p_sel, expected_unit=e_cost,
         weights=weights, unit_cost=C, arrivals=arrivals, workload=Z,
         feedback_delay=float(d), backend=backend)
+
+
+def _replay_torch(C, specs, etas, gammas, u, ev_kind, ev_j, n_done, dev):
+    """``backend="torch"``: the Hedge instances in one ``hedge_replay``
+    launch, the others in one ``learner_replay`` launch; results in spec
+    order (host float64, traces int64)."""
+    S, n, m = C.shape
+    K = len(specs)
+    f32 = lambda a: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a, dtype=np.float32)).to(dev)
+    i32 = lambda a: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a, dtype=np.int32)).to(dev)
+    chosen = np.zeros((S, K, n), dtype=np.int64)
+    p_sel = np.zeros((S, K, n))
+    e_cost = np.zeros((S, K, n))
+    weights = np.zeros((S, K, m))
+    C_d, u_d = f32(C), f32(u)
+    hedge = [k for k, sp in enumerate(specs) if sp.kind == "hedge"]
+    other = [k for k, sp in enumerate(specs) if sp.kind != "hedge"]
+    outs = []
+    if hedge:
+        out = wu.hedge_replay(C_d, f32(etas[hedge]), u_d, i32(n_done))
+        # Hedge's final sampling weights: normalized on the host in float64.
+        logw = out["logw"].cpu().numpy().astype(np.float64)
+        w = np.exp(logw - logw.max(axis=-1, keepdims=True))
+        outs.append((hedge, out, w / w.sum(axis=-1, keepdims=True)))
+    if other:
+        out = lk.learner_replay(
+            [specs[k].kind for k in other], C_d, f32(etas[other]),
+            f32(gammas[other]), u_d, i32(ev_kind), i32(ev_j))
+        outs.append((other, out, out["weights"].cpu().numpy()))
+    for ks, out, w in outs:
+        chosen[:, ks] = out["chosen"].cpu().numpy()
+        p_sel[:, ks] = out["p_chosen"].cpu().numpy()
+        e_cost[:, ks] = out["expected_cost"].cpu().numpy()
+        weights[:, ks] = w
+    return chosen, p_sel, e_cost, weights

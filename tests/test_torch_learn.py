@@ -1,5 +1,6 @@
-"""The port's learner replay against the reference ``repro.learn.replay``:
-the Hedge kernel's plain version (``backend="torch"`` on the CPU) against
+"""The port's Hedge replay against the reference ``repro.learn.replay``
+(the other learners: ``test_torch_learn_bandits.py``): the Hedge kernel's
+plain version (``backend="torch"`` on the CPU) against
 the float64 numpy oracle and the reference's Pallas kernel in interpret
 mode — sampled traces equal, weights and probabilities within 1e-5, the
 bar of ``tests/test_learn.py`` — the plain version against
@@ -128,9 +129,3 @@ def test_wrapper_takes_plain_version_on_cpu():
     with pytest.raises(ValueError):
         hedge_replay(*(a.to("meta") for a in args))
 
-
-def test_torch_backend_replays_hedge_only():
-    C, arrivals, d, Z = _tensor(n=20)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        replay(C, arrivals, d, learners=["hedge", "exp3"], backend="torch",
-               device="cpu")

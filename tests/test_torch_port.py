@@ -25,6 +25,7 @@ from repro_torch.experiments import exp3_policy12 as exp3  # noqa: E402
 from repro_torch.experiments import table6  # noqa: E402
 from repro_torch.kernels import policy_cost as pc  # noqa: E402
 from repro_torch.learn import replay  # noqa: E402
+from repro_torch.sched import FleetOrchestrator, FleetSpec  # noqa: E402
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
@@ -83,6 +84,10 @@ ENTRY_POINTS = {
     "run_tola": lambda j, m, p: run_tola(j, p, m),
     "run_tola_scenarios": lambda j, m, p: run_tola_scenarios(j, p, [m]),
     "replay": lambda j, m, p: replay(np.ones((4, 3)), np.arange(4.0), 1.0),
+    "replay(learner_replay)": lambda j, m, p: replay(
+        np.ones((4, 3)), np.arange(4.0), 1.0, learners=["exp3", "ftl"]),
+    "FleetOrchestrator.schedule": lambda j, m, p: FleetOrchestrator(
+        FleetSpec(reserved_pods=1), 10.0).schedule([]),
     "table6.run": lambda j, m, p: table6.run(4, [0]),
     "exp1.run": lambda j, m, p: exp1.run(4, [1]),
     "exp2.run": lambda j, m, p: exp2.run(4, [1], [0]),
