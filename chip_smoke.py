@@ -38,7 +38,11 @@ Phases, each failing the run with a non-zero exit:
    probe kernel measures, times J at the card's maximum SM clock: the
    dependency floor. The learner kernel (exp3, ucb1, egreedy, ftl): every
    instance's trace and final state bit for bit against the plain version
-   (which follows the kernel's order of operations); then all 21
+   (which follows the kernel's order of operations) on both main-path
+   launches and on three short streams at the handoff's edges (d = 0,
+   every sample first, P 1024); its time per launch and per kind (one
+   instance alone) and its update step's dependency floor from the SASS;
+   then all 21
    comparison instances of both scenarios against the float64 host loop
    ``_replay_numpy_one``, each instance's first divergence printed with
    its float64 margin and ``learner_replay.margin_bound`` (and, for the
@@ -166,6 +170,9 @@ SSD_LONG = (1, 8192, 80, 64, 1, 128, 256)
 SSD_ODD = [(1, 77, 2, 20, 2, 18, 32), (1, 130, 2, 33, 1, 20, 64),
            (2, 700, 4, 128, 2, 200, 256), (1, 4096, 2, 32, 1, 16, 4096),
            (1, 64, 70000, 8, 1, 16, 64)]
+# The learner kernel's edge streams: jobs taken from the Table 6 launch and
+# the seed of the P 1024 cost tensor.
+EDGE_JOBS, EDGE_SEED = 600, 13
 SSD_PASSES = ("ssd_chunk_state", "ssd_cb", "ssd_state_pass", "ssd_chunk_scan")
 # (arch, kernel on its prefill path, launches: layers x prefill rounds, the
 # device kernel names it launches)
@@ -339,6 +346,8 @@ def start_latency_probe(build_dir: pathlib.Path, nvcc: str):
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib
 
 
+
+
 def latency_table(torch, lib_path) -> dict:
     """SM cycles of one dependent FADD, FMNMX, integer operation (SHF or
     LOP3) and redux.sync with the move of its result to a register."""
@@ -354,20 +363,93 @@ def latency_table(torch, lib_path) -> dict:
             "redux_move": redux - map2 / 2}
 
 
-def sass_function(cuobjdump, lib_path, name: str) -> list[tuple[str, str]]:
-    """(opcode, operands) of the SASS of the function whose mangled name
-    holds ``name``, from ``cuobjdump -sass``."""
+def sass_lines(cuobjdump, lib_path, name: str) -> list[tuple[int, str, str]]:
+    """(address, opcode, operands) of the SASS of the function whose
+    mangled name holds ``name``, from ``cuobjdump -sass``."""
     out = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
                          capture_output=True, text=True, timeout=120).stdout
     body = next((part for part in out.split("Function : ")[1:]
                  if part.split("\n", 1)[0].strip().find(name) >= 0), "")
     ins = []
     for line in body.splitlines():
-        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z0-9_.]+)"
-                      r"\s*([^;]*);", line)
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?"
+                      r"([A-Z0-9_.]+)\s*([^;]*);", line)
         if m:
-            ins.append((m.group(2), m.group(3)))
+            ins.append((int(m.group(1), 16), m.group(3), m.group(4)))
     return ins
+
+
+def sass_function(cuobjdump, lib_path, name: str) -> list[tuple[str, str]]:
+    """(opcode, operands) of the SASS of the function whose mangled name
+    holds ``name``, from ``cuobjdump -sass``."""
+    return [(op, args) for _, op, args in sass_lines(cuobjdump, lib_path,
+                                                     name)]
+
+
+def sass_regs(operands: str) -> list[str]:
+    return re.findall(r"\bU?R(?:\d+)\b", operands)
+
+
+def redux_path(first: str, seq, last: str, lat: dict):
+    """The longest path by ``lat``'s latencies from the result of a REDUX
+    (operands ``first``) through the instructions ``seq`` ((opcode,
+    operands)) to the operand of a REDUX (operands ``last``): (cycles,
+    opcodes), or None where no path joins them. A load or shuffle starts no
+    path; a move of REDUX's result costs nothing (it is in redux_move)."""
+    def cost(op):
+        if op.startswith(("FADD", "FMUL")):
+            return lat["fp"]
+        if op.startswith("FMNMX"):
+            return lat["fmnmx"]
+        if op.startswith(("MOV", "IMAD.U32", "IMAD.MOV")):
+            return 0.0
+        return lat["int"]
+
+    ready = {sass_regs(first)[0]: (lat["redux_move"], ["REDUX"])}
+    for op, args in seq:
+        rs = sass_regs(args)
+        if not rs or op.startswith(("ST", "BRA", "BAR")) or "SETP" in op:
+            continue               # no register written
+        hit = [ready[r] for r in rs[1:] if r in ready]
+        if hit and not op.startswith(("LD", "SHFL")):
+            t, path = max(hit, key=lambda h: h[0])
+            ready[rs[0]] = (t + cost(op), path + [op.split(".")[0]])
+        else:
+            ready.pop(rs[0], None)     # overwritten off the chain
+    rs = sass_regs(last)
+    return ready.get(rs[1]) if len(rs) > 1 else None
+
+
+def loop_chain(lines, lat: dict) -> tuple[list[str], float, int]:
+    """The dependency chain of one trip of a loop that carries its state
+    through one REDUX a trip (the learner kernel's update warp), in the
+    SASS ``lines`` ((address, opcode, operands)): for each REDUX that a
+    later backward branch jumps over (the first such branch closes its
+    loop), the path from its result down to that branch and on from the
+    branch's target back to its own operand. The compiler's divergent
+    fallback blocks, at the end of the function, branch back into the code
+    they left and so look like loops that span most of it: of the paths
+    that close, the one of the shortest loop is taken. Returns its opcodes
+    (ending with the REDUX), its cycles and how many REDUXes closed one."""
+    at = {addr: i for i, (addr, _, _) in enumerate(lines)}
+    ins = [(op, args) for _, op, args in lines]
+    closed = []
+    for r, (op, args) in enumerate(ins):
+        if not op.startswith("REDUX"):
+            continue
+        for b in range(r + 1, len(ins)):
+            target = re.findall(r"0x([0-9a-f]+)", ins[b][1])
+            t = at.get(int(target[-1], 16)) if ins[b][0].startswith("BRA") \
+                and target else None
+            if t is not None and t <= r:
+                c = redux_path(args, ins[r + 1:b + 1] + ins[t:r], args, lat)
+                if c:
+                    closed.append((b - t, c))
+                break
+    if not closed:
+        return [], float("nan"), 0
+    _, (t, path) = min(closed, key=lambda c: c[0])
+    return path + ["REDUX"], t, len(closed)
 
 
 def step_chain(ins, lat: dict) -> tuple[list[str], float]:
@@ -377,31 +459,8 @@ def step_chain(ins, lat: dict) -> tuple[list[str], float]:
     also emits REDUXes in divergent fallback blocks, where no chain joins
     them); returns the median chain over the pairs that do join: its
     opcodes, ending with the REDUX, and its cycles."""
-    regs = lambda s: re.findall(r"\bU?R(?:\d+)\b", s)  # noqa: E731
-
-    def cost(op):
-        if op.startswith(("FADD", "FMUL")):
-            return lat["fp"]
-        if op.startswith("FMNMX"):
-            return lat["fmnmx"]
-        if op.startswith(("MOV", "IMAD.U32", "IMAD.MOV")):
-            return 0.0            # the move of REDUX's result: in redux_move
-        return lat["int"]
-
     def walk(a, b):
-        ready = {regs(ins[a][1])[0]: (lat["redux_move"], ["REDUX"])}
-        for op, args in ins[a + 1:b]:
-            rs = regs(args)
-            if not rs or op.startswith(("ST", "BRA", "BAR")) or "SETP" in op:
-                continue               # no register written
-            hit = [ready[r] for r in rs[1:] if r in ready]
-            if hit and not op.startswith(("LD", "SHFL")):
-                t, path = max(hit, key=lambda h: h[0])
-                ready[rs[0]] = (t + cost(op), path + [op.split(".")[0]])
-            else:
-                ready.pop(rs[0], None)     # overwritten off the chain
-        rs = regs(ins[b][1])
-        return ready.get(rs[1]) if len(rs) > 1 else None
+        return redux_path(ins[a][1], ins[a + 1:b], ins[b][1], lat)
 
     reduxes = [i for i, (op, _) in enumerate(ins) if op.startswith("REDUX")]
     joined = sorted((c for c in (walk(a, b) for a, b in
@@ -1189,39 +1248,102 @@ def host_divergence(np, C, spec, u, ev_k, ev_j, eta, gam, got, host):
     return row
 
 
-def learner_checks(torch, np, learner_fn, last, comparison, launches,
-                   regs_of) -> dict:
-    """Phase 3's learner kernel checks: the main path's last launch bit for
-    bit against its plain version on the card, every comparison instance
-    against the float64 host loop, a planted fault that both checks must
-    catch, times and bound; returns the kernel's entry."""
+
+
+
+
+def learner_edge_streams(torch, np, learner_fn, last, arrivals,
+                         d: float) -> list:
+    """The learner kernel bit for bit against its plain version on short
+    streams that take the handoff to its edges: d = 0 (every update right
+    after its own sample: the pipeline runs as the serial walk), d past the
+    arrival span (every sample before every update: one snapshot, read by
+    all), both on the first EDGE_JOBS jobs of the last Table 6 launch, and
+    Table 6's delay d over its arrival span at P 1024 (12 snapshot slots,
+    so the ring wraps often) on a seeded cost tensor."""
+    from repro_torch.kernels import learner_replay as lk
+    from repro_torch.learn.replay import build_events
+
+    (kinds, C, etas, gammas, u, *_), _ = last
+    n = min(EDGE_JOBS, C.shape[1])
+    arr = arrivals[:n]
+    span = float(arr[-1] - arr[0])
+    cut = lambda t: t[:, :n].contiguous()  # noqa: E731
+    g = np.random.default_rng(EDGE_SEED)
+    wide = torch.from_numpy((g.random((C.shape[0], n, 1024)) * 0.6
+                             + np.linspace(0, 0.4, 1024)).astype(np.float32))
+    cases = [("d = 0", cut(C), 0.0), ("samples first", cut(C), 2 * span),
+             ("Table 6's d / span, P 1024", wide.to(C.device),
+              d / float(arrivals[-1] - arrivals[0]) * span)]
+    rows = []
+    for label, Cc, d in cases:
+        ev_k, ev_j, n_done = build_events(arr, d)
+        ev = [torch.from_numpy(x).to(C.device) for x in (ev_k, ev_j)]
+        a = (kinds, Cc, cut(etas), cut(gammas), cut(u), *ev)
+        bad, err = plain_mismatches(kinds, learner_fn(*a),
+                                    lk.learner_replay_plain(*a))
+        lag = int((np.argsort(ev_j[ev_k == 1]) - n_done).max())
+        rows.append({"stream": label, "J": n, "P": Cc.shape[-1],
+                     "largest_lag": lag, "bit_equal": not bad,
+                     "max_abs_err": err})
+        print(f"learner_replay vs plain, {label} (J {n}, P {Cc.shape[-1]}, "
+              f"largest lag {lag}): {'bit for bit' if not bad else bad[:4]}")
+        if bad:
+            fail(f"learner_replay not bit-equal to its plain version on the "
+                 f"{label} stream: " + "; ".join(bad[:8]))
+    return rows
+
+
+def learner_checks(torch, np, learner_fn, calls, comparison, launches,
+                   regs_of, lat_clocks) -> dict:
+    """Phase 3's learner kernel checks: both main-path launches (r = 0,
+    then r = 1200) bit for bit against the plain version on the card, the
+    handoff's edge streams, every comparison instance against the float64
+    host loop, a planted fault that both checks must catch, times, the
+    bound and the update warp's dependency floor, and a time per kind;
+    returns the kernel's entry."""
+    from repro_torch.device import _library_path, _nvcc
     from repro_torch.kernels import learner_replay as lk
     from repro_torch.learn.replay import _replay_numpy_one, build_events
 
-    a, k = last
+    def plain_run(a, k):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        ref = lk.learner_replay_plain(*a, **k)
+        end.record()
+        end.synchronize()
+        return ref, start.elapsed_time(end)
+
+    shapes = []
+    for a, k in calls:
+        kinds, Cl, etas = a[:3]
+        got = learner_fn(*a, **k)
+        ref, plain_ms = plain_run(a, k)
+        bad, err = plain_mismatches(kinds, got, ref)
+        S, J, P = Cl.shape
+        n_inst = {kind: S * list(kinds).count(kind) for kind in set(kinds)}
+        print(f"learner_replay vs plain (P {P}): " + ", ".join(
+            f"{kind} {n - sum(b.startswith(kind + ' ') for b in bad)} of {n}"
+            for kind, n in sorted(n_inst.items()))
+            + f" instances bit for bit (trace and final state); plain "
+            f"{plain_ms:.1f} ms")
+        if bad:
+            fail(f"learner_replay (P {P}) not bit-equal to its plain "
+                 "version: " + "; ".join(bad[:8]))
+        shapes.append({"P": P, "plain_ms": plain_ms, "max_abs_err": err,
+                       "vs_plain": {kind: {"instances": n, "bit_equal": n}
+                                    for kind, n in sorted(n_inst.items())}})
+    a, k = calls[-1]
     kinds, Cl, etas = a[:3]
     S, J, P = Cl.shape
     K = etas.shape[0]
     C64, arrivals, d, kw, lr = comparison       # the same replay's inputs
     ev_k, ev_jj, _ = build_events(arrivals, d)
     got = learner_fn(*a, **k)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    ref = lk.learner_replay_plain(*a, **k)
-    end.record()
-    end.synchronize()
-    plain_ms = start.elapsed_time(end)
-    bad, err = plain_mismatches(kinds, got, ref)
-    n_inst = {kind: S * list(kinds).count(kind) for kind in set(kinds)}
-    print("learner_replay vs plain: " + ", ".join(
-        f"{kind} {n - sum(b.startswith(kind + ' ') for b in bad)} of {n}"
-        for kind, n in sorted(n_inst.items()))
-        + " instances bit for bit (trace and final state)")
-    if bad:
-        fail("learner_replay not bit-equal to its plain version: "
-             + "; ".join(bad[:8]))
+    edges = learner_edge_streams(torch, np, learner_fn, calls[-1], arrivals,
+                                 d)
 
     # Every comparison instance against the float64 host loop.
     specs = lr.specs
@@ -1279,7 +1401,7 @@ def learner_checks(torch, np, learner_fn, last, comparison, launches,
           f"{row['margin_bound']:.3e})")
     if not (caught_plain and caught_host):
         fail("a planted fault in the learner trace passes the checks")
-    del ref
+    del got, ref
 
     # Times and the bound: each input read once, each output written once;
     # operations per (instance, job) as the kernel does them: exp3 14 P
@@ -1287,35 +1409,80 @@ def learner_checks(torch, np, learner_fn, last, comparison, launches,
     # distribution; the cdf's sums, quotients and comparisons; the expected
     # cost's products and sums; the update's max and shift), ucb1 12 P,
     # egreedy 10 P, ftl 7 P.
-    run = lambda: learner_fn(*a, **k)  # noqa: E731
+    names = ("learner_block_kernel",)
     per_job = {"exp3": 14, "ucb1": 12, "egreedy": 10, "ftl": 7}
+    for sh, (a_, k_) in zip(shapes, calls):
+        run = lambda: learner_fn(*a_, **k_)  # noqa: E731
+        sh["ms"] = cuda_ms(torch, run)
+        sh["device_ms"] = device_ms(torch, run, reps=5)
+        sh["kernel_device_ms"] = pass_device_ms(torch, run, names).get(
+            names[0])
+        # One instance of each kind alone, the others' rows dropped.
+        one = {}
+        for kind in ("exp3", "ucb1", "egreedy", "ftl"):
+            kk = list(a_[0]).index(kind)
+            a1 = ([kind], a_[1], *(t[kk:kk + 1].contiguous()
+                                   for t in a_[2:4]), *a_[4:])
+            one[kind] = device_ms(torch, lambda: learner_fn(*a1), reps=5)
+        sh["one_instance_device_ms"] = one
+        print(f"learner_replay at P {sh['P']}: ms per call {sh['ms']:.4f}, "
+              f"device {sh['device_ms']:.4f}, the kernel alone "
+              f"{sh['kernel_device_ms']}; one instance of each kind: "
+              + ", ".join(f"{x} {v:.4f}" for x, v in one.items()))
     n_bytes = 4 * (S * J * P + 2 * K * J + S * J + 4 * J + K
                    + 3 * S * K * J + 4 * S * K * P)
     n_ops = S * J * P * sum(per_job[kind] for kind in kinds)
     b_ms, b_by = bound(n_bytes, n_ops)
     nj = lk.lanes(P)
+    # The update warp's exp3 step in the SASS: the loop-carried chain
+    # through the REDUX of its max, at the probe's latencies, J times at
+    # the card's maximum SM clock.
+    lat, clocks = lat_clocks
+    chain_ops, chain_cycles, n_closed = loop_chain(
+        sass_lines(pathlib.Path(_nvcc()).parent / "cuobjdump",
+                   _library_path("learner_replay"),
+                   f"learner_block_kernelILi{nj}E"), lat)
+    floor_ms = J * chain_cycles / (clocks["max_sm_mhz"] * 1e3) \
+        if clocks["max_sm_mhz"] else None
+    print(f"learner_replay update step in the SASS of learner_block_kernel"
+          f"<{nj}>: {' '.join(chain_ops)}, {chain_cycles:.1f} cycles "
+          f"({n_closed} loop-carried REDUX chain(s)); SM clock {clocks}: "
+          f"dependency floor {floor_ms} ms over {J} updates; operations "
+          f"bound {b_ms:.4f} ms")
+    src = (pathlib.Path(__file__).resolve().parent / "src" / "repro_torch"
+           / "kernels" / "csrc" / "learner_replay.cu").read_text()
+    warps = int(re.search(r"kSampleWarps = (\d+);", src).group(1))
+    r0, r1200 = shapes[0], shapes[-1]
     entry = {
         "name": "learner_replay", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/learner_replay.cu",
         "replaces": "src/repro/learn/replay.py:119",
-        "launches": launches["learner_replay"], "max_abs_err": err,
-        "ms": cuda_ms(torch, run), "plain_ms": plain_ms,
+        "launches": launches["learner_replay"],
+        "max_abs_err": max(sh["max_abs_err"] for sh in shapes),
+        "ms": r1200["ms"], "plain_ms": r1200["plain_ms"],
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "device_ms": device_ms(torch, run, reps=5),
+        "device_ms": r1200["device_ms"],
+        "kernel_device_ms": r1200["kernel_device_ms"],
+        "dependency_floor_ms": floor_ms, "step_chain": chain_ops,
+        "step_chain_cycles": chain_cycles, "latency_cycles": lat,
+        "sm_clocks_mhz": clocks, "sample_warps": warps,
         "cost_row_read_bytes": 4 * S * K * J * P,
         "registers": {n: v for n, v in regs_of.items()
-                      if n == f"learner_kernel<{nj}>"},
+                      if n == f"learner_block_kernel<{nj}>"
+                      or n == f"learner_block_kernel<{lk.lanes(r0['P'])}>"},
         "shape": {"S": S, "K": K, "J": J, "P": P, "nj": nj,
                   "kinds": list(kinds)},
-        "vs_plain": {kind: {"instances": n, "bit_equal": n}
-                     for kind, n in sorted(n_inst.items())},
+        "launch_shapes": shapes, "edge_streams": edges,
         "vs_host_float64": [{"s": s, "learner": label, "first": row}
                             for s, label, row in host_rows]}
     print(f"learner_replay ({K} instances x {S} scenarios, J {J}, P {P}): ms "
           f"per call {entry['ms']:.3f}, device {entry['device_ms']:.3f}, "
-          f"plain {plain_ms:.1f}; bound {b_ms:.4f} ({b_by}); launches "
-          f"{entry['launches']}; registers {entry['registers']}")
+          f"plain {r1200['plain_ms']:.1f}; bound {b_ms:.4f} ({b_by}); "
+          f"dependency floor {floor_ms}; launches {entry['launches']}; "
+          f"{warps} sample warps; registers {entry['registers']}")
     return entry
+
+
 
 
 def fleet_phase(torch, np) -> None:
@@ -1443,7 +1610,7 @@ def main() -> int:
                                         "task_tree_kernel")),
                        ("hedge_replay", ("trajectory_kernel",
                                          "sample_kernel")),
-                       ("learner_replay", ("learner_kernel",))):
+                       ("learner_replay", ("learner_block_kernel",))):
         for fn_name, regs, spills in ptxas_summary(logs.get(src, ""), "_"):
             label = next((n for n in names if n in fn_name), None)
             m = re.search(r"ILi(\d+)E", fn_name)
@@ -1469,12 +1636,15 @@ def main() -> int:
 
     # -- 2. the main path: Table 6 -----------------------------------------
     captured: dict = {}
+    every: dict = {}           # inputs of every learner_replay launch
 
     def record(mod, name):
         fn = getattr(mod, name)
 
         def wrapper(*a, **k):
             captured[name] = (a, k)      # inputs of the last launch
+            if name == "learner_replay":
+                every.setdefault(name, []).append((a, k))
             return fn(*a, **k)
         setattr(mod, name, wrapper)
         return fn
@@ -1825,9 +1995,9 @@ def main() -> int:
               "this run")
     if not ok:
         fail("hedge_replay disagrees with its plain version")
-    kernels.append(learner_checks(torch, np, learner_fn,
-                                  captured["learner_replay"], compare[-1],
-                                  launches, regs_of))
+    kernels.append(learner_checks(
+        torch, np, learner_fn, every["learner_replay"], compare[-1],
+        launches, regs_of, (lat, clocks)))
 
     # -- 4. small input against the float64 host references -----------------
     jobs = generate_chain_jobs(60, 2, seed=3)

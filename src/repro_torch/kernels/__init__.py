@@ -10,8 +10,9 @@ version.
 * ``weight_update.hedge_replay`` — the Hedge weight-update replay
   (``csrc/hedge_replay.cu``);
 * ``learner_replay.learner_replay`` — the exp3, ucb1, egreedy and ftl
-  replay, one warp per (scenario, instance) walking the event stream
-  (``csrc/learner_replay.cu``);
+  replay, one block per (scenario, instance): an update warp carrying the
+  state through the updates, sample warps drawing from its shared-memory
+  snapshots (``csrc/learner_replay.cu``);
 * ``flash_attention.flash_attention_fwd`` — online-softmax attention
   forward with GQA, causal, window and prefix masks
   (``csrc/flash_attention.cu``: a tensor-core kernel for bfloat16 at dh 64

@@ -6,8 +6,14 @@ Counterpart of the reference's ``repro/learn/replay.py::_scan_one``: one
 stream, vmapped over scenarios x instances (the reference has no Pallas
 kernel for these learners). A bandit learner's draw feeds its own later
 update, so the Hedge kernel's split into a trajectory pass and a sampling
-pass does not carry over: ``csrc/learner_replay.cu`` walks the 2J events of
-one (scenario, instance) pair with one warp, every kind in one launch.
+pass does not carry over. But a sample changes no state, and a job samples
+long before its update (~1350 updates before, at Table 6), so
+``csrc/learner_replay.cu`` runs one block per (scenario, instance), every
+kind in one launch: one update warp carries the state through the J
+updates and copies it into a ring of shared-memory snapshots wherever a
+sample reads it; sample warps take the draws from those snapshots and pass
+each on to the update warp as a record. :func:`schedule` computes, on the
+device, what the block needs of the event stream.
 
 The kernel's layout, which the plain version follows operation for
 operation so that the two agree bit for bit:
@@ -27,6 +33,7 @@ operation so that the two agree bit for bit:
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -34,8 +41,9 @@ import torch
 from repro_torch.device import kernel_library
 from repro_torch.kernels import LAUNCHES
 
-__all__ = ["learner_replay", "learner_replay_plain", "lanes", "margin_bound",
-           "gap_bound", "KIND_CODES", "LANE_COUNTS", "F32_UNIT"]
+__all__ = ["learner_replay", "learner_replay_plain", "lanes", "schedule",
+           "margin_bound", "gap_bound", "KIND_CODES", "LANE_COUNTS",
+           "F32_UNIT"]
 
 KIND_CODES = {"exp3": 0, "ucb1": 1, "egreedy": 2, "ftl": 3}
 # Values per lane the kernel is built for (kLaneCounts in the .cu); a launch
@@ -67,6 +75,13 @@ def _codes(kinds, K: int) -> list[int]:
     return [KIND_CODES[k] for k in kinds]
 
 
+@functools.cache
+def _device_codes(codes: tuple, dev: torch.device) -> torch.Tensor:
+    """The kind codes on the card, copied once: a copy from pageable host
+    memory at each launch would hold the host until the card caught up."""
+    return torch.tensor(codes, dtype=torch.int32, device=dev)
+
+
 def _lane_sum(x: torch.Tensor, nj: int) -> torch.Tensor:
     """(B, 32 * nj) -> (B, 1): the in-lane serial sum, then the xor
     butterfly over the lanes (every lane ends with lane 0's value)."""
@@ -94,6 +109,71 @@ def _lane_cdf(p: torch.Tensor, nj: int) -> torch.Tensor:
         incl = incl + torch.nn.functional.pad(incl[:, :-o], (o, 0))
     excl = torch.nn.functional.pad(incl[:, :-1], (1, 0))
     return (excl[..., None] + torch.stack(pre, -1)).view(B, WARP * nj)
+
+
+# The schedule's arrays in the order the kernel reads them, back to back.
+SCHEDULE_FIELDS = ("smp_j", "smp_snap", "upd_j", "upd_s", "has_snap",
+                   "snap_last", "ok")
+
+
+def schedule(ev_kind: torch.Tensor, ev_j: torch.Tensor) -> dict:
+    """What the kernel's warps need of a (2J,) event stream (0 = sample,
+    1 = update; job), computed with torch ops on the stream's device, so
+    that a launch waits for no host sync. Every entry is an int64 tensor:
+
+    * ``smp_j``, ``smp_state``, ``smp_snap`` (J,): per sample, in stream
+      order, its job, the state it reads (the updates before it:
+      ``build_events``'s ``n_done`` of that job) and the snapshot that
+      holds that state (snapshots are numbered in stream order, one per
+      distinct state that some sample reads);
+    * ``upd_j``, ``upd_s`` (J,): per update, in stream order, its job and
+      that job's sample index;
+    * ``has_snap`` (J + 1,): 1 where some sample reads state t (t updates
+      done), so that the update warp copies the state there;
+    * ``snap_last`` (J,): per snapshot, the index of the last sample that
+      reads it, -1 past the last snapshot;
+    * ``ok`` (): 1 if the stream holds one sample and one later update of
+      every job 0..J-1, the streams the kernel's handoff cannot deadlock
+      on (otherwise the kernel traps, and the launch fails at the next
+      synchronization).
+    """
+    J = ev_kind.shape[0] // 2
+    dev = ev_kind.device
+    upd = ev_kind.long() == 1
+    jj = ev_j.long()
+    ok = ((jj >= 0) & (jj < J)).all() & (upd.sum() == J)
+    jj = jj.clamp(0, max(J - 1, 0))
+    n_upd = torch.cumsum(upd.long(), 0) - upd.long()   # updates before
+    # The samples, then the updates, each in stream order.
+    order = torch.argsort(upd.long(), stable=True)
+    smp_ev, upd_ev = order[:J], order[J:]
+    smp_j, upd_j = jj[smp_ev], jj[upd_ev]
+    smp_state = n_upd[smp_ev]
+    ar = torch.arange(J, device=dev)
+
+    def per_job(jobs, val):
+        return torch.zeros(J, dtype=torch.long, device=dev).scatter_(
+            0, jobs, val)
+    ones = torch.ones_like(ar)
+    for jobs in (smp_j, upd_j):     # each job sampled once, updated once
+        seen = torch.zeros(J, dtype=torch.long, device=dev)
+        ok = ok & (seen.index_add_(0, jobs, ones) == 1).all()
+    # ... and sampled before its update.
+    ok = ok & (per_job(smp_j, smp_state) <= per_job(upd_j, ar)).all()
+    new = torch.ones(J, dtype=torch.long, device=dev)
+    new[1:] = (smp_state[1:] != smp_state[:-1]).long()
+    smp_snap = torch.cumsum(new, 0) - 1
+    # smp_state and smp_snap are sorted: the samples at or below a state,
+    # the last sample of a snapshot, by binary search.
+    upto = torch.searchsorted(smp_state, torch.arange(J + 1, device=dev),
+                              right=True)
+    has_snap = torch.diff(upto, prepend=upto.new_zeros(1)).clamp_max(1)
+    last = torch.searchsorted(smp_snap, ar, right=True) - 1
+    if J:
+        last = torch.where(ar <= smp_snap[-1], last, -1)
+    return {"smp_j": smp_j, "smp_state": smp_state, "smp_snap": smp_snap,
+            "upd_j": upd_j, "upd_s": per_job(smp_j, ar)[upd_j],
+            "has_snap": has_snap, "snap_last": last, "ok": ok.long()}
 
 
 def _f64(fn, x: torch.Tensor) -> torch.Tensor:
@@ -276,17 +356,19 @@ def learner_replay(kinds, C, etas, gammas, u, ev_kind, ev_j):
     dev = C.device
     C, etas, gammas, u, ev_kind, ev_j = (
         t.contiguous() for t in (C, etas, gammas, u, ev_kind, ev_j))
-    kinds_t = torch.tensor(codes, dtype=torch.int32, device=dev)
+    kinds_t = _device_codes(tuple(codes), dev)
+    sched = schedule(ev_kind, ev_j)
+    sched = torch.cat([sched[n].view(-1) for n in SCHEDULE_FIELDS]).int()
     chosen = torch.empty((S, K, J), dtype=torch.int32, device=dev)
-    p_chosen = torch.empty((S, K, J), dtype=torch.float32, device=dev)
-    expected = torch.empty((S, K, J), dtype=torch.float32, device=dev)
-    state = {n: torch.empty((S, K, P), dtype=torch.float32, device=dev)
-             for n in ("weights", "logw", "sums", "counts")}
+    new = lambda *shape: torch.empty(  # noqa: E731
+        shape, dtype=torch.float32, device=dev)
+    p_chosen, expected, record = new(S, K, J), new(S, K, J), new(S, K, J)
+    state = {n: new(S, K, P) for n in ("weights", "logw", "sums", "counts")}
     fn = kernel_library("learner_replay").learner_replay_launch
     fn.restype = ctypes.c_int
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
-    rc = fn(*map(ptr, (C, etas, gammas, u, ev_kind, ev_j, kinds_t, chosen,
-                       p_chosen, expected, state["weights"], state["logw"],
+    rc = fn(*map(ptr, (C, etas, gammas, u, sched, kinds_t, chosen, p_chosen,
+                       expected, record, state["weights"], state["logw"],
                        state["sums"], state["counts"])),
             *map(ctypes.c_int, (S, K, J, P, nj)), ctypes.c_float(-math.log(P)),
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))

@@ -13,8 +13,9 @@ policies) cost tensor:
 * ``backend="torch"`` — Hedge instances go through the fused
   ``kernels/weight_update.py`` kernel, all (scenario x schedule) instances
   in one launch; every other instance (exp3, ucb1, egreedy, ftl) through
-  ``kernels/learner_replay.py``, one warp per (scenario, instance) walking
-  the event stream, all of them in one launch.
+  ``kernels/learner_replay.py``, one block per (scenario, instance) (an
+  update warp carrying the state, sample warps drawing from its
+  snapshots), all of them in one launch.
 
 Sampling is inverse-CDF against a per-scenario uniform stream drawn up
 front in numpy, so every backend consumes the SAME randomness and produces
