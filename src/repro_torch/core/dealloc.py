@@ -18,6 +18,7 @@ is (Prop 4.2 / 4.5):
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.core.types import Allocation, ChainJob
 
@@ -25,7 +26,9 @@ __all__ = [
     "dealloc",
     "window_sizes",
     "window_sizes_batch",
+    "window_sizes_batch_device",
     "expected_spot_work",
+    "expected_spot_work_device",
     "allocation_windows",
 ]
 
@@ -126,6 +129,59 @@ def window_sizes_batch(
     np.put_along_axis(out, np.broadcast_to(order[None], (G, J, L)), sizes_s,
                       axis=2)
     return out
+
+
+def window_sizes_batch_device(
+    e: torch.Tensor,
+    delta: torch.Tensor,
+    mask: torch.Tensor,
+    omega: torch.Tensor,
+    xs: torch.Tensor,
+) -> torch.Tensor:
+    """Algorithm 1 over a (params x jobs) grid on the device: the twin of
+    the reference's ``window_sizes_batch_jax`` (``_jax_impls()["batch"]``).
+
+    Float32 tensors on one device: ``e``/``delta``/``mask`` (J, L),
+    ``omega`` (J,), ``xs`` (G,); returns (G, J, L) window sizes. The same
+    greedy waterfill as :func:`window_sizes_batch`, a loop over the L sorted
+    task positions (the reference's ``lax.scan``), one IEEE operation at a
+    time, so the card and the CPU give the same bits. Parity with the
+    float64 host pass is float-level, not bitwise. The caller validates
+    ``omega`` and ``xs`` (device code would clamp instead of raising).
+    """
+    G = xs.shape[0]
+    J, L = e.shape
+    inf = torch.full_like(delta, float("inf"))
+    order = torch.argsort(torch.where(mask, -delta, inf), dim=1, stable=True)
+    e_s = torch.gather(e, 1, order)
+    cap = e_s[None] / xs[:, None, None] - e_s[None]
+    rem = torch.clamp_min(omega, 0.0)[None].expand(G, J)
+    sizes_s = torch.empty((G, J, L), dtype=e.dtype, device=e.device)
+    for k in range(L):
+        give = torch.minimum(cap[:, :, k], rem)
+        rem = rem - give
+        sizes_s[:, :, k] = e_s[None, :, k] + give
+    # All caps saturated: the residual parks on the max-delta task.
+    sizes_s[:, :, 0] = sizes_s[:, :, 0] + rem
+    inv = torch.argsort(order, dim=1)
+    return torch.gather(sizes_s, 2, inv[None].expand(G, J, L))
+
+
+def expected_spot_work_device(z: torch.Tensor, delta: torch.Tensor,
+                              sizes: torch.Tensor, x) -> torch.Tensor:
+    """z_o of Prop 4.2/4.5 on the device: the twin of the reference's
+    ``expected_spot_work_jax``. ``x`` may be a tensor and broadcasts (whole
+    parameter grids at once). Float32; parity with the float64 host
+    version is float-level."""
+    x = torch.as_tensor(x, dtype=z.dtype, device=z.device)
+    e = z / delta
+    # x >= 1: any feasible window finishes on spot alone (Prop 4.5). The
+    # x < 1 branch guards the 1/(1-x) pole so it stays finite (and
+    # irrelevant) where the predicate selects the saturated branch.
+    frac = x / torch.clamp_min(1.0 - x, 1e-30)
+    capped = torch.minimum(z, frac * delta * torch.clamp_min(sizes - e, 0.0))
+    full = torch.where(sizes >= e - _CAP_EPS, z, torch.zeros_like(z))
+    return torch.where(x >= 1.0 - _CAP_EPS, full, capped)
 
 
 def expected_spot_work(

@@ -32,6 +32,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from repro_torch.core.dealloc import window_sizes, window_sizes_batch
 from repro_torch.core.market import SpotMarket
@@ -48,6 +49,7 @@ __all__ = [
     "job_arrays",
     "build_plans",
     "build_plans_batch",
+    "selfowned_counts_vec_device",
     "run_jobs",
     "evaluate_policy_fullpool",
 ]
@@ -287,6 +289,78 @@ def _selfowned_counts_vec(
     if mode == "naive":
         return np.maximum(0.0, np.minimum(avail, delta))
     raise ValueError(f"unknown self-owned mode {mode!r}")
+
+
+# Integral-count rounding guard of the DEVICE twin: the host path ceils
+# with a 1e-9 absolute epsilon (f64 noise floor); device arithmetic is f32,
+# whose ~1e-7 relative noise would push exact-integer f values (e.g. the
+# zero-slack case f(beta_0) = delta) across the ceil boundary. 1e-5 absorbs
+# that (as the reference's device twin does); the min(..., delta) clamp pins
+# the common exact-integer cases. The remaining knife edge, an f64 value
+# within (1e-9, 1e-5] above an integer, is not rare: a capped task's
+# f(beta_0), 0 in exact arithmetic, can come out a few 1e-9 in f64, one
+# instance on the host and none here (ROADMAP queue C).
+_DEVICE_CEIL_EPS = 1e-5
+# _BETA_ONE_EPS: the beta_0 == 1 knife edge of Eq. (11) — beta_0 arrives as
+# an exact 1.0 from the grid builder, so 1e-12 only absorbs parsing /
+# arithmetic blur, never a real beta_0 < 1.
+_BETA_ONE_EPS = 1e-12
+
+
+def _counts_prop12_device(z, delta, sizes, beta0, avail):
+    s = torch.clamp_min(sizes, 1e-12)
+    nan_b0 = torch.isnan(beta0)
+    safe_b0 = torch.where(nan_b0, torch.ones_like(beta0), beta0)
+    one = safe_b0 >= 1.0 - _BETA_ONE_EPS
+    den = s * torch.where(one, torch.ones_like(safe_b0), 1.0 - safe_b0)
+    # Eq.-(11) numerator z - delta*size*beta_0 is EXACTLY zero for every
+    # task the Dealloc waterfill fills to its cap (there size = e/beta_0,
+    # so delta*size*beta_0 = z by construction) — a systematic knife edge,
+    # not a measure-zero one. Snap the f32 blur around it to the f = 0 the
+    # f64 oracle computes.
+    num = z - delta * s * safe_b0
+    snap = one | (num <= _DEVICE_CEIL_EPS * (z + 1.0))
+    f = num / torch.clamp_min(den, 1e-30)
+    f = torch.where(snap, torch.zeros_like(f), f)
+    f = torch.ceil(f - _DEVICE_CEIL_EPS)
+    f = torch.where(nan_b0, torch.zeros_like(f), f)
+    useful = torch.where(sizes > 0, z / s, torch.zeros_like(s))
+    useful = torch.ceil(useful - _DEVICE_CEIL_EPS)
+    return torch.clamp_min(torch.minimum(torch.minimum(f, avail),
+                                         torch.minimum(delta, useful)), 0.0)
+
+
+def _counts_naive_device(z, delta, sizes, beta0, avail):
+    return torch.clamp_min(torch.minimum(avail, delta), 0.0)
+
+
+def _selfowned_counts_device(mode: str):
+    """The device twin of :func:`_selfowned_counts_vec` for one mode (the
+    reference's ``_selfowned_counts_impl``): broadcast-generic, any argument
+    may carry extra leading axes; NaN ``beta0`` means no self-owned
+    instances (count 0). Float32 tensors on one device, one IEEE operation
+    at a time (no division by a Python scalar, which CUDA turns into a
+    reciprocal multiply), so the card and the CPU give the same bits."""
+    if mode == "prop12":
+        return _counts_prop12_device
+    if mode == "naive":
+        return _counts_naive_device
+    raise ValueError(f"unknown self-owned mode {mode!r}")
+
+
+def selfowned_counts_vec_device(z, delta, sizes, beta0, available,
+                                mode: str = "prop12") -> torch.Tensor:
+    """Integral r_i (policy (12) or the naive benchmark) on the device: the
+    twin of the reference's ``selfowned_counts_vec_jax``.
+
+    Float32 tensors on one device (``beta0`` and ``available`` may also be
+    Python floats) with a widened ceil epsilon (``_DEVICE_CEIL_EPS``); the
+    float64 host path stays the exact oracle.
+    """
+    as_t = lambda a: torch.as_tensor(a, dtype=z.dtype,  # noqa: E731
+                                     device=z.device)
+    return _selfowned_counts_device(mode)(z, delta, sizes, as_t(beta0),
+                                          as_t(available))
 
 
 # _SPAN_EPS: zero-length allocation windows (ends == starts to f64

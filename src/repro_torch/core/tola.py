@@ -76,6 +76,7 @@ def cost_matrix(
     selfowned: str = "prop12",
     early_start: bool = True,
     availability=None,
+    plan_backend: str = "auto",
     device="cuda",
 ) -> np.ndarray:
     """C[j, pi] — per-unit-workload counterfactual cost of job j under pi,
@@ -85,7 +86,8 @@ def cost_matrix(
     res = evaluate_grid(
         jobs, policies, market, r_total, windows=windows,
         selfowned=selfowned, early_start=early_start,
-        availability=availability, pool="dedicated", device=device)
+        availability=availability, pool="dedicated",
+        plan_backend=plan_backend, device=device)
     return res.matrix
 
 
@@ -148,6 +150,7 @@ def run_tola(
     early_start: bool = True,
     pool_iters: int = 1,
     learner="hedge",
+    plan_backend: str = "auto",
     device="cuda",
 ) -> TolaResult:
     """Full Algorithm 4 over an arrival-ordered job list, one market.
@@ -156,10 +159,12 @@ def run_tola(
     cost matrix (r_total > 0 only). Iteration 0 scores policies against a
     dedicated pool; each refinement re-scores them against the residual
     availability realized by the previous iteration's run.
+    ``plan_backend`` goes to ``evaluate_grid`` (``"auto"``: device plans on
+    the card).
     """
     return run_tola_scenarios(jobs, policies, [market], r_total, seed,
                               windows, selfowned, early_start, pool_iters,
-                              learner, device)[0]
+                              learner, plan_backend, device)[0]
 
 
 def run_tola_scenarios(
@@ -173,6 +178,7 @@ def run_tola_scenarios(
     early_start: bool = True,
     pool_iters: int = 1,
     learner="hedge",
+    plan_backend: str = "auto",
     device="cuda",
 ) -> list[TolaResult]:
     """Algorithm 4 across S market scenarios, cost matrices batched.
@@ -182,7 +188,9 @@ def run_tola_scenarios(
     refinement re-scores the grid against the S realized residual-
     availability queries in a single per-scenario-availability pass. The
     sequential sample/update replay runs per scenario with seed
-    ``seed + s``, as looping single-market ``run_tola`` would.
+    ``seed + s``, as looping single-market ``run_tola`` would. With device
+    plans the refinement rounds take the plan layer's two-stage path: the
+    planned windows go to the host once for the per-scenario queries.
     """
     from repro_torch.engine import evaluate_grid  # engine depends on core
 
@@ -200,7 +208,7 @@ def run_tola_scenarios(
         res = evaluate_grid(
             jobs, policies, markets, r_total, windows=windows,
             selfowned=selfowned, early_start=early_start, pool="dedicated",
-            availability=avails, device=device)
+            availability=avails, plan_backend=plan_backend, device=device)
         for key, sec in res.timings.items():
             _add(timings, key, sec)
         C = res.unit_cost

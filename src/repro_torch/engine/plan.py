@@ -1,19 +1,36 @@
-"""Plan layer of the port's evaluation engine (host float64 path).
+"""Plan layer of the port's evaluation engine.
 
 Turns (jobs x policies) into a deduplicated batch of *evaluation groups*.
 The padded ``PlanBatch`` depends on a policy only through its Dealloc
 parameter, the self-owned allocation only through (plan, beta_0), and the
 market realization additionally through the bid. Policies sharing the
 triple (window key, beta_0, bid) are exact duplicates and collapse into one
-group. Window plans for all distinct Dealloc parameters come out of one
-vectorized ``build_plans_batch`` pass, and the market-independent
-arithmetic (policy-(12) counts, cloud residuals, pins) follows in float64 —
-the same numbers as the reference's host plan, which the cost kernels then
-consume in float32.
+group.
+
+The plan layer has two backends (``plan_backend``):
+
+* ``"host"`` — float64 numpy: window plans for all distinct Dealloc
+  parameters come out of one vectorized ``build_plans_batch`` pass, and the
+  market-independent arithmetic (policy-(12) counts, cloud residuals, pins)
+  follows in float64 — the same numbers as the reference's host plan, which
+  the backend uploads to the cost kernels as float32.
+* ``"device"`` — the same pipeline in float32 torch ops on the evaluation
+  device (the reference's fused jit program, ``_build_grid_plan_device``):
+  the Alg.-1 waterfill (``core.dealloc.window_sizes_batch_device``), the
+  policy-(12) counts (``core.scheduler._selfowned_counts_device``), the
+  cloud residuals and the group gather. The plan tensors stay on the
+  device, where the cost kernels read them. Every operation is one IEEE
+  float32 operation in a fixed order (running sums, no reductions), so the
+  plan is the same bits on the card and on the CPU. Parity with the host
+  path is float-level, and integral-count ceils use a widened epsilon
+  (``scheduler._DEVICE_CEIL_EPS``).
 
 When ``availability`` is a *list* of per-scenario queries (TOLA's batched
 pool refinement), the self-owned arrays gain a leading scenario axis:
 groups carry (S, J, L) tensors and backends pair scenario s with slice s.
+Availability queries are host callables, so the device path stages the
+planned windows to the host once to evaluate them; without queries it
+never leaves the device.
 """
 
 from __future__ import annotations
@@ -22,11 +39,14 @@ import dataclasses
 import time
 
 import numpy as np
+import torch
 
+from repro_torch.core.dealloc import window_sizes_batch_device
 from repro_torch.core.scheduler import (
     PlanBatch,
     Policy,
     _allocate_pool,
+    _selfowned_counts_device,
     _selfowned_counts_vec,
     build_plans_batch,
     job_arrays,
@@ -34,16 +54,37 @@ from repro_torch.core.scheduler import (
 from repro_torch.core.types import ChainJob
 
 __all__ = ["EvalGroup", "GridPlan", "build_grid_plan", "scenario_cat",
-           "distinct_window_params"]
+           "concat_rows", "distinct_window_params"]
+
+_PLAN_BACKENDS = ("host", "device")
+
+# Dust threshold of the DEVICE residual-workload kill. The host oracle
+# zeroes residuals below 1e-9 * (z + 1) — the f64 cancellation floor of
+# z - r * sizes. Device arithmetic is f32 whose cancellation noise is
+# ~1e-7 relative, so the same subtraction leaves phantom residuals the
+# 1e-9 threshold would keep alive; 1e-6 kills them. Genuine residuals are
+# either 0 or substantial, so the widened window changes nothing real.
+_DEVICE_DUST = 1e-6
+
+
+def concat_rows(arrays):
+    """Concatenate group row batches along axis 0: numpy arrays on the
+    host, tensors on their device."""
+    if isinstance(arrays[0], torch.Tensor):
+        return torch.cat(arrays)
+    return np.concatenate(arrays)
 
 
 def scenario_cat(groups, attr: str, S: int):
     """Concatenate a group attribute into an (S, R, L) scenario-major stack,
-    broadcasting groups whose arrays are scenario-independent."""
+    broadcasting groups whose arrays are scenario-independent. Device
+    tensors stay on their device."""
+    shape = lambda g: (S,) + tuple(g.plan.ends.shape)  # noqa: E731
+    if isinstance(getattr(groups[0], attr), torch.Tensor):
+        return torch.cat([getattr(g, attr).expand(shape(g)) for g in groups],
+                         dim=1)
     return np.concatenate(
-        [np.broadcast_to(getattr(g, attr),
-                         (S,) + tuple(g.plan.ends.shape)) for g in groups],
-        axis=1)
+        [np.broadcast_to(getattr(g, attr), shape(g)) for g in groups], axis=1)
 
 
 def _bid_key(bid: float) -> float:
@@ -59,6 +100,10 @@ class EvalGroup:
     ``policy_idx`` lists every policy of the original grid that this group
     realizes. The self-owned arrays are (J, L) when market-independent and
     (S, J, L) when the caller supplied per-scenario availability queries.
+    On the device plan path they are float32 tensors on the evaluation
+    device (views of one stack per (window plan, beta_0) cell), and the
+    plan's ``starts``/``ends`` are too; the self-owned stats stay host
+    numpy.
     """
 
     plan: PlanBatch
@@ -90,6 +135,11 @@ class GridPlan:
     L: int
     plan_seconds: float = 0.0   # window-plan tensor construction
     pool_seconds: float = 0.0   # self-owned allocation + residuals
+    plan_backend: str = "host"  # "host" (numpy f64) | "device" (torch f32)
+
+    @property
+    def device(self) -> bool:
+        return self.plan_backend == "device"
 
     @property
     def bids(self) -> list[float]:
@@ -214,8 +264,10 @@ def build_grid_plan(
     availability=None,
     slots_per_unit: int = 12,
     n_scenarios: int | None = None,
+    plan_backend: str = "host",
+    device="cuda",
 ) -> GridPlan:
-    """Deduplicate (jobs x policies) into evaluation groups (host float64).
+    """Deduplicate (jobs x policies) into evaluation groups.
 
     ``pool="dedicated"`` scores each policy against an uncontended pool (the
     counterfactual evaluator TOLA uses; ``availability`` optionally replaces
@@ -224,17 +276,32 @@ def build_grid_plan(
     pass ``n_scenarios`` so the list length is validated here).
     ``pool="shared"`` replays the chronological shared-pool allocation per
     policy.
+    ``plan_backend="device"`` builds the plan tensors in float32 on
+    ``device`` (see the module docstring; ``pool="dedicated"`` only).
+    The reference's cross-call plan cache (ROADMAP A7) and its mesh
+    partition of that cache (A9) are not ported.
     """
     if pool not in ("dedicated", "shared"):
         raise ValueError(f"unknown pool mode {pool!r}")
+    if plan_backend not in _PLAN_BACKENDS:
+        raise ValueError(f"unknown plan backend {plan_backend!r}; pick from "
+                         f"{_PLAN_BACKENDS}")
     if isinstance(availability, (list, tuple)) and n_scenarios is not None \
             and len(availability) != n_scenarios:
         raise ValueError(
             f"per-scenario availability needs one query per scenario "
             f"({len(availability)} queries, {n_scenarios} scenarios)")
+    if plan_backend == "device" and pool == "shared":
+        raise ValueError(
+            "plan_backend='device' supports pool='dedicated' only (the "
+            "chronological shared-pool replay is host code)")
 
     s = _grid_structure(policies, r_total, windows)
     arrays = job_arrays(jobs)
+    if plan_backend == "device":
+        return _build_grid_plan_device(jobs, policies, s, arrays, r_total,
+                                       windows, selfowned, availability,
+                                       torch.device(device))
     params = list(s.key_param.values())
 
     t0 = time.perf_counter()
@@ -262,3 +329,150 @@ def build_grid_plan(
                     n_jobs=len(jobs), n_policies=len(policies),
                     L=arrays.z.shape[1], plan_seconds=t1 - t0,
                     pool_seconds=t2 - t1)
+
+
+# --------------------------------------------------------------------------
+# Device plan path: jobs -> plan tensors in float32 torch ops.
+# --------------------------------------------------------------------------
+
+def _sync(dev: torch.device) -> None:
+    """Wait for the device's queued work, so a phase's seconds are its own."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _device_plans(windows: str, e, delta, mask, omega, arrival, xs):
+    """(W, J, L) raw window sizes, starts and ends on the device.
+
+    ``ends`` is the arrival plus a running sum of the sizes in task order,
+    one addition per task (``torch.cumsum`` scans in another order on CUDA
+    than on the CPU). The raw sizes ride along: recomputing them as
+    ends - starts would round-trip through the sum and inflate the f32
+    noise ~L-fold, blowing the policy-(12) knife-edge guards (every
+    fully-capped task sits exactly at f(beta_0) = 0).
+    """
+    if windows == "even":
+        # xs carries the per-job Even slack share (slack_even / l).
+        sizes = torch.where(mask, e + xs[:, None], torch.zeros_like(e))[None]
+    else:
+        sizes = window_sizes_batch_device(e, delta, mask, omega, xs)
+    W, J, L = sizes.shape
+    starts = torch.empty_like(sizes)
+    ends = torch.empty_like(sizes)
+    cum = torch.zeros((W, J), dtype=sizes.dtype, device=sizes.device)
+    for k in range(L):
+        starts[:, :, k] = arrival if k == 0 else ends[:, :, k - 1]
+        cum = cum + sizes[:, :, k]
+        ends[:, :, k] = arrival + cum
+    return sizes, starts, ends
+
+
+def _device_cells(counts_fn, z, delta, mask, sizes, plan_of_akey, b0_of_akey,
+                  avail):
+    """Counts, residuals, pins and self-owned sums per (window plan,
+    beta_0) cell: (Ga, J, L) tensors, (Ga, S, J, L) under per-scenario
+    availability (``avail`` 4-D), and the sums (Ga[, S], J)."""
+    sizes_a = sizes[plan_of_akey]                       # (Ga, J, L)
+    b0 = b0_of_akey[:, None, None]
+    if avail.dim() == 4:                                # (Ga, S, J, L)
+        sizes_a = sizes_a[:, None]
+        b0 = b0[:, None]
+    # Broadcast up front: a counts rule need not touch every operand (naive
+    # = min(avail, delta) ignores the sizes), but axis 0 is the cell axis
+    # the groups index.
+    shape = torch.broadcast_shapes(sizes_a.shape, avail.shape, z.shape)
+    counts = counts_fn(z, delta, sizes_a, b0, avail)
+    r = torch.where(mask, counts, torch.zeros_like(counts)).expand(shape)
+    work = r * sizes_a
+    z_t = torch.clamp_min(z - work, 0.0)
+    z_t = torch.where(z_t <= _DEVICE_DUST * (z + 1.0), torch.zeros_like(z_t),
+                      z_t)
+    d_eff = torch.clamp_min(delta - r, 0.0)
+    useful = torch.minimum(work, z)
+    # Serial sums in task order: the same bits on every device (the host
+    # reads them; a reduction's order differs between the card and the CPU).
+    so_work = torch.zeros(shape[:-1], dtype=z.dtype, device=z.device)
+    so_res = torch.zeros_like(so_work)
+    for k in range(shape[-1]):
+        so_work = so_work + useful[..., k]
+        so_res = so_res + work[..., k]
+    return r, z_t, d_eff, r > 0, so_work, so_res
+
+
+def _build_grid_plan_device(jobs, policies, s: _GridStructure, arrays,
+                            r_total, windows, selfowned, availability,
+                            dev: torch.device) -> GridPlan:
+    """The reference's ``_build_grid_plan_device``: the query-free path in
+    one pass (windows -> starts/ends -> counts -> residuals -> group
+    views), or, with availability callables, plans on the device, starts
+    and ends staged to the host once for the queries, their results
+    shipped back once, then the groups on the device."""
+    # Same validation the host waterfill performs (device code would
+    # silently clamp instead of raising).
+    if np.any(arrays.omega < -1e-9):
+        raise ValueError("infeasible job: window < critical path")
+    if windows == "even":
+        xs = np.maximum(arrays.slack_even(), 0.0) / arrays.l
+    else:
+        xs = np.fromiter(s.key_param.values(), dtype=np.float64)
+        if np.any((xs <= 0.0) | (xs > 1.0)):
+            bad = xs[(xs <= 0.0) | (xs > 1.0)][0]
+            raise ValueError(f"Dealloc parameter must be in (0, 1], got {bad}")
+    counts_fn = _selfowned_counts_device(selfowned)
+
+    def f32(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+
+    t0 = time.perf_counter()
+    z, delta = f32(arrays.z), f32(arrays.delta)
+    mask = torch.from_numpy(arrays.mask).to(dev)
+    plan_of_akey = torch.as_tensor(s.a_plan, dtype=torch.int64, device=dev)
+    b0 = f32([np.nan if b is None else b for b in s.a_beta0])
+    sizes, starts, ends = _device_plans(
+        windows, f32(arrays.e), delta, mask, f32(arrays.omega),
+        f32(arrays.arrival), f32(xs))
+    if availability is None or r_total <= 0:
+        avail = torch.tensor(float(max(r_total, 0)), dtype=torch.float32,
+                             device=dev)
+        cells = _device_cells(counts_fn, z, delta, mask, sizes, plan_of_akey,
+                              b0, avail)
+        _sync(dev)
+        t1 = t2 = time.perf_counter()
+    else:
+        _sync(dev)
+        t1 = time.perf_counter()
+        h_starts, h_ends = starts.cpu().numpy(), ends.cpu().numpy()
+        if isinstance(availability, (list, tuple)):
+            avail = np.stack([[q(h_starts[p], h_ends[p]) for q in availability]
+                              for p in s.a_plan])
+        else:
+            avail = np.stack([availability(h_starts[p], h_ends[p])
+                              for p in s.a_plan])
+        cells = _device_cells(counts_fn, z, delta, mask, sizes, plan_of_akey,
+                              b0, f32(avail))
+        _sync(dev)
+        t2 = time.perf_counter()
+
+    nan = np.full(len(jobs), np.nan)
+    plans = [PlanBatch(arrival=arrays.arrival, starts=starts[w], ends=ends[w],
+                       z=arrays.z, delta=arrays.delta, mask=arrays.mask,
+                       bid=nan, beta0=nan)
+             for w in range(starts.shape[0])]
+    r_a, z_t_a, d_eff_a, pins_a, so_w_a, so_r_a = cells
+    # The self-owned stats are read on the host only (the EngineResult
+    # scatter): ship the two small stacks across once here. Everything the
+    # cost kernels read (starts/ends, z_t, d_eff, pins) stays on the device.
+    so_w_a, so_r_a = so_w_a.cpu().numpy(), so_r_a.cpu().numpy()
+    groups = []
+    for gi in range(len(s.g_bid)):
+        ai = s.g_akey[gi]
+        groups.append(EvalGroup(
+            plan=plans[s.a_plan[ai]], policy_idx=np.asarray(s.g_pols[gi]),
+            bid=s.g_bid[gi], r_alloc=r_a[ai], z_t=z_t_a[ai],
+            d_eff=d_eff_a[ai], pins=pins_a[ai], selfowned_work=so_w_a[ai],
+            selfowned_reserved=so_r_a[ai]))
+    return GridPlan(jobs=jobs, policies=policies, groups=groups,
+                    workload=arrays.z.sum(axis=1), arrival=arrays.arrival,
+                    n_jobs=len(jobs), n_policies=len(policies),
+                    L=arrays.z.shape[1], plan_seconds=t1 - t0,
+                    pool_seconds=t2 - t1, plan_backend="device")

@@ -1,7 +1,8 @@
 """Shared harness of the paper-table drivers (Experiments 1-3), on the port.
 
 Job streams and markets follow Section 6.1 and the reference's
-``benchmarks/common.py``: jobs from ``seed``, S fresh market scenarios
+``benchmarks/common.py``: jobs from ``seed``, S market scenarios of one
+materialized family (``--scenario-kind``: fresh, regime or adversarial)
 from ``seed + 1000`` (S = 1 is the paper's single market). The policy
 sweeps run on the card (``device="cuda"``, the default) or, when asked,
 on the CPU through the kernels' plain versions; the Greedy benchmark is
@@ -21,7 +22,11 @@ from repro_torch.device import resolve_device
 from repro_torch.engine import make_scenarios
 
 __all__ = ["Setup", "make_setup", "sweep_min", "greedy_min",
-           "argparser", "print_table", "Timer"]
+           "argparser", "print_table", "Timer", "SCENARIO_KINDS"]
+
+# The materialized scenario families (the reference's streamed ``adaptive``
+# kind needs scenario chunks, ROADMAP A6).
+SCENARIO_KINDS = ("fresh", "regime", "adversarial")
 
 
 class Setup:
@@ -35,15 +40,20 @@ class Setup:
 
 
 def make_setup(n_jobs: int, job_type: int, seed: int = 0,
-               scenarios: int = 1, device="cuda") -> Setup:
+               scenarios: int = 1, scenario_kind: str = "fresh",
+               device="cuda") -> Setup:
     """Job stream + S market scenarios (S=1 reproduces the paper setup).
 
-    Raises before any work when ``device`` is the card and none is visible.
+    ``scenario_kind`` is a materialized family of ``make_scenarios``
+    (which refuses ``"adaptive"``: it needs streamed scenario chunks).
+    Raises before any work when ``device`` is the card and none is
+    visible.
     """
     resolve_device(device)
     jobs = generate_chain_jobs(n_jobs, job_type, seed=seed)
     horizon = max(j.deadline for j in jobs) + 1.0
-    markets = make_scenarios(horizon, max(scenarios, 1), seed=seed + 1000)
+    markets = make_scenarios(horizon, max(scenarios, 1), seed=seed + 1000,
+                             kind=scenario_kind)
     return Setup(jobs, markets, device)
 
 
@@ -75,6 +85,10 @@ def argparser(desc: str) -> argparse.ArgumentParser:
     p.add_argument("--scenarios", type=int, default=1,
                    help="market scenarios evaluated in one engine pass "
                         "(1 = the paper's single market)")
+    p.add_argument("--scenario-kind", choices=SCENARIO_KINDS,
+                   default="fresh",
+                   help="market family (adversarial = lure/spike square "
+                        "waves driving worst-case TOLA regret)")
     p.add_argument("--device", default="cuda",
                    help="where the policy sweeps run (cuda, or cpu for the "
                         "kernels' plain versions)")

@@ -3,8 +3,10 @@
 rho_bar = 1 - alpha_bar(P) / alpha_bar(P'): realized average unit cost when
 TOLA drives the proposed grid vs when it drives the benchmark grid (Even
 windows + naive self-owned, bid-only policies, planned starts). Job type 2,
-r in {0, 300, 600, 900, 1200} by default. The cost tensors are computed on
-the card (``device="cuda"``); ``--learner`` (several kinds) or
+r in {0, 300, 600, 900, 1200} by default. The cost tensors, and the plan
+tensors they are scored on, are computed on the card (``device="cuda"``);
+``--scenario-kind`` picks the market family (fresh, regime, adversarial).
+``--learner`` (several kinds) or
 ``--eta-grid`` adds the learner-comparison table, a replay of every
 (learner, eta) instance over the last round's cost tensor: the Hedge
 instances in one ``hedge_replay`` launch, the exp3, ucb1, egreedy and ftl
@@ -27,12 +29,11 @@ import numpy as np
 
 from repro_torch.core import (
     benchmark_bid_policies,
-    generate_chain_jobs,
     run_tola_scenarios,
     selfowned_policies,
     spot_od_policies,
 )
-from repro_torch.engine import make_scenarios
+from repro_torch.experiments.common import SCENARIO_KINDS, make_setup
 from repro_torch.learn import LEARNER_KINDS, LearnerSpec, Schedule, replay
 
 __all__ = ["run", "comparison_specs", "print_tables", "main"]
@@ -53,16 +54,16 @@ def comparison_specs(learners: list[str], eta_grid: list[float]):
 def run(n_jobs: int, rs: list[int], seed: int = 0, scenarios: int = 1,
         learners: list[str] | None = None,
         eta_grid: list[float] | None = None, device="cuda",
-        job_type: int = 2) -> dict:
+        job_type: int = 2, scenario_kind: str = "fresh") -> dict:
     """Table 6 rows per r (plus ``"comparison"`` rows with an eta grid or
     several learners), and ``"timings"``: wall seconds per phase."""
     learners = learners or ["hedge"]
     eta_grid = eta_grid or []
     compare = len(learners) > 1 or bool(eta_grid)
     t0 = time.perf_counter()
-    jobs = generate_chain_jobs(n_jobs, job_type, seed=seed)
-    horizon = max(j.deadline for j in jobs) + 1.0
-    markets = make_scenarios(horizon, max(scenarios, 1), seed=seed + 1000)
+    setup = make_setup(n_jobs, job_type, seed, scenarios=scenarios,
+                       scenario_kind=scenario_kind, device=device)
+    jobs, markets = setup.jobs, setup.markets
     arrivals = np.array([j.arrival for j in jobs])
     d = max(j.deadline - j.arrival for j in jobs)
     Z = np.array([j.total_work for j in jobs])
@@ -150,6 +151,9 @@ def main(argv=None):
     p.add_argument("--r", type=int, nargs="+", default=[0, 300, 600, 900,
                                                           1200])
     p.add_argument("--scenarios", type=int, default=1)
+    p.add_argument("--scenario-kind", choices=SCENARIO_KINDS, default="fresh",
+                   help="market family (adversarial = lure/spike square "
+                        "waves driving worst-case TOLA regret)")
     p.add_argument("--learner", nargs="+", default=["hedge"],
                    choices=list(LEARNER_KINDS))
     p.add_argument("--eta-grid", type=float, nargs="*", default=[])
@@ -157,7 +161,7 @@ def main(argv=None):
     args = p.parse_args(argv)
     res = run(args.jobs, args.r, args.seed, scenarios=args.scenarios,
               learners=args.learner, eta_grid=args.eta_grid,
-              device=args.device)
+              device=args.device, scenario_kind=args.scenario_kind)
     print_tables(res)
     return res
 
