@@ -122,7 +122,30 @@ Phases, each failing the run with a non-zero exit:
    ``table6.run``
    on the regime and the adversarial families (10000 jobs, S = 2, r in
    {0, 1200}, hedge), the launch counters set to 0 before each and read
-   after: both cost kernels launched, every alpha finite and in (0, p_od].
+   after: both cost kernels launched, every alpha finite and in (0, p_od];
+11. streamed scenarios on Table 6's stream (10000 jobs, job type 2, market
+   seed 1000; the proposed grids at r = 1200 and r = 0) — (a)
+   ``ScenarioSpec`` synthesis on the card (fresh, regime and adversarial
+   at S = 64, two adaptive chunks with explicit periods and offsets):
+   levels and spike masks bit for bit with the host's, availability at
+   every bid of both grids and at 1.0 equal to the float64 views', A bit
+   for bit with the same function on the CPU, C within 1e-4 of the host
+   views at the grids' bids; C's gap printed beside the gap a float32
+   running sum leaves; (b) ``evaluate_grid`` at r = 1200 on a fresh spec
+   with S = 16: ``scenario_chunk=8`` (double-buffered, and not) bit for
+   bit with one pass, the chain kernel once per chunk, fixed alphas within
+   1e-5 of ``spec.materialize()`` through the list path (unit costs more
+   than 1e-5 apart counted, not bounded), ``reduce="mean"`` within rtol
+   1e-12 of the stacked mean; (c) ``replay_stream`` of exp4's 21
+   instances over a fresh spec with S = 64 in chunks of 8 at r = 1200 and
+   r = 0, the launch counters set to 0 before each: the chain, Hedge and
+   learner kernels once per chunk; at S = 16 its summary against
+   ``replay`` over the monolithic tensor at the reference's bars; (d) the
+   adaptive adversary (S = 64, chunks of 8, r = 1200) ends ``"locked"``,
+   its issued chunks rebuilt give the host's availability on the card, its
+   Hedge regret printed beside the fixed adversarial family's; (e)
+   ``table6.run`` on the adaptive family (2000 jobs, S = 16, chunk 8, r =
+   0) prints finite streamed rows.
 
 Then one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` name and
 power-limit line, and last ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -158,6 +181,20 @@ PLAN_GRIDS = [("proposed r=0", "spot_od", 0, False),
               ("proposed r=1200", "selfowned", 1200, False),
               ("even r=1200", "bench", 1200, True)]
 PLAN_FIELDS = ("starts", "ends", "z_t", "d_eff", "pins")
+# Phase 11, the streamed scenarios: Table 6's market seed, the scenario
+# counts of its legs (synthesis, streamed evaluation, replay_stream, the
+# adaptive adversary), the chunk, the driver's stream and the bars:
+# ScenarioSpec device C against the float64 host views
+# (tests/test_scenarios.py:176), the reference's replay_stream bars
+# against the monolithic replay (tests/test_scenarios.py:306-318) and its
+# reduce="mean" bar.
+STREAM_SEED = 1000
+STREAM_S = {"synth": 64, "eval": 16, "replay": 64, "adaptive": 64}
+STREAM_CHUNK = 8
+STREAM_DRIVER_JOBS = 2000
+STREAM_C_TOL = 1e-4
+STREAM_REALIZED_RTOL, STREAM_REGRET_RTOL = 1e-12, 1e-9
+STREAM_MEAN_RTOL = 1e-12
 # H100 SXM: device memory rate, float32 rate outside the tensor cores and
 # the dense bfloat16 and TF32 tensor-core rates.
 HBM_BYTES_PER_S = 3.35e12
@@ -1000,11 +1037,14 @@ def tables_phase(torch, np, n_jobs: int) -> dict:
         pol, alpha, costs, res = sweep_fn(jobs, policies, markets, r_total,
                                           **kw)
         for key, v in res.timings.items():
-            engine_s[key] = engine_s.get(key, 0.0) + v
+            if isinstance(v, float):    # not the chunk list or the flag
+                engine_s[key] = engine_s.get(key, 0.0) + v
         proposed = current[0] == "exp1" and kw.get("windows", "dealloc") \
             == "dealloc"
         sweeps.append({"driver": current[0], "jobs": jobs,
-                       "markets": markets, "policies": policies,
+                       # the drivers pass their setup's scenario source
+                       "markets": getattr(markets, "markets", markets),
+                       "policies": policies,
                        "r_total": r_total, "kw": kw, "policy": pol,
                        "alpha": alpha,
                        "unit_cost": res.unit_cost[0] if proposed else None})
@@ -1642,10 +1682,10 @@ def counts_swap_gap(torch, np, jobs, policies, markets, r_total, dev_unit,
     return gap
 
 
-def device_plan_phase(torch, np, n_jobs: int) -> None:
+def device_plan_phase(torch, np, n_jobs: int):
     """Phase 10: device plans against host plans on Table 6's round-0
     grids, the card's device plan against the CPU's, and Table 6 on the
-    regime and adversarial market families."""
+    regime and adversarial market families. Returns Table 6's jobs."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import (
@@ -1768,6 +1808,272 @@ def device_plan_phase(torch, np, n_jobs: int) -> None:
                 if not (math.isfinite(v) and 0.0 < v <= p_od):
                     fail(f"Table 6 on {kind} markets, r={r}: {key} {v} not "
                          f"finite in (0, {p_od}]")
+    return jobs
+
+
+def ulp_gap(np, a, b) -> int:
+    """Largest distance in float32 ulps between two float32 arrays."""
+    a, b = (np.asarray(x, np.float32).view(np.int32).astype(np.int64)
+            for x in (a, b))
+    return int(np.abs(a - b).max())
+
+
+def synth_check(torch, np, spec, s0: int, s1: int, bids, periods=None,
+                offsets=None) -> dict:
+    """One chunk of ``spec`` synthesized on the card against the host: the
+    levels and spike mask bit for bit with the host's, availability of
+    every bid equal to the float64 views', A bit for bit with the same
+    function on the CPU (on the card's levels), and C's gap from the host
+    float64 views beside the gap a float32 running sum leaves (per bid)."""
+    from repro_torch.core.market import stacked_view_arrays
+    from repro_torch.engine import SynthBatch
+    from repro_torch.engine import scenarios as sc
+
+    batch = SynthBatch(spec, s0, s1, "cuda", periods=periods,
+                       offsets=offsets).prepare()
+    h, price, spike = batch._parts
+    idx = np.arange(s0, s1)
+    host_p = spec.prices(s0, s1, periods, offsets)
+    want_spike = spec.spike_mask(s0, s1, periods, offsets) \
+        if spec.kind in ("adversarial", "adaptive") \
+        else np.zeros(host_p.shape, bool)
+    bad = []
+    if not np.array_equal(h.cpu().numpy(),
+                          sc._levels(spec.seed, 0, idx, spec.n_slots)):
+        bad.append("levels")
+    if not np.array_equal(spike.cpu().numpy(), want_spike):
+        bad.append("spike mask")
+    parts_cpu = [t.cpu() for t in (h, price, spike)]
+    c_gap, c32_gap = {}, {}
+    for bid in bids:
+        A, C = batch.stacked(bid)
+        avail = host_p <= bid + 1e-12
+        if not np.array_equal((A[:, 1:] > A[:, :-1]).cpu().numpy(), avail):
+            bad.append(f"availability at bid {bid}")
+        clears = spec.price_hi <= bid + 1e-12
+        th = torch.from_numpy(spec.thresholds(bid, idx))
+        A_cpu, _ = sc._device_views(*parts_cpu, th, clears, spec.slot)
+        if not torch.equal(A.cpu(), A_cpu):
+            bad.append(f"A at bid {bid} (card vs CPU)")
+        _, C64 = stacked_view_arrays(host_p, avail, spec.slot)
+        c_gap[bid] = float(np.abs(C.cpu().double().numpy() - C64).max())
+        # The route the port does not take: the reference's float32
+        # running sum, here on the card.
+        step = torch.where(A[:, 1:] > A[:, :-1], price * spec.slot,
+                           torch.zeros((), device=price.device))
+        C32 = torch.cumsum(step, -1)
+        c32_gap[bid] = float(np.abs(C32.cpu().double().numpy()
+                                    - C64[:, 1:]).max())
+    ulps = ulp_gap(np, price.cpu().numpy(), host_p.astype(np.float32))
+    return {"bad": bad, "c_gap": c_gap, "c32_gap": c32_gap, "ulps": ulps}
+
+
+def stream_phase(torch, np, jobs) -> dict:
+    """Phase 11: ScenarioSpec synthesis on the card, streamed evaluation,
+    replay_stream and the adaptive adversary on Table 6's stream, and the
+    Table 6 driver's streamed rows. Returns the kernels' launches in (c)'s
+    r = 1200 stream."""
+    from repro_torch.core import selfowned_policies, spot_od_policies
+    from repro_torch.engine import ScenarioSpec, ScenarioStream, evaluate_grid
+    from repro_torch.experiments import table6
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.learn import replay, replay_stream
+
+    horizon = max(j.deadline for j in jobs) + 1.0
+    arrivals = np.array([j.arrival for j in jobs])
+    d = max(j.deadline - j.arrival for j in jobs)
+    Z = np.array([j.total_work for j in jobs])
+    grids = {1200: selfowned_policies(), 0: spot_od_policies()}
+    bids = sorted({p.bid for g in grids.values() for p in g})
+    specs = table6.comparison_specs(LEARNERS, ETA_GRID)
+    K = STREAM_CHUNK
+
+    def spec(kind, S):
+        return ScenarioSpec(kind, horizon, S, seed=STREAM_SEED)
+
+    # (a) synthesis of each generative kind, and adaptive chunks with
+    # explicit periods and offsets, against the host.
+    t0 = time.perf_counter()
+    S = STREAM_S["synth"]
+    menu = spec("adaptive", S).period_menu()
+    cases = [(k, spec(k, S), 0, S, None, None)
+             for k in ("fresh", "regime", "adversarial")]
+    cases += [("adaptive", spec("adaptive", S), s0, s0 + K,
+               menu[(np.arange(K) + s0) % len(menu)],
+               np.where(np.arange(K) % 3 == 0, -1, 7 * np.arange(K) + s0))
+              for s0 in (0, S - K)]
+    for label, sp, s0, s1, periods, offsets in cases:
+        got = synth_check(torch, np, sp, s0, s1, bids + [1.0], periods,
+                          offsets)
+        grid_gap = max(got["c_gap"][b] for b in bids)
+        print(f"synthesis {label} [{s0}, {s1}) x {sp.n_slots} slots: levels, "
+              f"spikes, availability at {len(bids) + 1} bids and A "
+              f"{'bit for bit' if not got['bad'] else got['bad']}; prices "
+              f"within {got['ulps']} float32 ulps of the host's rounded; C "
+              f"vs host float64 views max {grid_gap:.3e} over the grids' "
+              f"bids (a float32 running sum: "
+              f"{max(got['c32_gap'][b] for b in bids):.3e}), at bid 1.0 "
+              f"{got['c_gap'][1.0]:.3e} (float32 running sum "
+              f"{got['c32_gap'][1.0]:.3e})")
+        if got["bad"]:
+            fail(f"ScenarioSpec synthesis ({label}) differs from the host: "
+                 f"{got['bad']}")
+        if not grid_gap <= STREAM_C_TOL:
+            fail(f"synthesized C ({label}) leaves the host views by "
+                 f"{grid_gap:.3e} (tol {STREAM_C_TOL})")
+    print(f"[stream (a) synthesis: {time.perf_counter() - t0:.3f}s]")
+
+    # (b) streamed evaluation at r = 1200 against one pass and against the
+    # materialized list path.
+    t0 = time.perf_counter()
+    sp16 = spec("fresh", STREAM_S["eval"])
+    run = functools.partial(evaluate_grid, jobs, grids[1200], sp16, 1200,
+                            device="cuda")
+    LAUNCHES.clear()
+    chunked = run(scenario_chunk=K)
+    torch.cuda.synchronize()
+    n_chain = LAUNCHES["policy_cost_chain"]
+    serial = run(scenario_chunk=K, overlap=False)
+    whole = run()
+    keys = ("unit_cost", "spot_cost", "ondemand_cost", "spot_work",
+            "ondemand_work")
+    same = all(np.array_equal(getattr(x, k), getattr(whole, k))
+               for x in (chunked, serial) for k in keys)
+    for label, r_ in (("overlap", chunked), ("serial", serial),
+                      ("one pass", whole)):
+        t = r_.timings
+        print(f"streamed eval ({label}, chunk "
+              f"{K if r_ is not whole else sp16.n_scenarios}): synth "
+              f"{t['synth']:.4f}s views {t['views']:.4f}s eval "
+              f"{t['eval']:.3f}s plan {t['plan']:.3f}s pool {t['pool']:.3f}s "
+              f"overlap {t['overlap']}")
+    print(f"chunk {K} vs one pass, S = {sp16.n_scenarios}, r = 1200: "
+          f"{'bit for bit' if same else 'DIFFERENT'}; chain launches in the "
+          f"chunked run {n_chain}")
+    if not same:
+        fail("scenario_chunk=8 differs from one pass on the card")
+    if n_chain != -(-sp16.n_scenarios // K):
+        fail(f"the chunked evaluation launched the chain kernel {n_chain} "
+             f"times, not once per chunk")
+    mat = evaluate_grid(jobs, grids[1200], sp16.materialize(), 1200,
+                        device="cuda")
+    fgap = float(np.abs(fixed_alphas(chunked.unit_cost, Z)
+                        - fixed_alphas(mat.unit_cost, Z)).max())
+    gap = np.abs(chunked.unit_cost - mat.unit_cost)
+    print(f"streamed spec vs its materialized list: fixed alphas max abs "
+          f"{fgap:.3e} (tol {PLAN_TOL}); unit costs more than {PLAN_TOL} "
+          f"apart {int((gap > PLAN_TOL).sum())} of {gap.size}, largest "
+          f"{float(gap.max()):.6e}")
+    if not fgap <= PLAN_TOL:
+        fail(f"streamed fixed alphas leave the materialized list path by "
+             f"{fgap:.3e}")
+    mean = run(scenario_chunk=K, reduce="mean")
+    want = whole.unit_cost.mean(axis=0)
+    diff = np.abs(mean.unit_cost[0] - want)
+    rel = float((diff / np.maximum(np.abs(want), 1e-300)).max())
+    print(f"reduce='mean' vs the stacked mean: max rel {rel:.3e} (rtol "
+          f"{STREAM_MEAN_RTOL}; {int((want == 0).sum())} cells of mean "
+          f"0)")
+    if not np.all(diff <= STREAM_MEAN_RTOL * np.abs(want)):
+        fail(f"reduce='mean' leaves the stacked mean by {rel:.3e}")
+    del chunked, serial, whole, mat, mean, gap
+    print(f"[stream (b) evaluation: {time.perf_counter() - t0:.3f}s]")
+
+    # (c) replay_stream of exp4's 21 instances, against the monolithic
+    # replay at S = 16.
+    t0 = time.perf_counter()
+    stream_launches = {}
+    for r in (1200, 0):
+        LAUNCHES.clear()
+        t = time.perf_counter()
+        slr = replay_stream(jobs, grids[r], spec("fresh", STREAM_S["replay"]),
+                            r, learners=specs, seed=0, scenario_chunk=K,
+                            device="cuda")
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        n_chunks = -(-STREAM_S["replay"] // K)
+        print(f"replay_stream r={r}, S = {STREAM_S['replay']} in chunks of "
+              f"{K}, {len(specs)} instances: {time.perf_counter() - t:.3f}s; "
+              f"launches {launches}")
+        for name in ("policy_cost_chain", "hedge_replay", "learner_replay"):
+            if launches.get(name, 0) != n_chunks:
+                fail(f"replay_stream r={r} launched {name} "
+                     f"{launches.get(name, 0)} times, not once per chunk")
+        if r == 1200:
+            stream_launches = launches
+        for row in slr.summary()[:1] + slr.summary()[-3:]:
+            print(f"  {row['learner']}: alpha_cf {row['realized_unit']:.6f} "
+                  f"regret {row['regret']:.6f}")
+        sp = spec("fresh", STREAM_S["eval"])
+        slr = replay_stream(jobs, grids[r], sp, r, learners=specs, seed=0,
+                            scenario_chunk=K, device="cuda")
+        res = evaluate_grid(jobs, grids[r], sp, r, device="cuda")
+        lr = replay(res.unit_cost, arrivals, d, workload=Z, learners=specs,
+                    seed=0, device="cuda")
+        want_r = lr.realized_unit().mean(axis=0)
+        want_g = lr.regret_per_job().mean(axis=0)
+        rel_r = float((np.abs(slr.realized_unit() - want_r)
+                       / np.abs(want_r)).max())
+        ok_g = np.all(np.abs(slr.regret_per_job() - want_g)
+                      <= 1e-13 + STREAM_REGRET_RTOL * np.abs(want_g))
+        print(f"replay_stream vs the monolithic replay, S = {sp.n_scenarios},"
+              f" r={r}: realized max rel {rel_r:.3e} (rtol "
+              f"{STREAM_REALIZED_RTOL}), regret max abs "
+              f"{float(np.abs(slr.regret_per_job() - want_g).max()):.3e} "
+              f"(rtol {STREAM_REGRET_RTOL}) {'OK' if ok_g else 'FAIL'}")
+        if not (rel_r <= STREAM_REALIZED_RTOL and ok_g):
+            fail(f"replay_stream r={r} leaves the monolithic replay")
+        del res, lr
+    print(f"[stream (c) replay_stream: {time.perf_counter() - t0:.3f}s]")
+
+    # (d) the adaptive adversary against the fixed adversarial family.
+    t0 = time.perf_counter()
+    regret = {}
+    for kind in ("adversarial", "adaptive"):
+        stream = ScenarioStream(spec(kind, STREAM_S["adaptive"]))
+        slr = replay_stream(jobs, grids[1200], stream, 1200, learners=specs,
+                            seed=0, scenario_chunk=K, device="cuda")
+        regret[kind] = slr.summary()[0]["regret"]
+    print(f"Hedge regret at r = 1200, S = {STREAM_S['adaptive']}: adaptive "
+          f"{regret['adaptive']:.6f}, fixed adversarial "
+          f"{regret['adversarial']:.6f}; the adaptive stream ended "
+          f"{stream.stage!r}, locked period "
+          f"{stream._menu[stream._locked_period]:.4f}")
+    if stream.stage != "locked":
+        fail(f"the adaptive stream ended {stream.stage!r}, not 'locked'")
+    bad = []
+    for ci, (periods, offsets) in enumerate(zip(stream.chunk_periods,
+                                                stream.chunk_offsets)):
+        got = synth_check(torch, np, stream.spec, ci * K, (ci + 1) * K, bids,
+                          periods, offsets)
+        bad += [(ci, b) for b in got["bad"]]
+    print(f"the adaptive stream's {len(stream.chunk_periods)} issued chunks "
+          f"rebuilt: availability host vs card "
+          f"{'equal' if not bad else bad[:4]}")
+    if bad:
+        fail(f"the adaptive stream's chunks differ on the card: {bad[:4]}")
+    print(f"[stream (d) adaptive adversary: {time.perf_counter() - t0:.3f}s]")
+
+    # (e) the Table 6 driver on the adaptive family.
+    t0 = time.perf_counter()
+    print(f"CUT: Table 6 with --scenario-kind adaptive at "
+          f"{STREAM_DRIVER_JOBS} jobs (TOLA's realized replay over 16 "
+          f"materialized markets is host-bound), r = 0, S = 16, chunk {K}")
+    LAUNCHES.clear()
+    res = table6.run(STREAM_DRIVER_JOBS, [0], seed=0, scenarios=16,
+                     device="cuda", scenario_kind="adaptive",
+                     scenario_chunk=K)
+    torch.cuda.synchronize()
+    table6.print_tables(res)
+    rows = res[0].get("stream", [])
+    if not rows or not all(math.isfinite(row[k]) for row in rows
+                           for k in ("realized_unit", "regret")):
+        fail(f"Table 6 printed no finite streamed rows: {rows}")
+    if LAUNCHES["policy_cost_chain"] < 1:
+        fail("Table 6 on the adaptive family launched no chain kernel")
+    print(f"[stream (e) driver: {time.perf_counter() - t0:.3f}s; launches "
+          f"{dict(LAUNCHES)}]")
+    return stream_launches
 
 
 def main() -> int:
@@ -2312,8 +2618,16 @@ def main() -> int:
 
     # -- 10. device plans ----------------------------------------------------
     t0 = time.perf_counter()
-    device_plan_phase(torch, np, args.jobs)
+    table6_jobs = device_plan_phase(torch, np, args.jobs)
     print(f"[phase device plans: {time.perf_counter() - t0:.3f}s]")
+
+    # -- 11. streamed scenarios ----------------------------------------------
+    t0 = time.perf_counter()
+    stream_launches = stream_phase(torch, np, table6_jobs)
+    for k in kernels:
+        if k["name"] in stream_launches:
+            k["stream_launches"] = stream_launches[k["name"]]
+    print(f"[phase streamed scenarios: {time.perf_counter() - t0:.3f}s]")
 
     for k in kernels:    # the same two numbers under their other names
         k["max_abs_diff"], k["kernel_ms"] = k["max_abs_err"], k["ms"]

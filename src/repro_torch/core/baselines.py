@@ -60,6 +60,7 @@ def sweep_policies(
     selfowned: str = "prop12",
     early_start: bool = True,
     device="cuda",
+    scenario_chunk: int | None = None,
 ) -> "tuple[Policy, float, StreamCosts, EngineResult]":  # noqa: F821
     """min over a policy grid of the realized average unit cost.
 
@@ -67,13 +68,16 @@ def sweep_policies(
     policies x bids x scenarios, on the card unless ``device="cpu"``;
     returns (best policy, its alpha — scenario-mean when several markets
     are given, its StreamCosts in scenario 0, the full EngineResult).
-    ``markets`` is one ``SpotMarket`` or a list sharing a slot grid.
+    ``markets`` accepts everything ``evaluate_grid`` does (a market, a
+    list, a ``ScenarioSpec`` / source); ``scenario_chunk`` streams the
+    scenario axis K per pass.
     """
     from repro_torch.engine import evaluate_grid
 
     res = evaluate_grid(jobs, policies, markets, r_total, windows=windows,
                         selfowned=selfowned, early_start=early_start,
-                        pool="shared", device=device)
+                        pool="shared", scenario_chunk=scenario_chunk,
+                        device=device)
     p, alpha = res.best()
     return policies[p], alpha, res.stream_costs(p, 0), res
 

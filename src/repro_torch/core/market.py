@@ -30,12 +30,14 @@ import dataclasses
 import functools
 
 import numpy as np
+import torch
 
 __all__ = [
     "SLOTS_PER_UNIT",
     "SpotMarket",
     "BidView",
     "stacked_view_arrays",
+    "stacked_view_tensors",
     "truncated_exp_rate",
     "sample_truncated_exp",
 ]
@@ -151,6 +153,31 @@ def stacked_view_arrays(prices, avail, slot: float):
     pad = np.zeros(step_a.shape[:-1] + (1,), dtype=step_a.dtype)
     A_cum = np.concatenate([pad, np.cumsum(step_a, axis=-1)], axis=-1)
     C_cum = np.concatenate([pad, np.cumsum(step_c, axis=-1)], axis=-1)
+    return A_cum, C_cum
+
+
+def stacked_view_tensors(prices: torch.Tensor, avail: torch.Tensor,
+                         slot: float):
+    """``stacked_view_arrays`` for (..., n_slots) torch tensors on any
+    device, returned in the prices' dtype.
+
+    The steps are formed in that dtype as the reference's device path forms
+    them; both running sums are taken in float64 and rounded once. A float32
+    ``cumsum`` accumulates in float32 on CUDA (in double on the CPU): over
+    Table 6's 33021 slots it left the float64 C by up to 1.7e-3 at bid 1.0
+    on an H100, against 1.1e-4 for this route (the float32 rounding of C
+    itself).
+    """
+    zero = torch.zeros((), dtype=prices.dtype, device=prices.device)
+    step_a = torch.where(avail, torch.full((), slot, dtype=prices.dtype,
+                                           device=prices.device), zero)
+    step_c = torch.where(avail, prices * slot, zero)
+    pad = torch.zeros(prices.shape[:-1] + (1,), dtype=torch.float64,
+                      device=prices.device)
+    A_cum = torch.cat([pad, torch.cumsum(step_a, -1, dtype=torch.float64)],
+                      -1).to(prices.dtype)
+    C_cum = torch.cat([pad, torch.cumsum(step_c, -1, dtype=torch.float64)],
+                      -1).to(prices.dtype)
     return A_cum, C_cum
 
 

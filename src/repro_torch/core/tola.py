@@ -50,8 +50,9 @@ class TolaResult:
     fixed_unit_costs: np.ndarray  # (n_policies,) stream alpha per fixed policy
     learn: "object | None" = None  # repro_torch.learn.LearnResult, last round
     # Wall seconds summed over the rounds (shared by the scenarios of one
-    # run_tola_scenarios call): engine "plan"/"pool"/"views"/"eval", host
-    # "replay" (learner loop) and "realize" (shared pool + realized costs).
+    # run_tola_scenarios call): engine "plan"/"pool"/"synth"/"views"/"eval",
+    # host "replay" (learner loop) and "realize" (shared pool + realized
+    # costs).
     timings: dict = dataclasses.field(default_factory=dict)
 
     def average_unit_cost(self) -> float:
@@ -210,7 +211,8 @@ def run_tola_scenarios(
             selfowned=selfowned, early_start=early_start, pool="dedicated",
             availability=avails, plan_backend=plan_backend, device=device)
         for key, sec in res.timings.items():
-            _add(timings, key, sec)
+            if isinstance(sec, float):      # not the chunk list or the flag
+                _add(timings, key, sec)
         C = res.unit_cost
         rounds = [
             _tola_round(jobs, policies, C[s], arrivals, d, Z, spec, rngs[s],

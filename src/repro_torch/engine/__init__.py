@@ -3,20 +3,39 @@
     from repro_torch.engine import evaluate_grid
     res = evaluate_grid(jobs, policies, markets, r_total)   # on the card
     C = res.unit_cost[s]          # (n_jobs, n_policies) cost matrix
+
+``markets`` may also be a ``ScenarioSpec`` (synthesized on the card) with
+``scenario_chunk=K``; ``evaluate_grid_chunks`` yields the chunks.
 """
 
-from repro_torch.engine.api import evaluate_grid, resolve_plan_backend
+from repro_torch.engine.api import (
+    GridChunk,
+    evaluate_grid,
+    evaluate_grid_chunks,
+    resolve_plan_backend,
+)
 from repro_torch.engine.plan import EvalGroup, GridPlan, build_grid_plan
 from repro_torch.engine.result import EngineResult
 from repro_torch.engine.scenarios import (
+    SCENARIO_KINDS,
     MarketListBatch,
+    ScenarioBatch,
+    ScenarioSource,
+    ScenarioSpec,
+    ScenarioStream,
+    SynthBatch,
     adversarial_scenarios,
+    as_source,
     check_scenarios,
     make_scenarios,
+    replay_scenarios,
     stack_views,
 )
 
-__all__ = ["evaluate_grid", "resolve_plan_backend", "EngineResult",
-           "EvalGroup", "GridPlan", "build_grid_plan", "MarketListBatch",
-           "check_scenarios", "make_scenarios", "adversarial_scenarios",
+__all__ = ["evaluate_grid", "evaluate_grid_chunks", "GridChunk",
+           "resolve_plan_backend", "EngineResult", "EvalGroup", "GridPlan",
+           "build_grid_plan", "SCENARIO_KINDS", "ScenarioSpec",
+           "ScenarioStream", "ScenarioSource", "ScenarioBatch",
+           "MarketListBatch", "SynthBatch", "as_source", "check_scenarios",
+           "make_scenarios", "adversarial_scenarios", "replay_scenarios",
            "stack_views"]

@@ -7,12 +7,21 @@ plan tensors (on the card in float32 by default, see
 market views go to the device as float32, and the cost kernels
 (``backend.py``) fill the (S, J, P) result tensors. Runs on the card by
 default; ``device="cpu"`` runs the kernels' plain PyTorch versions.
+
+The SCENARIO axis is a chunked stream (``scenarios.py``): ``scenarios``
+may be a materialized market (list) or a declarative ``ScenarioSpec`` /
+``ScenarioStream``, and ``scenario_chunk=K`` evaluates K scenarios per pass
+against ONE grid plan, a spec's chunks synthesized on the device.
+``evaluate_grid_chunks`` yields the same stream one chunk at a time (the
+online-learning replay folds it without the full (S, J, P) tensor, and the
+adaptive adversary's feedback happens between chunks).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
-from typing import Callable, Sequence
+from typing import Callable, Iterator, Sequence
 
 import numpy as np
 import torch
@@ -24,10 +33,13 @@ from repro_torch.device import resolve_device
 from repro_torch.engine import backend
 from repro_torch.engine.plan import _PLAN_BACKENDS, build_grid_plan
 from repro_torch.engine.result import EngineResult
-from repro_torch.engine.scenarios import MarketListBatch
+from repro_torch.engine.scenarios import as_source
 from repro_torch.kernels.policy_cost import OUT_KEYS
 
-__all__ = ["evaluate_grid", "resolve_plan_backend"]
+__all__ = ["evaluate_grid", "evaluate_grid_chunks", "GridChunk",
+           "resolve_plan_backend"]
+
+_REDUCES = ("stack", "mean")
 
 
 def resolve_plan_backend(plan_backend: str, device="cuda",
@@ -55,10 +67,170 @@ def resolve_plan_backend(plan_backend: str, device="cuda",
     return plan_backend
 
 
+def _check_scenario_chunk(scenario_chunk) -> None:
+    """API-boundary validation of ``scenario_chunk``: fail here, naming the
+    argument, not deep in the backend with a shape error."""
+    if scenario_chunk is None:
+        return
+    if isinstance(scenario_chunk, bool) \
+            or not isinstance(scenario_chunk, (int, np.integer)):
+        raise ValueError(
+            f"scenario_chunk must be an int >= 1 or None "
+            f"(got {scenario_chunk!r})")
+    if scenario_chunk < 1:
+        raise ValueError(
+            f"scenario_chunk must be >= 1 (got {scenario_chunk}); pass "
+            f"None to evaluate all scenarios in one pass")
+
+
+def _prepare_stream(jobs, policies, scenarios, r_total, windows, selfowned,
+                    pool, availability, plan_backend, scenario_chunk,
+                    overlap, dev):
+    """Shared validation + plan build of the chunked evaluation paths.
+
+    Returns ``(source, gplan, chunk, single, overlap)`` — the grid plan is
+    built ONCE and reused across every scenario chunk (it is
+    scenario-independent apart from the per-scenario availability case,
+    which requires a single full-batch chunk)."""
+    if not jobs:
+        raise ValueError("need at least one job")
+    policies = list(policies)
+    if not policies:
+        raise ValueError("need at least one policy")
+    single = isinstance(scenarios, SpotMarket)
+    source = as_source(scenarios)
+    S = source.n_scenarios
+    _check_scenario_chunk(scenario_chunk)
+    chunk = S if scenario_chunk is None else min(int(scenario_chunk), S)
+    if chunk < S and isinstance(availability, (list, tuple)):
+        raise ValueError(
+            "scenario_chunk cannot split a batch with per-scenario "
+            "availability queries (the plan's self-owned tensors are "
+            "indexed by the full scenario axis); evaluate in one chunk")
+    if overlap is None:
+        overlap = dev.type == "cuda" and not source.reactive
+    elif overlap and source.reactive:
+        raise ValueError(
+            "overlap=True cannot double-buffer a reactive (adaptive) "
+            "scenario stream: chunk k+1's spikes are planned from feedback "
+            "about chunk k, so its synthesis cannot be dispatched early")
+    gplan = build_grid_plan(
+        jobs, policies, r_total, windows=windows, selfowned=selfowned,
+        pool=pool, availability=availability,
+        slots_per_unit=source.slots_per_unit, n_scenarios=S,
+        plan_backend=resolve_plan_backend(plan_backend, dev, pool),
+        device=dev)
+    return source, gplan, chunk, single, bool(overlap)
+
+
+def _prefetched(stream):
+    """Double-buffer a chunk stream: DISPATCH chunk k+1's synthesis (on the
+    card's side stream) before yielding chunk k, so it runs while the
+    consumer evaluates k. Lookahead depth 1 — at most two chunks of
+    synthesis output are live at once."""
+    prev = None
+    for item in stream:
+        item[2].dispatch()
+        if prev is not None:
+            yield prev
+        prev = item
+    if prev is not None:
+        yield prev
+
+
+def _run_chunk(gplan, batch, early_start, out) -> tuple[float, float, float]:
+    """Prepare a chunk, build its views and fill ``out``; returns the
+    (synth, views, eval) seconds."""
+    t0 = time.perf_counter()
+    batch.prepare()
+    t1 = time.perf_counter()
+    for bid in gplan.bids:
+        batch.stacked(bid)
+    t2 = time.perf_counter()
+    backend.run(gplan, batch, early_start, out)
+    return t1 - t0, t2 - t1, time.perf_counter() - t2
+
+
+@dataclasses.dataclass
+class GridChunk:
+    """One scenario chunk of a streamed grid evaluation.
+
+    ``unit_cost[k]`` is the (J, P) cost matrix of GLOBAL scenario
+    ``s0 + k``; ``out`` carries the per-cell cost decomposition of the
+    chunk. The arrays are chunk-sized — a consumer that only folds them
+    (regret accumulation, scenario-mean reduction) never holds the full
+    (S, J, P) tensor.
+    """
+
+    s0: int
+    s1: int
+    unit_cost: np.ndarray          # (s1 - s0, J, P)
+    out: dict                      # per-cell cost decomposition, chunk-sized
+    workload: np.ndarray           # (J,)
+    timings: dict                  # {"synth", "views", "eval": s, "overlap"}
+
+
+def evaluate_grid_chunks(
+    jobs: list[ChainJob],
+    policies: Sequence[Policy],
+    scenarios,
+    r_total: int = 0,
+    *,
+    scenario_chunk: int | None = None,
+    windows: str = "dealloc",
+    selfowned: str = "prop12",
+    early_start: bool = True,
+    pool: str = "dedicated",
+    availability: Callable | Sequence[Callable] | None = None,
+    plan_backend: str = "auto",
+    overlap: bool | None = None,
+    device="cuda",
+) -> Iterator[GridChunk]:
+    """Stream the grid evaluation one scenario chunk at a time.
+
+    Same contract as :func:`evaluate_grid` (one grid plan, the same
+    per-scenario results), but yields ``GridChunk`` objects instead of
+    assembling the (S, J, P) tensor — peak memory is chunk-sized. Between
+    ``next()`` calls the caller may invoke ``source.observe(...)`` on an
+    adaptive ``ScenarioStream``: the generator builds each chunk lazily
+    AFTER the previous one was consumed, which is exactly the chunk
+    boundary the adaptive adversary's feedback round-trip is defined at.
+    ``overlap`` double-buffers chunk synthesis (default: on a CUDA card,
+    except for reactive adaptive streams, whose chunks cannot be
+    prefetched).
+
+    Validation (and the plan build) runs at the call, not at the first
+    ``next()`` — a bad ``scenario_chunk`` fails here, at the call site.
+    """
+    dev = resolve_device(device)
+    source, gplan, chunk, _, overlap = _prepare_stream(
+        jobs, policies, scenarios, r_total, windows, selfowned, pool,
+        availability, plan_backend, scenario_chunk, overlap, dev)
+
+    def _iter():
+        J, P = gplan.n_jobs, gplan.n_policies
+        wl = np.maximum(gplan.workload, 1e-12)
+        stream = source.chunks(chunk, dev)
+        if overlap:
+            stream = _prefetched(stream)
+        for s0, s1, batch in stream:
+            out = {k: np.zeros((s1 - s0, J, P)) for k in OUT_KEYS}
+            synth_t, views_t, eval_t = _run_chunk(gplan, batch, early_start,
+                                                  out)
+            unit = (out["spot_cost"] + out["ondemand_cost"]) \
+                / wl[None, :, None]
+            yield GridChunk(s0=s0, s1=s1, unit_cost=unit, out=out,
+                            workload=gplan.workload.copy(),
+                            timings={"synth": synth_t, "views": views_t,
+                                     "eval": eval_t, "overlap": overlap})
+
+    return _iter()
+
+
 def evaluate_grid(
     jobs: list[ChainJob],
     policies: Sequence[Policy],
-    scenarios: SpotMarket | Sequence[SpotMarket],
+    scenarios,
     r_total: int = 0,
     *,
     windows: str = "dealloc",
@@ -67,46 +239,73 @@ def evaluate_grid(
     pool: str = "dedicated",
     availability: Callable | Sequence[Callable] | None = None,
     plan_backend: str = "auto",
+    scenario_chunk: int | None = None,
+    reduce: str = "stack",
+    overlap: bool | None = None,
     device="cuda",
 ) -> EngineResult:
     """Evaluate every job under every policy in every market scenario.
 
     Returns an ``EngineResult`` whose ``unit_cost[s]`` is the (J, P) TOLA
-    cost matrix for scenario s. ``scenarios`` is one ``SpotMarket`` or a
-    list of markets sharing a slot grid. ``pool`` selects the self-owned
-    semantics: "dedicated" is the counterfactual evaluator (TOLA / Alg. 4
-    scoring, optionally against a realized ``availability`` query — one
-    callable, or a list of S per-scenario callables, in which case the
-    self-owned stats gain a leading scenario axis), "shared" replays the
-    chronological shared-pool allocation per policy. ``plan_backend``
-    selects where the plan tensors are built (:func:`resolve_plan_backend`);
-    ``timings["plan_device"]`` is the device plan build's seconds (0.0 for
-    host plans).
-    """
-    dev = resolve_device(device)
-    if not jobs:
-        raise ValueError("need at least one job")
-    policies = list(policies)
-    if not policies:
-        raise ValueError("need at least one policy")
-    single = isinstance(scenarios, SpotMarket)
-    batch = MarketListBatch([scenarios] if single else scenarios, dev)
-    S = batch.n_scenarios
-    gplan = build_grid_plan(
-        jobs, policies, r_total, windows=windows, selfowned=selfowned,
-        pool=pool, availability=availability,
-        slots_per_unit=batch.slots_per_unit, n_scenarios=S,
-        plan_backend=resolve_plan_backend(plan_backend, dev, pool),
-        device=dev)
-    J, P = gplan.n_jobs, gplan.n_policies
+    cost matrix for scenario s. ``scenarios`` is one ``SpotMarket``, a list
+    of markets sharing a slot grid, or a ``ScenarioSpec`` /
+    ``ScenarioSource`` whose price paths are synthesized on the device.
+    ``pool`` selects the self-owned semantics: "dedicated" is the
+    counterfactual evaluator (TOLA / Alg. 4 scoring, optionally against a
+    realized ``availability`` query — one callable, or a list of S
+    per-scenario callables, in which case the self-owned stats gain a
+    leading scenario axis and the batch cannot be chunked), "shared"
+    replays the chronological shared-pool allocation per policy.
+    ``plan_backend`` selects where the plan tensors are built
+    (:func:`resolve_plan_backend`); ``timings["plan_device"]`` is the device
+    plan build's seconds (0.0 for host plans).
 
-    t0 = time.perf_counter()
-    for bid in gplan.bids:
-        batch.stacked(bid)
-    t1 = time.perf_counter()
-    out = {k: np.zeros((S, J, P)) for k in OUT_KEYS}
-    backend.run(gplan, batch, early_start, out)
-    t2 = time.perf_counter()
+    ``scenario_chunk=K`` evaluates the scenario axis K scenarios per pass
+    against one grid plan (chunk results are bit for bit the monolithic
+    pass's: chunking changes memory, not arithmetic); ``reduce="mean"``
+    folds the chunks into the scenario-mean tensors (shape (1, J, P),
+    ``n_scenarios_total`` keeps S). ``overlap`` double-buffers chunk
+    synthesis on the card (see :func:`evaluate_grid_chunks`);
+    ``timings["overlap"]`` records the resolved flag, ``timings["synth"]``
+    the synthesis seconds (under overlap the RESIDUAL wait) and
+    ``timings["chunks"]`` the per-chunk split.
+    """
+    if reduce not in _REDUCES:
+        raise ValueError(f"unknown reduce {reduce!r}; pick from {_REDUCES}")
+    if reduce == "mean" and isinstance(availability, (list, tuple)):
+        raise ValueError("reduce='mean' cannot fold per-scenario "
+                         "availability results; use reduce='stack'")
+    dev = resolve_device(device)
+    source, gplan, chunk, single, overlap = _prepare_stream(
+        jobs, policies, scenarios, r_total, windows, selfowned, pool,
+        availability, plan_backend, scenario_chunk, overlap, dev)
+    S, J, P = source.n_scenarios, gplan.n_jobs, gplan.n_policies
+
+    if reduce == "stack":
+        out = {k: np.zeros((S, J, P)) for k in OUT_KEYS}
+    else:
+        acc = {k: np.zeros((J, P)) for k in OUT_KEYS}
+        buf = {k: np.zeros((chunk, J, P)) for k in OUT_KEYS}
+    chunk_timings: list[dict] = []
+    # The stack path writes the backend's output straight into the
+    # (S, J, P) slices, so it does not go through GridChunk.
+    stream = source.chunks(chunk, dev)
+    if overlap:
+        stream = _prefetched(stream)
+    for s0, s1, batch in stream:
+        if reduce == "stack":
+            out_chunk = {k: v[s0:s1] for k, v in out.items()}
+        else:
+            out_chunk = {k: v[:s1 - s0] for k, v in buf.items()}
+        synth_t, views_t, eval_t = _run_chunk(gplan, batch, early_start,
+                                              out_chunk)
+        if reduce == "mean":
+            for k in OUT_KEYS:
+                acc[k] += out_chunk[k].sum(axis=0)
+        chunk_timings.append({"scenarios": [s0, s1], "synth": synth_t,
+                              "views": views_t, "eval": eval_t})
+    if reduce == "mean":
+        out = {k: v[None] / S for k, v in acc.items()}
 
     so_shape = (S, J, P) if gplan.per_scenario else (J, P)
     selfowned_work = np.zeros(so_shape)
@@ -125,9 +324,13 @@ def evaluate_grid(
         ondemand_cost=out["ondemand_cost"], spot_work=out["spot_work"],
         ondemand_work=out["ondemand_work"], workload=gplan.workload.copy(),
         selfowned_work=selfowned_work, selfowned_reserved=selfowned_reserved,
-        device=str(dev), single_market=single,
+        device=str(dev), single_market=single and reduce == "stack",
+        n_scenarios_total=S,
         timings={"plan": gplan.plan_seconds, "pool": gplan.pool_seconds,
-                 "views": t1 - t0, "eval": t2 - t1,
+                 "synth": sum(c["synth"] for c in chunk_timings),
+                 "views": sum(c["views"] for c in chunk_timings),
+                 "eval": sum(c["eval"] for c in chunk_timings),
+                 "chunks": chunk_timings, "overlap": overlap,
                  # The device plan build alone: on the staged path the pool
                  # phase is mostly the host's availability queries.
                  "plan_device": gplan.plan_seconds if gplan.device else 0.0})

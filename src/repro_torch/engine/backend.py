@@ -39,7 +39,8 @@ def _host(t: torch.Tensor) -> np.ndarray:
 
 
 def run(gplan, batch, early_start: bool, out) -> None:
-    """Fill the (S, J, P) host arrays in ``out`` for every scenario/group."""
+    """Fill the (S, J, P) host arrays in ``out`` for every scenario/group of
+    ``batch`` (any ``ScenarioBatch``: a market list or a spec's chunk)."""
     dev = batch.device
     slot = batch.slot
     p_od = batch.p_ondemand

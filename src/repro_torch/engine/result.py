@@ -30,9 +30,15 @@ class EngineResult:
     selfowned_reserved: np.ndarray  # availability queries
     device: str = "cuda"
     single_market: bool = False    # True when the caller passed one market
+    # Scenarios EVALUATED — differs from the leading axis length only under
+    # reduce="mean", where the arrays hold the scenario mean (axis 1).
+    n_scenarios_total: int | None = None
     # Phase wall seconds: "plan" (window tensors), "pool" (self-owned +
-    # residuals), "views" (stacked market views to the device), "eval"
-    # (cost kernels, device results back on the host).
+    # residuals), "synth" (scenario synthesis, under overlap the residual
+    # wait), "views" (stacked market views on the device), "eval" (cost
+    # kernels, device results back on the host), each summed over the
+    # scenario chunks; "chunks" the per-chunk split, "overlap" whether
+    # chunk synthesis was double-buffered.
     timings: dict = dataclasses.field(default_factory=dict)
 
     @property

@@ -1,12 +1,15 @@
-"""Shared harness of the paper-table drivers (Experiments 1-3), on the port.
+"""Shared harness of the paper-table drivers (Experiments 1-4), on the port.
 
 Job streams and markets follow Section 6.1 and the reference's
 ``benchmarks/common.py``: jobs from ``seed``, S market scenarios of one
-materialized family (``--scenario-kind``: fresh, regime or adversarial)
-from ``seed + 1000`` (S = 1 is the paper's single market). The policy
-sweeps run on the card (``device="cuda"``, the default) or, when asked,
-on the CPU through the kernels' plain versions; the Greedy benchmark is
-host float64 either way.
+family (``--scenario-kind``) from ``seed + 1000`` (S = 1 is the paper's
+single market). Without ``--scenario-chunk`` the scenarios are the
+materialized ``make_scenarios`` list; with it, a ``ScenarioSpec`` streamed
+through the engine K scenarios per pass and synthesized on the device
+(``adaptive`` needs this path: its adversary reacts at chunk boundaries).
+The policy sweeps run on the card (``device="cuda"``, the default) or,
+when asked, on the CPU through the kernels' plain versions; the Greedy
+benchmark is host float64 either way.
 """
 
 from __future__ import annotations
@@ -19,51 +22,73 @@ import numpy as np
 from repro_torch.core import generate_chain_jobs, run_greedy, sweep_policies
 from repro_torch.core.scheduler import Policy
 from repro_torch.device import resolve_device
-from repro_torch.engine import make_scenarios
+from repro_torch.engine import ScenarioSpec, as_source, make_scenarios
 
 __all__ = ["Setup", "make_setup", "sweep_min", "greedy_min",
            "argparser", "print_table", "Timer", "SCENARIO_KINDS"]
 
-# The materialized scenario families (the reference's streamed ``adaptive``
-# kind needs scenario chunks, ROADMAP A6).
-SCENARIO_KINDS = ("fresh", "regime", "adversarial")
+# The generative scenario families the drivers offer (``adaptive`` only
+# with scenario chunks).
+SCENARIO_KINDS = ("fresh", "regime", "adversarial", "adaptive")
 
 
 class Setup:
-    """One job stream, its market scenarios and the device the sweeps
-    run on."""
+    """One job stream, its market scenarios (a materialized list or a
+    ``ScenarioSpec``), the device the sweeps run on and the scenario chunk
+    they stream with."""
 
-    def __init__(self, jobs, markets, device="cuda"):
+    def __init__(self, jobs, scenarios, device="cuda",
+                 scenario_chunk: int | None = None):
         self.jobs = jobs
-        self.markets = markets          # list of SpotMarket
+        self.scenarios = scenarios      # list of SpotMarket | ScenarioSpec
         self.device = device
+        self.scenario_chunk = scenario_chunk
+        self._source = as_source(scenarios)
+
+    @property
+    def markets(self):
+        """Materialized scenario markets (host-only consumers: the Greedy
+        baseline, TOLA's realized shared-pool replay)."""
+        return self._source.markets
 
 
 def make_setup(n_jobs: int, job_type: int, seed: int = 0,
                scenarios: int = 1, scenario_kind: str = "fresh",
-               device="cuda") -> Setup:
+               device="cuda", scenario_chunk: int | None = None) -> Setup:
     """Job stream + S market scenarios (S=1 reproduces the paper setup).
 
-    ``scenario_kind`` is a materialized family of ``make_scenarios``
-    (which refuses ``"adaptive"``: it needs streamed scenario chunks).
+    Without ``scenario_chunk`` the scenarios are the materialized
+    ``make_scenarios`` list; with it, a ``ScenarioSpec`` the sweeps stream
+    ``scenario_chunk`` scenarios per pass (``"adaptive"`` requires it).
     Raises before any work when ``device`` is the card and none is
     visible.
     """
     resolve_device(device)
+    if scenario_kind == "adaptive" and scenario_chunk is None:
+        raise ValueError(
+            "--scenario-kind adaptive needs --scenario-chunk: the adversary "
+            "takes chunk-boundary feedback")
     jobs = generate_chain_jobs(n_jobs, job_type, seed=seed)
     horizon = max(j.deadline for j in jobs) + 1.0
-    markets = make_scenarios(horizon, max(scenarios, 1), seed=seed + 1000,
+    if scenario_chunk is not None:
+        scn = ScenarioSpec(scenario_kind, horizon, max(scenarios, 1),
+                           seed=seed + 1000)
+    else:
+        scn = make_scenarios(horizon, max(scenarios, 1), seed=seed + 1000,
                              kind=scenario_kind)
-    return Setup(jobs, markets, device)
+    return Setup(jobs, scn, device, scenario_chunk=scenario_chunk)
 
 
 def sweep_min(setup: Setup, policies: list[Policy], **kwargs):
     """min over a policy grid of the realized average unit cost: one
     batched engine pass over policies x bids x scenarios (the alpha of each
-    policy is its scenario mean); see ``repro_torch.core.sweep_policies``."""
+    policy is its scenario mean); see ``repro_torch.core.sweep_policies``.
+    The setup's scenario source is reused across sweeps, so a materialized
+    list's per-bid views are built once per bid, not once per sweep."""
     kwargs.setdefault("device", setup.device)
+    kwargs.setdefault("scenario_chunk", setup.scenario_chunk)
     pol, alpha, costs, _ = sweep_policies(setup.jobs, policies,
-                                          setup.markets, **kwargs)
+                                          setup._source, **kwargs)
     return pol, alpha, costs
 
 
@@ -88,7 +113,12 @@ def argparser(desc: str) -> argparse.ArgumentParser:
     p.add_argument("--scenario-kind", choices=SCENARIO_KINDS,
                    default="fresh",
                    help="market family (adversarial = lure/spike square "
-                        "waves driving worst-case TOLA regret)")
+                        "waves driving worst-case TOLA regret; adaptive = "
+                        "spikes chosen by watching the learner, needs "
+                        "--scenario-chunk)")
+    p.add_argument("--scenario-chunk", type=int, default=None,
+                   help="stream the scenarios K per engine pass from a "
+                        "ScenarioSpec synthesized on the device")
     p.add_argument("--device", default="cuda",
                    help="where the policy sweeps run (cuda, or cpu for the "
                         "kernels' plain versions)")

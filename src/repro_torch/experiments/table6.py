@@ -5,7 +5,8 @@ TOLA drives the proposed grid vs when it drives the benchmark grid (Even
 windows + naive self-owned, bid-only policies, planned starts). Job type 2,
 r in {0, 300, 600, 900, 1200} by default. The cost tensors, and the plan
 tensors they are scored on, are computed on the card (``device="cuda"``);
-``--scenario-kind`` picks the market family (fresh, regime, adversarial).
+``--scenario-kind`` picks the market family (fresh, regime, adversarial;
+adaptive with ``--scenario-chunk``).
 ``--learner`` (several kinds) or
 ``--eta-grid`` adds the learner-comparison table, a replay of every
 (learner, eta) instance over the last round's cost tensor: the Hedge
@@ -13,7 +14,11 @@ instances in one ``hedge_replay`` launch, the exp3, ucb1, egreedy and ftl
 instances in one ``learner_replay`` launch. Its rows are the reference's
 (``benchmarks/exp4_online_learning.py``, same ``comparison_specs``):
 ``--learner hedge exp3 ucb1 egreedy ftl`` with an 8-point ``--eta-grid``
-gives 2 * (1 + 8) + 3 = 21 rows per r.
+gives 2 * (1 + 8) + 3 = 21 rows per r. ``--scenario-chunk K`` makes the
+markets a ``ScenarioSpec`` and adds the streamed rows: every comparison
+instance replayed chunk by chunk over the spec (``replay_stream``, a
+fresh ``ScenarioStream`` per r, synthesized on the card; an ``adaptive``
+spec reacts to the first learner at each chunk boundary).
 
     PYTHONPATH=src python -m repro_torch.experiments.table6 --jobs 10000 \
         --r 0 1200 --scenarios 2 --learner hedge exp3 ucb1 egreedy ftl \
@@ -33,8 +38,15 @@ from repro_torch.core import (
     selfowned_policies,
     spot_od_policies,
 )
+from repro_torch.engine import ScenarioStream
 from repro_torch.experiments.common import SCENARIO_KINDS, make_setup
-from repro_torch.learn import LEARNER_KINDS, LearnerSpec, Schedule, replay
+from repro_torch.learn import (
+    LEARNER_KINDS,
+    LearnerSpec,
+    Schedule,
+    replay,
+    replay_stream,
+)
 
 __all__ = ["run", "comparison_specs", "print_tables", "main"]
 
@@ -54,15 +66,18 @@ def comparison_specs(learners: list[str], eta_grid: list[float]):
 def run(n_jobs: int, rs: list[int], seed: int = 0, scenarios: int = 1,
         learners: list[str] | None = None,
         eta_grid: list[float] | None = None, device="cuda",
-        job_type: int = 2, scenario_kind: str = "fresh") -> dict:
+        job_type: int = 2, scenario_kind: str = "fresh",
+        scenario_chunk: int | None = None) -> dict:
     """Table 6 rows per r (plus ``"comparison"`` rows with an eta grid or
-    several learners), and ``"timings"``: wall seconds per phase."""
+    several learners, and ``"stream"`` rows with a scenario chunk), and
+    ``"timings"``: wall seconds per phase."""
     learners = learners or ["hedge"]
     eta_grid = eta_grid or []
     compare = len(learners) > 1 or bool(eta_grid)
     t0 = time.perf_counter()
     setup = make_setup(n_jobs, job_type, seed, scenarios=scenarios,
-                       scenario_kind=scenario_kind, device=device)
+                       scenario_kind=scenario_kind, device=device,
+                       scenario_chunk=scenario_chunk)
     jobs, markets = setup.jobs, setup.markets
     arrivals = np.array([j.arrival for j in jobs])
     d = max(j.deadline - j.arrival for j in jobs)
@@ -104,6 +119,17 @@ def run(n_jobs: int, rs: list[int], seed: int = 0, scenarios: int = 1,
                         seed=seed, backend="torch", device=device)
             row["comparison"] = lr.summary()
             row["timings"]["compare_replay"] = time.perf_counter() - t_c
+        if scenario_chunk:
+            # Streamed counterfactual regret straight from the spec: no
+            # (S, J, P) tensor, no per-scenario market objects; a fresh
+            # adversary state per r.
+            t_s = time.perf_counter()
+            slr = replay_stream(
+                jobs, grid, ScenarioStream(setup.scenarios), r_total=r,
+                learners=comparison_specs(learners, eta_grid), seed=seed,
+                scenario_chunk=scenario_chunk, device=device)
+            row["stream"] = slr.summary()
+            row["timings"]["stream"] = time.perf_counter() - t_s
         row["timings"]["wall"] = time.perf_counter() - t_r
         out[r] = row
     return out
@@ -133,6 +159,15 @@ def print_tables(res: dict) -> None:
                 print(f"{r},{row['learner']},{row['realized_unit']:.4f},"
                       f"{row['regret']:.4f},{row['expected_regret']:.4f},"
                       f"{row['top_weight']:.3f}")
+    if any("stream" in res[r] for r in rs):
+        print("\n== Streamed regret (ScenarioSpec, replay_stream by "
+              "scenario chunks) ==")
+        print("r,learner,alpha_cf,regret,expected_regret,top_weight")
+        for r in rs:
+            for row in res[r].get("stream", []):
+                print(f"{r},{row['learner']},{row['realized_unit']:.4f},"
+                      f"{row['regret']:.4f},{row['expected_regret']:.4f},"
+                      f"{row['top_weight']:.3f}")
     print(f"\n[setup (jobs + markets): {res['timings']['setup']:.3f}s]")
     for r in rs:
         t = res[r]["timings"]
@@ -140,7 +175,8 @@ def print_tables(res: dict) -> None:
               + _phase_line("proposed", t["proposed"]) + " | "
               + _phase_line("benchmark", t["benchmark"])
               + (f" | compare_replay={t['compare_replay']:.3f}s"
-                 if "compare_replay" in t else ""))
+                 if "compare_replay" in t else "")
+              + (f" | stream={t['stream']:.3f}s" if "stream" in t else ""))
 
 
 def main(argv=None):
@@ -153,15 +189,24 @@ def main(argv=None):
     p.add_argument("--scenarios", type=int, default=1)
     p.add_argument("--scenario-kind", choices=SCENARIO_KINDS, default="fresh",
                    help="market family (adversarial = lure/spike square "
-                        "waves driving worst-case TOLA regret)")
+                        "waves driving worst-case TOLA regret; adaptive = "
+                        "spikes chosen by watching the learner, needs "
+                        "--scenario-chunk)")
+    p.add_argument("--scenario-chunk", type=int, default=None,
+                   help="stream a ScenarioSpec K scenarios per pass and add "
+                        "the streamed regret rows")
     p.add_argument("--learner", nargs="+", default=["hedge"],
                    choices=list(LEARNER_KINDS))
     p.add_argument("--eta-grid", type=float, nargs="*", default=[])
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
+    if args.scenario_kind == "adaptive" and args.scenario_chunk is None:
+        p.error("--scenario-kind adaptive needs --scenario-chunk (the "
+                "adversary takes chunk-boundary feedback)")
     res = run(args.jobs, args.r, args.seed, scenarios=args.scenarios,
               learners=args.learner, eta_grid=args.eta_grid,
-              device=args.device, scenario_kind=args.scenario_kind)
+              device=args.device, scenario_kind=args.scenario_kind,
+              scenario_chunk=args.scenario_chunk)
     print_tables(res)
     return res
 

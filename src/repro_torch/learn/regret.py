@@ -20,7 +20,7 @@ import dataclasses
 
 import numpy as np
 
-__all__ = ["LearnResult", "prop_b1_bound"]
+__all__ = ["LearnResult", "StreamLearnResult", "prop_b1_bound"]
 
 
 @dataclasses.dataclass
@@ -114,6 +114,147 @@ class LearnResult:
         regret = self.regret_per_job().mean(axis=0)
         exp_regret = self.regret_per_job(expected=True).mean(axis=0)
         top_w = self.weights.max(axis=2).mean(axis=0)
+        return [
+            {"learner": sp.label, "realized_unit": float(realized[k]),
+             "regret": float(regret[k]),
+             "expected_regret": float(exp_regret[k]),
+             "top_weight": float(top_w[k])}
+            for k, sp in enumerate(self.specs)
+        ]
+
+
+@dataclasses.dataclass
+class StreamLearnResult:
+    """Streaming regret accumulator — ``LearnResult`` folded chunk by chunk.
+
+    Built by ``replay_stream``: every scenario chunk's ``LearnResult`` is
+    folded into per-learner sums and sums-of-squares over the SCENARIO
+    axis, so regret means, curves and confidence bands over many scenarios
+    come out without ever holding the (S, J, P) cost tensor (or any other
+    S-sized array — peak memory is (K, J), independent of S).
+    Scenario-mean statistics match the materialized ``LearnResult``'s to
+    float-summation tolerance (the per-scenario terms are identical; only
+    the summation grouping differs).
+    """
+
+    specs: list
+    feedback_delay: float
+    backend: str = "numpy"
+    n_scenarios: int = 0
+    n_chunks: int = 0
+    realized_sum: np.ndarray | None = None     # (K,) realized stream cost
+    expected_sum: np.ndarray | None = None     # (K,) expected stream cost
+    regret_sum: np.ndarray | None = None       # (K,)
+    regret_sq: np.ndarray | None = None        # (K,)
+    best_fixed_sum: float = 0.0
+    curve_sum: np.ndarray | None = None        # (K, J) realized regret curve
+    curve_sq: np.ndarray | None = None         # (K, J)
+    weights_sum: np.ndarray | None = None      # (K, P) final distributions
+    top_weight_sum: np.ndarray | None = None   # (K,)
+
+    @property
+    def labels(self) -> list[str]:
+        return [sp.label for sp in self.specs]
+
+    def fold(self, lr: LearnResult) -> np.ndarray:
+        """Fold one chunk's ``LearnResult``; returns the chunk's
+        per-scenario realized regret of learner 0 (the adaptive
+        adversary's feedback signal)."""
+        if self.n_scenarios == 0:
+            K, J = len(lr.specs), lr.unit_cost.shape[1]
+            P = lr.weights.shape[-1]
+            self.realized_sum = np.zeros(K)
+            self.expected_sum = np.zeros(K)
+            self.regret_sum = np.zeros(K)
+            self.regret_sq = np.zeros(K)
+            self.curve_sum = np.zeros((K, J))
+            self.curve_sq = np.zeros((K, J))
+            self.weights_sum = np.zeros((K, P))
+            self.top_weight_sum = np.zeros(K)
+        realized = lr.realized_unit()                    # (S_c, K)
+        regret = lr.regret_per_job()                     # (S_c, K)
+        curves = lr.regret_curve()                       # (S_c, K, J)
+        self.realized_sum += realized.sum(axis=0)
+        self.expected_sum += ((lr.expected_unit * lr.workload).sum(axis=2)
+                              / lr.workload.sum()).sum(axis=0)
+        self.regret_sum += regret.sum(axis=0)
+        self.regret_sq += (regret ** 2).sum(axis=0)
+        self.best_fixed_sum += float(lr.best_fixed().sum())
+        self.curve_sum += curves.sum(axis=0)
+        self.curve_sq += (curves ** 2).sum(axis=0)
+        self.weights_sum += lr.weights.sum(axis=0)
+        self.top_weight_sum += lr.weights.max(axis=2).sum(axis=0)
+        self.n_scenarios += lr.n_scenarios
+        self.n_chunks += 1
+        return regret[:, 0]
+
+    def fold_sums(self, n: int, realized, expected, regret, regret_sq,
+                  best_fixed: float, curve, curve_sq, weights,
+                  top_weight) -> None:
+        """Fold one chunk's PRE-REDUCED sums (specs order, already summed
+        over the chunk's scenario axis, as a sharded fold hands them back).
+        Same accumulator state as ``fold``, without ever holding the
+        chunk's per-scenario arrays on the host."""
+        if self.n_scenarios == 0:
+            K, J = np.shape(curve)
+            P = np.shape(weights)[-1]
+            self.realized_sum = np.zeros(K)
+            self.expected_sum = np.zeros(K)
+            self.regret_sum = np.zeros(K)
+            self.regret_sq = np.zeros(K)
+            self.curve_sum = np.zeros((K, J))
+            self.curve_sq = np.zeros((K, J))
+            self.weights_sum = np.zeros((K, P))
+            self.top_weight_sum = np.zeros(K)
+        self.realized_sum += realized
+        self.expected_sum += expected
+        self.regret_sum += regret
+        self.regret_sq += regret_sq
+        self.best_fixed_sum += float(best_fixed)
+        self.curve_sum += curve
+        self.curve_sq += curve_sq
+        self.weights_sum += weights
+        self.top_weight_sum += top_weight
+        self.n_scenarios += int(n)
+        self.n_chunks += 1
+
+    # -- scenario-mean statistics (match LearnResult's .mean(axis=0)) ------
+    def realized_unit(self) -> np.ndarray:
+        return self.realized_sum / self.n_scenarios
+
+    def best_fixed(self) -> float:
+        return self.best_fixed_sum / self.n_scenarios
+
+    def regret_per_job(self, expected: bool = False) -> np.ndarray:
+        if expected:
+            return (self.expected_sum / self.n_scenarios) - self.best_fixed()
+        return self.regret_sum / self.n_scenarios
+
+    def regret_std(self) -> np.ndarray:
+        """(K,) across-scenario std of the per-scenario realized regret."""
+        mean = self.regret_sum / self.n_scenarios
+        var = self.regret_sq / self.n_scenarios - mean ** 2
+        return np.sqrt(np.maximum(var, 0.0))
+
+    def weights(self) -> np.ndarray:
+        """(K, P) scenario-mean final sampling distributions."""
+        return self.weights_sum / self.n_scenarios
+
+    def confidence_bands(self, z: float = 1.96):
+        """(mean, lo, hi) regret-curve bands, each (K, J), across the S
+        streamed scenarios (same contract as LearnResult.confidence_bands)."""
+        S = self.n_scenarios
+        mean = self.curve_sum / S
+        var = np.maximum(self.curve_sq / S - mean ** 2, 0.0)
+        se = np.sqrt(var) / np.sqrt(max(S, 1))
+        return mean, mean - z * se, mean + z * se
+
+    def summary(self) -> list[dict]:
+        """Scenario-mean headline numbers per learner (bench/table rows)."""
+        realized = self.realized_unit()
+        regret = self.regret_per_job()
+        exp_regret = self.regret_per_job(expected=True)
+        top_w = self.top_weight_sum / self.n_scenarios
         return [
             {"learner": sp.label, "realized_unit": float(realized[k]),
              "regret": float(regret[k]),

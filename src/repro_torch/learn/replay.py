@@ -20,7 +20,9 @@ policies) cost tensor:
 Sampling is inverse-CDF against a per-scenario uniform stream drawn up
 front in numpy, so every backend consumes the SAME randomness and produces
 the same sampled-policy trace up to float ties, and all learners of a sweep
-share the stream (common random numbers).
+share the stream (common random numbers). ``replay_stream`` replays a
+scenario stream chunk by chunk (``evaluate_grid_chunks``) and folds the
+regret, with the adaptive adversary's feedback between chunks.
 """
 
 from __future__ import annotations
@@ -37,9 +39,9 @@ from repro_torch.learn.learners import (
     sample_probs,
     update_state,
 )
-from repro_torch.learn.regret import LearnResult
+from repro_torch.learn.regret import LearnResult, StreamLearnResult
 
-__all__ = ["replay", "build_events"]
+__all__ = ["replay", "replay_stream", "build_events"]
 
 
 def build_events(arrivals: np.ndarray, d: float):
@@ -169,6 +171,74 @@ def replay(
         weights=weights, unit_cost=C, arrivals=arrivals, workload=Z,
         feedback_delay=float(d), backend=backend)
 
+
+def replay_stream(
+    jobs,
+    policies,
+    scenarios,
+    r_total: int = 0,
+    *,
+    learners=("hedge",),
+    seed: int = 0,
+    scenario_chunk: int | None = None,
+    backend: str = "torch",
+    windows: str = "dealloc",
+    selfowned: str = "prop12",
+    early_start: bool = True,
+    overlap: bool | None = None,
+    device="cuda",
+) -> StreamLearnResult:
+    """Regret straight from a scenario stream — no (S, J, P) tensor.
+
+    The engine evaluates ``scenario_chunk`` scenarios per pass
+    (``evaluate_grid_chunks`` on ``device``: one grid plan, a spec's price
+    paths synthesized on the device), each chunk's counterfactual cost
+    tensor is replayed by every learner in ``learners`` (scenario s keeps
+    replay seed ``seed + s``, so the sampled traces are those of a
+    monolithic ``replay`` over the materialized tensor), and the chunk's
+    ``LearnResult`` is folded into a ``StreamLearnResult``: peak memory is
+    chunk-sized. ``backend`` is the replay's (``"torch"``: the learner
+    kernels on ``device``, one launch of each per chunk; ``"numpy"``: the
+    float64 host loop). ``overlap`` double-buffers chunk synthesis (see
+    ``evaluate_grid``); it is refused for adaptive sources.
+
+    When ``scenarios`` is an adaptive ``ScenarioSpec`` / ``ScenarioStream``
+    the chunk's realized regret of ``learners[0]`` is fed back through
+    ``ScenarioStream.observe`` BEFORE the next chunk is synthesized: the
+    adversary watches the learner at chunk boundaries and concentrates its
+    spikes on the most harmful period.
+    """
+    from repro_torch.engine.api import evaluate_grid_chunks
+    from repro_torch.engine.scenarios import as_source
+
+    if not jobs:
+        raise ValueError("need jobs")
+    arrivals = np.array([j.arrival for j in jobs])
+    if np.any(np.diff(arrivals) < -1e-9):
+        raise ValueError("jobs must be arrival-ordered")
+    d = max(j.deadline - j.arrival for j in jobs)
+    Z = np.array([j.total_work for j in jobs])
+    specs = [as_spec(l) for l in learners]
+    if not specs:
+        raise ValueError("need at least one learner")
+    if backend not in ("numpy", "torch"):
+        raise ValueError(f"unknown replay backend {backend!r}")
+
+    source = as_source(scenarios)
+    acc = StreamLearnResult(specs=specs, feedback_delay=float(d),
+                            backend=backend)
+    stream = evaluate_grid_chunks(
+        jobs, policies, source, r_total, scenario_chunk=scenario_chunk,
+        windows=windows, selfowned=selfowned, early_start=early_start,
+        pool="dedicated", overlap=overlap, device=device)
+    for ch in stream:
+        lr = replay(ch.unit_cost, arrivals, d, workload=Z, learners=specs,
+                    seed=seed + ch.s0, backend=backend, device=device)
+        # The chunk-boundary round trip: a no-op for every non-adaptive
+        # source; the generator builds the NEXT chunk only after this
+        # returns, so the adversary's state is current when spikes land.
+        source.observe(acc.fold(lr))
+    return acc
 
 def _replay_torch(C, specs, etas, gammas, u, ev_kind, ev_j, n_done, dev):
     """``backend="torch"``: the Hedge instances in one ``hedge_replay``

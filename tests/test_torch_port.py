@@ -108,9 +108,10 @@ def test_cpu_is_only_by_request(small):
     jobs_t, market_t, pols_t = small
     res = evaluate_grid(jobs_t, pols_t, market_t, device="cpu")
     assert res.device == "cpu" and res.unit_cost.shape == (1, 6, 3)
-    with pytest.raises(TypeError):
-        evaluate_grid(jobs_t, pols_t, market_t, device="cpu",
-                      scenario_chunk=1)
+    # scenario chunks are ported (one chunk of one market: the same pass)
+    chunked = evaluate_grid(jobs_t, pols_t, market_t, device="cpu",
+                            scenario_chunk=1)
+    np.testing.assert_array_equal(chunked.unit_cost, res.unit_cost)
     with pytest.raises(TypeError):
         evaluate_grid(jobs_t, pols_t, market_t, device="cpu", mesh=1)
 
