@@ -115,14 +115,16 @@ Phases, each failing the run with a non-zero exit:
    raw gap and the number of counts set apart are printed), the count of
    (scenario, job, policy) unit costs more than 1e-5 apart and the largest
    gap, each side's plan, pool, views and eval seconds, device busy time,
-   pageable host-to-device copies and idle share; (b) the device plan of
-   the proposed r = 1200 grid, query-free and with one availability query
-   per scenario, on the card and on the CPU: starts, ends, z_t, d_eff and
-   pins equal by ``torch.equal``, the self-owned sums equal; (c)
-   ``table6.run``
-   on the regime and the adversarial families (10000 jobs, S = 2, r in
-   {0, 1200}, hedge), the launch counters set to 0 before each and read
-   after: both cost kernels launched, every alpha finite and in (0, p_od];
+   pageable host-to-device copies and idle share, from an emptied
+   cross-call plan cache (both sides build); (b) the device plan of the
+   proposed r = 1200 grid, query-free and with one availability query per
+   scenario, built with the cache off on the card and on the CPU: starts,
+   ends, z_t, d_eff and pins equal by ``torch.equal``, the self-owned sums
+   equal; (c) ``table6.run`` on the regime and the adversarial families
+   (10000 jobs, S = 2, r in {0, 1200}, hedge), the launch counters set to
+   0 before each and read after: both cost kernels launched, every alpha
+   finite and in (0, p_od]; the groups its calls took from the plan cache
+   are summed;
 11. streamed scenarios on Table 6's stream (10000 jobs, job type 2, market
    seed 1000; the proposed grids at r = 1200 and r = 0) — (a)
    ``ScenarioSpec`` synthesis on the card (fresh, regime and adversarial
@@ -145,7 +147,23 @@ Phases, each failing the run with a non-zero exit:
    its issued chunks rebuilt give the host's availability on the card, its
    Hedge regret printed beside the fixed adversarial family's; (e)
    ``table6.run`` on the adaptive family (2000 jobs, S = 16, chunk 8, r =
-   0) prints finite streamed rows.
+   0) prints finite streamed rows;
+12. the cross-call caches and delta evaluation on Table 6's stream (the
+   proposed r = 1200 round-0 grid, 175 policies in 65 groups; the fresh
+   spec of phase 11 (b), S = 16 in chunks of 8), from emptied caches: (a)
+   with plans on the card, a cold, a warm and a cache-off run bit for bit
+   (unit, spot and on-demand costs, self-owned work), the warm run serving
+   all 65 groups from the plan cache, one view-cache hit per (chunk, bid)
+   and no device plan pass, each run launching the chain kernel as often
+   as the cold one; (b) the same with host plans; (c) every tenth policy
+   re-bid: ``evaluate_grid_delta`` against (a)'s warm result bit for bit
+   with the full re-evaluation, at most 18 of the groups re-scored; a delta
+   with no change re-scores nothing, launches nothing and equals its
+   input; a chained delta (every sixth policy re-bid once more) bit for
+   bit with a cache-off full re-evaluation; (d) at the end, the caches'
+   counts, the card's peak allocated memory and the process's peak RSS,
+   and the plan-cache groups summed over phase 8's sweeps and phase 10's
+   Table 6 runs.
 
 Then one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` name and
 power-limit line, and last ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -162,6 +180,7 @@ import json
 import math
 import pathlib
 import re
+import resource
 import statistics
 import subprocess
 import sys
@@ -195,6 +214,13 @@ STREAM_DRIVER_JOBS = 2000
 STREAM_C_TOL = 1e-4
 STREAM_REALIZED_RTOL, STREAM_REGRET_RTOL = 1e-12, 1e-9
 STREAM_MEAN_RTOL = 1e-12
+# Phase 12, the cross-call caches: Table 6's proposed r = 1200 round-0 grid
+# (its groups), the re-bid steps of benchmarks/bench_pipeline.py (every
+# tenth policy, then every sixth) and the most groups the first re-bid may
+# re-score (one per re-bid policy: ceil(175 / 10)).
+CACHE_GROUPS = 65
+CACHE_REBID, CACHE_CHAIN_REBID = 10, 6
+CACHE_MAX_RESCORED = 18
 # H100 SXM: device memory rate, float32 rate outside the tensor cores and
 # the dense bfloat16 and TF32 tensor-core rates.
 HBM_BYTES_PER_S = 3.35e12
@@ -1028,6 +1054,7 @@ def tables_phase(torch, np, n_jobs: int) -> dict:
     # unit costs for the knife-edge count), the engine's phase seconds and
     # the Greedy seconds; the inputs of each cost kernel's last launch.
     sweeps, engine_s, greedy_s, captured = [], {}, [0.0], {}
+    plan_cached = [0]          # groups the sweeps took from the plan cache
     current = [""]
     sweep_fn, greedy_fn = common.sweep_policies, common.run_greedy
     kernel_fns = {n: getattr(pc, n) for n in ("policy_cost_chain",
@@ -1039,6 +1066,7 @@ def tables_phase(torch, np, n_jobs: int) -> dict:
         for key, v in res.timings.items():
             if isinstance(v, float):    # not the chunk list or the flag
                 engine_s[key] = engine_s.get(key, 0.0) + v
+        plan_cached[0] += res.timings["plan_cached"]
         proposed = current[0] == "exp1" and kw.get("windows", "dealloc") \
             == "dealloc"
         sweeps.append({"driver": current[0], "jobs": jobs,
@@ -1096,8 +1124,8 @@ def tables_phase(torch, np, n_jobs: int) -> dict:
         print(f"[{label}: {wall:.3f}s]")
     print(f"[phase tables: {t_all:.3f}s; engine "
           + " ".join(f"{k}={v:.3f}s" for k, v in engine_s.items())
-          + f" over {len(sweeps)} sweeps; greedy={greedy_s[0]:.3f}s; "
-          f"launches {launches}]")
+          + f" over {len(sweeps)} sweeps ({plan_cached[0]} groups from the "
+          f"plan cache); greedy={greedy_s[0]:.3f}s; launches {launches}]")
     names = ("chain_smem_kernel", "chain_kernel", "task_tree_kernel")
     device_breakdown(torch, prof, t_all, kernel=("cost kernels", names))
     for name in kernel_fns:
@@ -1181,7 +1209,8 @@ def tables_phase(torch, np, n_jobs: int) -> dict:
             fail(f"{name}'s last launch of Tables 2-5 is not bit-equal to "
                  "its plain version")
     return {"launches": launches, "max_abs_err": errs,
-            "knife_edges": n_off, "cells": n_cells, "gap_max": gap_max}
+            "knife_edges": n_off, "cells": n_cells, "gap_max": gap_max,
+            "plan_cached": plan_cached[0], "sweeps": len(sweeps)}
 
 
 def small_learners(torch, np, Cs, arr, specs) -> None:
@@ -1685,12 +1714,15 @@ def counts_swap_gap(torch, np, jobs, policies, markets, r_total, dev_unit,
 def device_plan_phase(torch, np, n_jobs: int):
     """Phase 10: device plans against host plans on Table 6's round-0
     grids, the card's device plan against the CPU's, and Table 6 on the
-    regime and adversarial market families. Returns Table 6's jobs."""
+    regime and adversarial market families. Returns Table 6's jobs and the
+    groups (c)'s Table 6 runs took from the plan cache."""
     from torch.profiler import ProfilerActivity, profile
 
+    import repro_torch.engine as engine
     from repro_torch.core import (
         benchmark_bid_policies, selfowned_policies, spot_od_policies)
-    from repro_torch.engine import build_grid_plan, evaluate_grid
+    from repro_torch.engine import (
+        build_grid_plan, cache, clear_caches, evaluate_grid)
     from repro_torch.experiments import table6
     from repro_torch.experiments.common import make_setup
     from repro_torch.kernels import LAUNCHES
@@ -1706,6 +1738,10 @@ def device_plan_phase(torch, np, n_jobs: int):
                     early_start=False) if even else dict(r_total=r)
 
     # (a) host plans against device plans, each side under the profiler.
+    # Both sides build: the plan cache is emptied of earlier phases'
+    # groups (Table 6's round-0 plans among them), since the copies and
+    # seconds printed are those of a build.
+    clear_caches()
     out = {}
     for side in ("host", "device"):
         t0 = time.perf_counter()
@@ -1760,9 +1796,11 @@ def device_plan_phase(torch, np, n_jobs: int):
         plans = {}
         for dv in ("cuda", "cpu"):
             t0 = time.perf_counter()
-            plans[dv] = build_grid_plan(jobs, grid_of["selfowned"], 1200,
-                                        availability=avail, n_scenarios=2,
-                                        plan_backend="device", device=dv)
+            # Built, not served from (a)'s cached groups: the cache is off.
+            with cache.disabled():
+                plans[dv] = build_grid_plan(
+                    jobs, grid_of["selfowned"], 1200, availability=avail,
+                    n_scenarios=2, plan_backend="device", device=dv)
             plans[dv + "_s"] = time.perf_counter() - t0
         bad = []
         for gi, (gc, gh) in enumerate(zip(plans["cuda"].groups,
@@ -1787,17 +1825,33 @@ def device_plan_phase(torch, np, n_jobs: int):
             fail(f"the device plan differs between the card and the CPU "
                  f"({label}): {bad[:6]}")
 
-    # (c) Table 6 on the other materialized families.
+    # (c) Table 6 on the other materialized families. Its round-0 plans
+    # are (a)'s groups: the calls' plan-cache groups are summed.
     p_od = markets[0].p_ondemand
+    cached, eval_fn = [0], engine.evaluate_grid
+
+    def counted(*a, **k):
+        res = eval_fn(*a, **k)
+        cached[0] += res.timings["plan_cached"]
+        return res
     for kind in PLAN_FAMILIES:
         LAUNCHES.clear()
         t0 = time.perf_counter()
-        res = table6.run(n_jobs, [0, 1200], seed=0, scenarios=2,
-                         device="cuda", scenario_kind=kind)
+        before = cached[0]
+        engine.evaluate_grid = counted
+        try:
+            res = table6.run(n_jobs, [0, 1200], seed=0, scenarios=2,
+                             device="cuda", scenario_kind=kind)
+        finally:
+            engine.evaluate_grid = eval_fn
         torch.cuda.synchronize()
         launches = dict(LAUNCHES)
         print(f"Table 6 on --scenario-kind {kind}: "
-              f"{time.perf_counter() - t0:.3f}s; launches {launches}")
+              f"{time.perf_counter() - t0:.3f}s; launches {launches}; "
+              f"{cached[0] - before} groups from the plan cache; plan "
+              "seconds (round 0 and the refinement round) " + ", ".join(
+                  f"r={r} {leg} {res[r]['timings'][leg]['plan']:.3f}"
+                  for r in (0, 1200) for leg in ("proposed", "benchmark")))
         table6.print_tables(res)
         for name in ("policy_cost_chain", "policy_cost"):
             if launches.get(name, 0) < 1:
@@ -1808,7 +1862,7 @@ def device_plan_phase(torch, np, n_jobs: int):
                 if not (math.isfinite(v) and 0.0 < v <= p_od):
                     fail(f"Table 6 on {kind} markets, r={r}: {key} {v} not "
                          f"finite in (0, {p_od}]")
-    return jobs
+    return jobs, cached[0]
 
 
 def ulp_gap(np, a, b) -> int:
@@ -2074,6 +2128,185 @@ def stream_phase(torch, np, jobs) -> dict:
     print(f"[stream (e) driver: {time.perf_counter() - t0:.3f}s; launches "
           f"{dict(LAUNCHES)}]")
     return stream_launches
+
+
+def rebid(grid, every: int):
+    """``benchmarks/bench_pipeline.py``'s re-bid: every ``every``-th
+    policy's bid moved to bid * 1.01 + 1e-4 * (k + 1)."""
+    out = list(grid)
+    for k, i in enumerate(range(0, len(grid), every)):
+        out[i] = dataclasses.replace(grid[i],
+                                     bid=grid[i].bid * 1.01 + 1e-4 * (k + 1))
+    return out
+
+
+def cache_phase(torch, np, jobs) -> dict:
+    """Phase 12: the cross-call plan and view caches and delta evaluation
+    on Table 6's stream. Returns the kernels' launches in the phase."""
+    from repro_torch.core import selfowned_policies
+    from repro_torch.engine import (
+        ScenarioSpec, cache, clear_caches, evaluate_grid, evaluate_grid_delta)
+    from repro_torch.engine import plan as plan_mod
+    from repro_torch.kernels import LAUNCHES
+
+    clear_caches()
+    horizon = max(j.deadline for j in jobs) + 1.0
+    spec = ScenarioSpec("fresh", horizon, STREAM_S["eval"], seed=STREAM_SEED)
+    K = STREAM_CHUNK
+    grid = selfowned_policies()
+    n_groups = len(plan_mod._grid_structure(grid, 1200, "dealloc").g_bid)
+    n_views = -(-spec.n_scenarios // K) * len({round(p.bid, 12)
+                                                for p in grid})
+    fields = ("unit_cost", "spot_cost", "ondemand_cost", "selfowned_work",
+              "spot_work", "ondemand_work", "selfowned_reserved")
+    phase_launches: dict = {}
+    device_plans, plan_passes = plan_mod._device_plans, [0]
+
+    def counted_plans(*a, **k):
+        plan_passes[0] += 1
+        return device_plans(*a, **k)
+
+    def timed(fn, *a, **k):
+        """(result, wall, chain launches, device plan passes) of a call."""
+        LAUNCHES.clear()
+        plan_passes[0] = 0
+        t = time.perf_counter()
+        res = fn(*a, **k)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        for name, n in LAUNCHES.items():
+            phase_launches[name] = phase_launches.get(name, 0) + n
+        return res, wall, LAUNCHES.get("policy_cost_chain", 0), plan_passes[0]
+
+    def grid_run(g, **kw):
+        return timed(evaluate_grid, jobs, g, spec, 1200, scenario_chunk=K,
+                     device="cuda", **kw)
+
+    def same(a, b) -> bool:
+        return all(np.array_equal(getattr(a, f), getattr(b, f))
+                   for f in fields)
+
+    def phases(res) -> str:
+        t = res.timings
+        return (f"plan {t['plan']:.4f}s pool {t['pool']:.4f}s views "
+                f"{t['views']:.4f}s eval {t['eval']:.3f}s")
+
+    plan_mod._device_plans = counted_plans
+    try:
+        # (a) and (b): cold, warm and cache-off runs, device then host plans.
+        for label, backend in (("(a) device plans", "auto"),
+                               ("(b) host plans", "host")):
+            t0 = time.perf_counter()
+            v0 = cache.VIEW_CACHE.cache_info()
+            p0 = len(cache.PLAN_CACHE)
+            cold = grid_run(grid, plan_backend=backend)
+            v1 = cache.VIEW_CACHE.cache_info()
+            warm = grid_run(grid, plan_backend=backend)
+            v2 = cache.VIEW_CACHE.cache_info()
+            with cache.disabled():
+                off = grid_run(grid, plan_backend=backend)
+            for name, (res, wall, chain, passes) in (
+                    ("cold", cold), ("warm", warm), ("off", off)):
+                print(f"{label}, {name}: {wall:.3f}s wall; {phases(res)}; "
+                      f"plan_cached {res.timings['plan_cached']}; chain "
+                      f"launches {chain}; device plan passes {passes}")
+            print(f"{label}: view cache {v0} -> {v1} (cold) -> {v2} (warm); "
+                  f"plan cache {p0} -> {len(cache.PLAN_CACHE)} entries")
+            ok = same(cold[0], warm[0]) and same(cold[0], off[0])
+            print(f"{label}: cold, warm and cache-off results "
+                  f"{'bit for bit' if ok else 'DIFFERENT'}")
+            if not ok:
+                fail(f"phase 12 {label}: the warm or cache-off result differs "
+                     f"from the cold one")
+            got = warm[0].timings["plan_cached"]
+            if not (got == n_groups == CACHE_GROUPS
+                    and len(cache.PLAN_CACHE) - p0 == n_groups):
+                fail(f"phase 12 {label}: the warm run took {got} groups from "
+                     f"the plan cache, which gained "
+                     f"{len(cache.PLAN_CACHE) - p0}; the grid has {n_groups} "
+                     f"(expected {CACHE_GROUPS})")
+            if cold[0].timings["plan_cached"] or off[0].timings["plan_cached"]:
+                fail(f"phase 12 {label}: a cold or cache-off run took groups "
+                     f"from the plan cache")
+            if backend == "auto" and (v1.misses - v0.misses != n_views
+                                      or v2.hits - v1.hits != n_views
+                                      or v2.misses != v1.misses):
+                fail(f"phase 12 {label}: view cache {v0} -> {v1} -> {v2}, "
+                     f"not one miss, then one hit, per (chunk, bid) "
+                     f"({n_views})")
+            if backend == "auto" and (warm[3] != 0 or cold[3] < 1):
+                fail(f"phase 12 {label}: device plan passes cold {cold[3]}, "
+                     f"warm {warm[3]} (expected at least 1, then 0)")
+            if not cold[2] >= 1 or warm[2] != cold[2] or off[2] != cold[2]:
+                fail(f"phase 12 {label}: chain launches cold {cold[2]}, warm "
+                     f"{warm[2]}, off {off[2]}")
+            if backend == "auto":
+                prev = warm[0]         # (c)'s delta starts from it
+            del cold, warm, off
+            print(f"[cache {label}: {time.perf_counter() - t0:.3f}s]")
+
+        # (c) delta evaluation against (a)'s warm result.
+        t0 = time.perf_counter()
+        grid2 = rebid(grid, CACHE_REBID)
+        full, full_s, full_chain, _ = grid_run(grid2)
+        delta, delta_s, delta_chain, _ = timed(
+            evaluate_grid_delta, prev, jobs, grid2, spec, 1200,
+            scenario_chunk=K)
+        n = delta.timings["delta_groups_rescored"]
+        total = delta.timings["delta_groups_total"]
+        ok = same(delta, full)
+        print(f"(c) every {CACHE_REBID}th policy re-bid: full re-evaluation "
+              f"{full_s:.3f}s ({full_chain} chain launches, plan_cached "
+              f"{full.timings['plan_cached']}); evaluate_grid_delta "
+              f"{delta_s:.3f}s ({delta_chain} chain launches), {n} of {total} "
+              f"groups re-scored; {'bit for bit' if ok else 'DIFFERENT'}")
+        if not ok:
+            fail("phase 12 (c): the delta result differs from the full "
+                 "re-evaluation")
+        if not 0 < n <= CACHE_MAX_RESCORED < total:
+            fail(f"phase 12 (c): {n} of {total} groups re-scored (expected "
+                 f"1 to {CACHE_MAX_RESCORED})")
+        del full, prev
+        again, again_s, again_chain, _ = timed(
+            evaluate_grid_delta, delta, jobs, grid2, spec, 1200,
+            scenario_chunk=K)
+        ok = same(again, delta)
+        print(f"(c) delta with no change: {again_s:.3f}s, "
+              f"{again.timings['delta_groups_rescored']} groups re-scored, "
+              f"{again_chain} chain launches; "
+              f"{'bit for bit' if ok else 'DIFFERENT'} with its prev")
+        if again.timings["delta_groups_rescored"] != 0 or again_chain != 0 \
+                or not ok:
+            fail("phase 12 (c): a delta with no change re-scored, launched "
+                 "or moved something")
+        del again
+        # The chained delta builds only its missing groups on the card (a
+        # subset of the grid's window plans and cells); the cache-off full
+        # re-evaluation builds the whole grid.
+        grid3 = rebid(grid2, CACHE_CHAIN_REBID)
+        chained, chained_s, chained_chain, passes = timed(
+            evaluate_grid_delta, delta, jobs, grid3, spec, 1200,
+            scenario_chunk=K)
+        with cache.disabled():
+            full3, full3_s, full3_chain, _ = grid_run(grid3)
+        ok = same(chained, full3)
+        print(f"(c) chained delta (every {CACHE_CHAIN_REBID}th policy re-bid "
+              f"again): {chained_s:.3f}s, "
+              f"{chained.timings['delta_groups_rescored']} of "
+              f"{chained.timings['delta_groups_total']} groups re-scored, "
+              f"{chained_chain} chain launches, {passes} device plan pass(es) "
+              f"over the missing groups; cache-off full re-evaluation "
+              f"{full3_s:.3f}s ({full3_chain} chain launches); "
+              f"{'bit for bit' if ok else 'DIFFERENT'}")
+        if not ok or chained.timings["delta_groups_rescored"] < 1 \
+                or passes < 1:
+            fail("phase 12 (c): the chained delta differs from the cache-off "
+                 "full re-evaluation, or built no missing group")
+        del delta, chained, full3
+        print(f"[cache (c) delta: {time.perf_counter() - t0:.3f}s]")
+    finally:
+        plan_mod._device_plans = device_plans
+    return phase_launches
 
 
 def main() -> int:
@@ -2618,7 +2851,7 @@ def main() -> int:
 
     # -- 10. device plans ----------------------------------------------------
     t0 = time.perf_counter()
-    table6_jobs = device_plan_phase(torch, np, args.jobs)
+    table6_jobs, table6_cached = device_plan_phase(torch, np, args.jobs)
     print(f"[phase device plans: {time.perf_counter() - t0:.3f}s]")
 
     # -- 11. streamed scenarios ----------------------------------------------
@@ -2628,6 +2861,27 @@ def main() -> int:
         if k["name"] in stream_launches:
             k["stream_launches"] = stream_launches[k["name"]]
     print(f"[phase streamed scenarios: {time.perf_counter() - t0:.3f}s]")
+
+    # -- 12. cross-call caches and delta evaluation -------------------------
+    t0 = time.perf_counter()
+    cache_launches = cache_phase(torch, np, table6_jobs)
+    for k in kernels:
+        k["cache_launches"] = cache_launches.get(k["name"], 0)
+    print(f"[phase caches and delta: {time.perf_counter() - t0:.3f}s; "
+          f"launches {cache_launches}]")
+    # (d) what the caches hold at the end, and the memory of the whole run.
+    from repro_torch.engine import cache
+    print(f"plan cache {cache.PLAN_CACHE.cache_info()}, evictions "
+          f"{cache.PLAN_CACHE.evictions}; view cache "
+          f"{cache.VIEW_CACHE.cache_info()}, evictions "
+          f"{cache.VIEW_CACHE.evictions}")
+    print(f"peak memory: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
+          f"allocated on the card, peak RSS "
+          f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.3f} "
+          f"GiB")
+    print(f"groups from the plan cache: {tables['plan_cached']} over phase "
+          f"8's {tables['sweeps']} sweeps, {table6_cached} over phase 10's "
+          f"Table 6 runs")
 
     for k in kernels:    # the same two numbers under their other names
         k["max_abs_diff"], k["kernel_ms"] = k["max_abs_err"], k["ms"]

@@ -96,7 +96,7 @@ def build_kernels(names=KERNEL_SOURCES) -> dict[str, str]:
     return logs
 
 
-@functools.cache
+@functools.lru_cache(maxsize=len(KERNEL_SOURCES))  # one per source
 def kernel_library(name: str) -> ctypes.CDLL:
     """The loaded shared library of ``kernels/csrc/<name>.cu`` (built on
     first use)."""

@@ -5,7 +5,9 @@
     C = res.unit_cost[s]          # (n_jobs, n_policies) cost matrix
 
 ``markets`` may also be a ``ScenarioSpec`` (synthesized on the card) with
-``scenario_chunk=K``; ``evaluate_grid_chunks`` yields the chunks.
+``scenario_chunk=K``; ``evaluate_grid_chunks`` yields the chunks. A
+re-bid grid is re-scored against an earlier result with
+``evaluate_grid_delta(res, jobs, policies2, markets, r_total)``.
 """
 
 from repro_torch.engine.api import (
@@ -14,6 +16,13 @@ from repro_torch.engine.api import (
     evaluate_grid_chunks,
     resolve_plan_backend,
 )
+from repro_torch.engine.cache import (
+    clear_caches,
+    evaluate_grid_delta,
+    jobs_fingerprint,
+    scenario_fingerprint,
+)
+from repro_torch.engine.cache import configure as configure_caches
 from repro_torch.engine.plan import EvalGroup, GridPlan, build_grid_plan
 from repro_torch.engine.result import EngineResult
 from repro_torch.engine.scenarios import (
@@ -33,7 +42,9 @@ from repro_torch.engine.scenarios import (
 )
 
 __all__ = ["evaluate_grid", "evaluate_grid_chunks", "GridChunk",
-           "resolve_plan_backend", "EngineResult", "EvalGroup", "GridPlan",
+           "resolve_plan_backend", "evaluate_grid_delta", "clear_caches",
+           "configure_caches", "jobs_fingerprint", "scenario_fingerprint",
+           "EngineResult", "EvalGroup", "GridPlan",
            "build_grid_plan", "SCENARIO_KINDS", "ScenarioSpec",
            "ScenarioStream", "ScenarioSource", "ScenarioBatch",
            "MarketListBatch", "SynthBatch", "as_source", "check_scenarios",

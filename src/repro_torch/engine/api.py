@@ -31,6 +31,7 @@ from repro_torch.core.scheduler import Policy
 from repro_torch.core.types import ChainJob
 from repro_torch.device import resolve_device
 from repro_torch.engine import backend
+from repro_torch.engine.cache import scenario_fingerprint
 from repro_torch.engine.plan import _PLAN_BACKENDS, build_grid_plan
 from repro_torch.engine.result import EngineResult
 from repro_torch.engine.scenarios import as_source
@@ -269,6 +270,12 @@ def evaluate_grid(
     ``timings["overlap"]`` records the resolved flag, ``timings["synth"]``
     the synthesis seconds (under overlap the RESIDUAL wait) and
     ``timings["chunks"]`` the per-chunk split.
+
+    Plan groups and spec views are kept across calls (``engine/cache.py``;
+    ``timings["plan_cached"]`` counts the groups served from the cache),
+    and a ``reduce="stack"`` result over a fingerprintable scenario input
+    without availability queries carries the ``delta_state`` that
+    ``evaluate_grid_delta`` re-scores a changed grid against.
     """
     if reduce not in _REDUCES:
         raise ValueError(f"unknown reduce {reduce!r}; pick from {_REDUCES}")
@@ -317,6 +324,27 @@ def evaluate_grid(
         selfowned_work[..., g.policy_idx] = sw[..., None]
         selfowned_reserved[..., g.policy_idx] = sr[..., None]
 
+    # Delta-evaluation handle: recorded whenever the inputs have a
+    # cross-call identity (fingerprintable scenarios, no availability
+    # queries) and the full (S, J, P) stack is there to splice from.
+    delta_state = None
+    if reduce == "stack" and availability is None:
+        sfp = scenario_fingerprint(scenarios)
+        if sfp is not None:
+            delta_state = {
+                "jobs_fp": gplan.jobs_fp,
+                "scenario_fp": sfp,
+                "n_scenarios": S,
+                "config": {"r_total": float(r_total), "windows": windows,
+                           "selfowned": selfowned, "pool": pool,
+                           "early_start": bool(early_start),
+                           "device": str(dev),
+                           "plan_backend": gplan.plan_backend},
+                "group_rep": {key: int(g.policy_idx[0])
+                              for key, g in zip(gplan.group_keys,
+                                                gplan.groups)},
+            }
+
     total = out["spot_cost"] + out["ondemand_cost"]
     unit = total / np.maximum(gplan.workload, 1e-12)[None, :, None]
     return EngineResult(
@@ -331,6 +359,8 @@ def evaluate_grid(
                  "views": sum(c["views"] for c in chunk_timings),
                  "eval": sum(c["eval"] for c in chunk_timings),
                  "chunks": chunk_timings, "overlap": overlap,
+                 "plan_cached": gplan.plan_cached,
                  # The device plan build alone: on the staged path the pool
                  # phase is mostly the host's availability queries.
-                 "plan_device": gplan.plan_seconds if gplan.device else 0.0})
+                 "plan_device": gplan.plan_seconds if gplan.device else 0.0},
+        delta_state=delta_state)

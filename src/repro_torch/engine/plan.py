@@ -31,6 +31,12 @@ groups carry (S, J, L) tensors and backends pair scenario s with slice s.
 Availability queries are host callables, so the device path stages the
 planned windows to the host once to evaluate them; without queries it
 never leaves the device.
+
+Without queries, both paths consult the cross-call group cache
+(``engine/cache.py``) and build only the groups it misses: the window
+plans, allocations and cells of a subset are the same bits as those of
+the whole grid, since every one of them is computed per Dealloc parameter
+and per (window plan, beta_0) cell.
 """
 
 from __future__ import annotations
@@ -52,6 +58,7 @@ from repro_torch.core.scheduler import (
     job_arrays,
 )
 from repro_torch.core.types import ChainJob
+from repro_torch.engine import cache as _cache
 
 __all__ = ["EvalGroup", "GridPlan", "build_grid_plan", "scenario_cat",
            "concat_rows", "distinct_window_params"]
@@ -136,6 +143,9 @@ class GridPlan:
     plan_seconds: float = 0.0   # window-plan tensor construction
     pool_seconds: float = 0.0   # self-owned allocation + residuals
     plan_backend: str = "host"  # "host" (numpy f64) | "device" (torch f32)
+    plan_cached: int = 0        # groups served from the cross-call cache
+    jobs_fp: str = ""           # content fingerprint of the job batch
+    group_keys: list | None = None  # per-group dedup signatures (cache keys)
 
     @property
     def device(self) -> bool:
@@ -186,6 +196,7 @@ class _GridStructure:
     g_akey: list[int]               # group -> akey index
     g_bid: list[float]              # group -> exact bid of its first policy
     g_pols: list[list[int]]         # group -> policy columns it fills
+    g_key: list[tuple]              # group -> full (window, b0, bid) key
 
 
 def _grid_structure(policies, r_total: int, windows: str) -> _GridStructure:
@@ -193,7 +204,7 @@ def _grid_structure(policies, r_total: int, windows: str) -> _GridStructure:
     w_index = {k: i for i, k in enumerate(key_param)}
     akey_index: dict[tuple, int] = {}
     g_index: dict[tuple, int] = {}
-    s = _GridStructure(key_param, [], [], [], [], [])
+    s = _GridStructure(key_param, [], [], [], [], [], [])
     for pi, pol in enumerate(policies):
         wkey = _window_key(pol, r_total, windows)
         b0 = None if pol.beta0 is None else round(pol.beta0, 12)
@@ -210,6 +221,7 @@ def _grid_structure(policies, r_total: int, windows: str) -> _GridStructure:
             s.g_akey.append(ai)
             s.g_bid.append(pol.bid)
             s.g_pols.append([pi])
+            s.g_key.append(gkey)
         else:
             s.g_pols[gi].append(pi)
     return s
@@ -278,8 +290,9 @@ def build_grid_plan(
     policy.
     ``plan_backend="device"`` builds the plan tensors in float32 on
     ``device`` (see the module docstring; ``pool="dedicated"`` only).
-    The reference's cross-call plan cache (ROADMAP A7) and its mesh
-    partition of that cache (A9) are not ported.
+    Without ``availability``, groups found in the cross-call plan cache
+    are reused and only the missing ones are built. The reference's mesh
+    partition of that cache key comes with the mesh (ROADMAP A9).
     """
     if pool not in ("dedicated", "shared"):
         raise ValueError(f"unknown pool mode {pool!r}")
@@ -298,37 +311,78 @@ def build_grid_plan(
 
     s = _grid_structure(policies, r_total, windows)
     arrays = job_arrays(jobs)
+    # Availability queries are opaque host callables: their results have no
+    # fingerprint, so refined plans never enter the cross-call cache, and a
+    # refinement round hashes no jobs.
+    jobs_fp = "" if availability is not None \
+        else _cache.fingerprint_job_arrays(arrays)
+    use_cache = availability is None and _cache.enabled()
     if plan_backend == "device":
         return _build_grid_plan_device(jobs, policies, s, arrays, r_total,
                                        windows, selfowned, availability,
-                                       torch.device(device))
+                                       torch.device(device), jobs_fp,
+                                       use_cache)
+    base = (jobs_fp, float(r_total), windows, selfowned, pool,
+            int(slots_per_unit), "host")
+    cached, miss = _cache_lookup(s, base, use_cache)
+    need_ai = sorted({s.g_akey[gi] for gi in miss})
+    need_w = sorted({s.a_plan[ai] for ai in need_ai})
+    w_pos = {w: i for i, w in enumerate(need_w)}
     params = list(s.key_param.values())
 
     t0 = time.perf_counter()
-    if windows == "even":
+    if not need_w:
+        built: list[PlanBatch] = []
+    elif windows == "even":
         built = build_plans_batch(jobs, windows="even", arrays=arrays)
     else:
-        built = build_plans_batch(jobs, params, windows="dealloc",
-                                  arrays=arrays)
+        built = build_plans_batch(jobs, [params[w] for w in need_w],
+                                  windows="dealloc", arrays=arrays)
     t1 = time.perf_counter()
-    alloc = [_group_alloc(built[s.a_plan[ai]], s.a_beta0[ai], r_total,
-                          selfowned, pool, availability, slots_per_unit)
-             for ai in range(len(s.a_plan))]
+    alloc = {ai: _group_alloc(built[w_pos[s.a_plan[ai]]], s.a_beta0[ai],
+                              r_total, selfowned, pool, availability,
+                              slots_per_unit)
+             for ai in need_ai}
     groups: list[EvalGroup] = []
     for gi in range(len(s.g_bid)):
+        if gi in cached:
+            groups.append(cached[gi])
+            continue
         ai = s.g_akey[gi]
-        plan = built[s.a_plan[ai]]
+        plan = built[w_pos[s.a_plan[ai]]]
         z_t, d_eff, pins, so_work, so_res = _cloud_residuals(plan, alloc[ai])
-        groups.append(EvalGroup(
+        g = EvalGroup(
             plan=plan, policy_idx=np.asarray(s.g_pols[gi]),
             bid=s.g_bid[gi], r_alloc=alloc[ai], z_t=z_t, d_eff=d_eff,
-            pins=pins, selfowned_work=so_work, selfowned_reserved=so_res))
+            pins=pins, selfowned_work=so_work, selfowned_reserved=so_res)
+        groups.append(g)
+        if use_cache:
+            _cache.PLAN_CACHE.put((base, s.g_key[gi]), g)
     t2 = time.perf_counter()
     return GridPlan(jobs=jobs, policies=policies, groups=groups,
                     workload=arrays.z.sum(axis=1), arrival=arrays.arrival,
                     n_jobs=len(jobs), n_policies=len(policies),
                     L=arrays.z.shape[1], plan_seconds=t1 - t0,
-                    pool_seconds=t2 - t1)
+                    pool_seconds=t2 - t1, plan_cached=len(cached),
+                    jobs_fp=jobs_fp, group_keys=list(s.g_key))
+
+
+def _cache_lookup(s: _GridStructure, base: tuple, use_cache: bool):
+    """Consult the cross-call group cache: {group index -> cached group
+    carrying this grid's policy columns} and the list of missing groups,
+    which the callers build (and only those)."""
+    cached: dict[int, EvalGroup] = {}
+    if use_cache:
+        for gi in range(len(s.g_bid)):
+            rec = _cache.PLAN_CACHE.get((base, s.g_key[gi]))
+            if rec is not None:
+                # The cached group keeps ITS exact bid: two bids rounding
+                # to the same 12-decimal key are one group, in-grid and
+                # across calls alike, so the hit is bit for bit.
+                cached[gi] = dataclasses.replace(
+                    rec, policy_idx=np.asarray(s.g_pols[gi]))
+    miss = [gi for gi in range(len(s.g_bid)) if gi not in cached]
+    return cached, miss
 
 
 # --------------------------------------------------------------------------
@@ -401,12 +455,14 @@ def _device_cells(counts_fn, z, delta, mask, sizes, plan_of_akey, b0_of_akey,
 
 def _build_grid_plan_device(jobs, policies, s: _GridStructure, arrays,
                             r_total, windows, selfowned, availability,
-                            dev: torch.device) -> GridPlan:
+                            dev: torch.device, jobs_fp: str,
+                            use_cache: bool) -> GridPlan:
     """The reference's ``_build_grid_plan_device``: the query-free path in
-    one pass (windows -> starts/ends -> counts -> residuals -> group
-    views), or, with availability callables, plans on the device, starts
-    and ends staged to the host once for the queries, their results
-    shipped back once, then the groups on the device."""
+    one pass over the groups the cache misses (windows -> starts/ends ->
+    counts -> residuals -> group views), or, with availability callables,
+    plans on the device, starts and ends staged to the host once for the
+    queries, their results shipped back once, then the groups on the
+    device."""
     # Same validation the host waterfill performs (device code would
     # silently clamp instead of raising).
     if np.any(arrays.omega < -1e-9):
@@ -419,60 +475,88 @@ def _build_grid_plan_device(jobs, policies, s: _GridStructure, arrays,
             bad = xs[(xs <= 0.0) | (xs > 1.0)][0]
             raise ValueError(f"Dealloc parameter must be in (0, 1], got {bad}")
     counts_fn = _selfowned_counts_device(selfowned)
+    staged = availability is not None and r_total > 0
+
+    # The device joins the key: a call never receives another device's
+    # tensors. Staged calls never read or write the cache (use_cache).
+    base = (jobs_fp, float(r_total), windows, selfowned, "device",
+            _cache.device_key(dev))
+    cached, miss = _cache_lookup(s, base, use_cache)
+    need_ai = sorted({s.g_akey[gi] for gi in miss})
+    ai_pos = {ai: i for i, ai in enumerate(need_ai)}
+    need_w = sorted({s.a_plan[ai] for ai in need_ai})
+    w_pos = {w: i for i, w in enumerate(need_w)}
 
     def f32(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
 
     t0 = time.perf_counter()
-    z, delta = f32(arrays.z), f32(arrays.delta)
-    mask = torch.from_numpy(arrays.mask).to(dev)
-    plan_of_akey = torch.as_tensor(s.a_plan, dtype=torch.int64, device=dev)
-    b0 = f32([np.nan if b is None else b for b in s.a_beta0])
-    sizes, starts, ends = _device_plans(
-        windows, f32(arrays.e), delta, mask, f32(arrays.omega),
-        f32(arrays.arrival), f32(xs))
-    if availability is None or r_total <= 0:
-        avail = torch.tensor(float(max(r_total, 0)), dtype=torch.float32,
-                             device=dev)
-        cells = _device_cells(counts_fn, z, delta, mask, sizes, plan_of_akey,
-                              b0, avail)
+    if miss:
+        z, delta = f32(arrays.z), f32(arrays.delta)
+        mask = torch.from_numpy(arrays.mask).to(dev)
+        plan_of_akey = torch.as_tensor([w_pos[s.a_plan[ai]] for ai in need_ai],
+                                       dtype=torch.int64, device=dev)
+        b0 = f32([np.nan if s.a_beta0[ai] is None else s.a_beta0[ai]
+                  for ai in need_ai])
+        # Even windows: xs is the per-job slack share of the one plan.
+        sizes, starts, ends = _device_plans(
+            windows, f32(arrays.e), delta, mask, f32(arrays.omega),
+            f32(arrays.arrival), f32(xs if windows == "even" else xs[need_w]))
+    if not staged:
+        if miss:
+            avail = torch.tensor(float(max(r_total, 0)), dtype=torch.float32,
+                                 device=dev)
+            cells = _device_cells(counts_fn, z, delta, mask, sizes,
+                                  plan_of_akey, b0, avail)
         _sync(dev)
         t1 = t2 = time.perf_counter()
     else:
         _sync(dev)
         t1 = time.perf_counter()
         h_starts, h_ends = starts.cpu().numpy(), ends.cpu().numpy()
+        plan_rows = [w_pos[s.a_plan[ai]] for ai in need_ai]
         if isinstance(availability, (list, tuple)):
             avail = np.stack([[q(h_starts[p], h_ends[p]) for q in availability]
-                              for p in s.a_plan])
+                              for p in plan_rows])
         else:
             avail = np.stack([availability(h_starts[p], h_ends[p])
-                              for p in s.a_plan])
+                              for p in plan_rows])
         cells = _device_cells(counts_fn, z, delta, mask, sizes, plan_of_akey,
                               b0, f32(avail))
         _sync(dev)
         t2 = time.perf_counter()
 
-    nan = np.full(len(jobs), np.nan)
-    plans = [PlanBatch(arrival=arrays.arrival, starts=starts[w], ends=ends[w],
-                       z=arrays.z, delta=arrays.delta, mask=arrays.mask,
-                       bid=nan, beta0=nan)
-             for w in range(starts.shape[0])]
-    r_a, z_t_a, d_eff_a, pins_a, so_w_a, so_r_a = cells
-    # The self-owned stats are read on the host only (the EngineResult
-    # scatter): ship the two small stacks across once here. Everything the
-    # cost kernels read (starts/ends, z_t, d_eff, pins) stays on the device.
-    so_w_a, so_r_a = so_w_a.cpu().numpy(), so_r_a.cpu().numpy()
     groups = []
+    if miss:
+        nan = np.full(len(jobs), np.nan)
+        plans = [PlanBatch(arrival=arrays.arrival, starts=starts[i],
+                           ends=ends[i], z=arrays.z, delta=arrays.delta,
+                           mask=arrays.mask, bid=nan, beta0=nan)
+                 for i in range(len(need_w))]
+        r_a, z_t_a, d_eff_a, pins_a, so_w_a, so_r_a = cells
+        # The self-owned stats are read on the host only (the EngineResult
+        # scatter): ship the two small stacks across once here. Everything
+        # the cost kernels read (starts/ends, z_t, d_eff, pins) stays on the
+        # device.
+        so_w_a, so_r_a = so_w_a.cpu().numpy(), so_r_a.cpu().numpy()
     for gi in range(len(s.g_bid)):
-        ai = s.g_akey[gi]
-        groups.append(EvalGroup(
-            plan=plans[s.a_plan[ai]], policy_idx=np.asarray(s.g_pols[gi]),
-            bid=s.g_bid[gi], r_alloc=r_a[ai], z_t=z_t_a[ai],
-            d_eff=d_eff_a[ai], pins=pins_a[ai], selfowned_work=so_w_a[ai],
-            selfowned_reserved=so_r_a[ai]))
+        if gi in cached:
+            groups.append(cached[gi])
+            continue
+        ai = ai_pos[s.g_akey[gi]]
+        g = EvalGroup(
+            plan=plans[w_pos[s.a_plan[s.g_akey[gi]]]],
+            policy_idx=np.asarray(s.g_pols[gi]), bid=s.g_bid[gi],
+            r_alloc=r_a[ai], z_t=z_t_a[ai], d_eff=d_eff_a[ai],
+            pins=pins_a[ai], selfowned_work=so_w_a[ai],
+            selfowned_reserved=so_r_a[ai])
+        groups.append(g)
+        if use_cache:
+            _cache.PLAN_CACHE.put((base, s.g_key[gi]), g)
     return GridPlan(jobs=jobs, policies=policies, groups=groups,
                     workload=arrays.z.sum(axis=1), arrival=arrays.arrival,
                     n_jobs=len(jobs), n_policies=len(policies),
                     L=arrays.z.shape[1], plan_seconds=t1 - t0,
-                    pool_seconds=t2 - t1, plan_backend="device")
+                    pool_seconds=t2 - t1, plan_backend="device",
+                    plan_cached=len(cached), jobs_fp=jobs_fp,
+                    group_keys=list(s.g_key))

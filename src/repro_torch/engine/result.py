@@ -38,8 +38,15 @@ class EngineResult:
     # wait), "views" (stacked market views on the device), "eval" (cost
     # kernels, device results back on the host), each summed over the
     # scenario chunks; "chunks" the per-chunk split, "overlap" whether
-    # chunk synthesis was double-buffered.
+    # chunk synthesis was double-buffered; "plan_cached" the groups the
+    # cross-call plan cache served.
     timings: dict = dataclasses.field(default_factory=dict)
+    # Delta-evaluation handle: the jobs/scenario fingerprints, resolved
+    # config and per-group dedup signatures this result was computed
+    # under, read by ``evaluate_grid_delta`` to re-score only changed
+    # groups. None when the inputs have no cross-call identity (adaptive
+    # streams, availability queries, reduce="mean").
+    delta_state: dict | None = None
 
     @property
     def n_scenarios(self) -> int:

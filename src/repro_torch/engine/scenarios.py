@@ -29,7 +29,9 @@ Two representations, as in the reference:
 Both are consumed through ``ScenarioSource.chunks``: ``(s0, s1, batch)``
 triples whose ``ScenarioBatch`` builds each bid's stacked (S_chunk,
 n_slots+1) float32 A/C tensors on the device once (keyed on
-``round(bid, 12)`` like the GridPlan dedup).
+``round(bid, 12)`` like the GridPlan dedup). A spec's chunk without
+adaptive periods or offsets also keeps them across calls, in
+``cache.VIEW_CACHE``.
 """
 
 from __future__ import annotations
@@ -51,6 +53,7 @@ from repro_torch.core.market import (
     SpotMarket,
     stacked_view_tensors,
 )
+from repro_torch.engine import cache as _cache
 
 __all__ = ["ScenarioSpec", "ScenarioStream", "ScenarioSource",
            "ScenarioBatch", "MarketListBatch", "SynthBatch", "as_source",
@@ -512,8 +515,24 @@ class ScenarioBatch:
         device."""
         key = _bid_key(bid)
         if key not in self._stacked:
-            self._stacked[key] = self._build_views(bid)
+            # Cross-call reuse: batches whose views are a pure function of
+            # (spec, chunk range, device, bid) publish a cache key and
+            # survive the batch; the others keep the per-batch memo only.
+            ck = self._view_key(bid) if _cache.enabled() else None
+            views = _cache.VIEW_CACHE.get(ck) if ck is not None else None
+            if views is None:
+                views = self._build_views(bid)
+                if ck is not None:
+                    _cache.VIEW_CACHE.put(ck, views)
+            self._stacked[key] = views
         return self._stacked[key]
+
+    def _view_key(self, bid: float):
+        """Cross-call identity of this chunk's per-bid views, or None when
+        they have none (materialized market lists would need a content
+        hash per call; feedback-driven synthesis depends on state outside
+        any key)."""
+        return None
 
     def _build_views(self, bid: float):
         raise NotImplementedError
@@ -646,6 +665,16 @@ class SynthBatch(ScenarioBatch):
                                             periods=self._periods,
                                             offsets=self._offsets)]
         return self._markets
+
+    def _view_key(self, bid: float):
+        if self._periods is not None or self._offsets is not None:
+            # Explicit periods/offsets mean an adaptive adversary planned
+            # this chunk from feedback: no cross-call identity.
+            return None
+        # host=True views are the float64 oracle's rows uploaded as
+        # float32: other bits than the device synthesis's.
+        return (self.spec, self.start, self.stop,
+                _cache.device_key(self.device), self.host, _bid_key(bid))
 
     def _build_views(self, bid: float):
         if self.host:

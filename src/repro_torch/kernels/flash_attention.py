@@ -127,7 +127,7 @@ _SIGNATURES = {
 }
 
 
-@functools.cache
+@functools.lru_cache(maxsize=len(_SIGNATURES))  # one per C entry point
 def _entry(name: str):
     """A C entry point of the library, its ctypes signature set once."""
     fn = getattr(kernel_library("flash_attention"), name)

@@ -75,7 +75,8 @@ def _codes(kinds, K: int) -> list[int]:
     return [KIND_CODES[k] for k in kinds]
 
 
-@functools.cache
+# Bounded: one entry per (learner kinds, card) in use.
+@functools.lru_cache(maxsize=64)
 def _device_codes(codes: tuple, dev: torch.device) -> torch.Tensor:
     """The kind codes on the card, copied once: a copy from pageable host
     memory at each launch would hold the host until the card caught up."""

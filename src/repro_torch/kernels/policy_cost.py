@@ -111,7 +111,7 @@ def h_cum(A: torch.Tensor, slot: float) -> torch.Tensor:
     return torch.arange(A.shape[-1], dtype=_F32, device=A.device) * slot - A
 
 
-@functools.cache
+@functools.lru_cache(maxsize=64)  # bounded: one entry per slot length
 def inverse_slot(slot: float) -> float:
     """1/slot rounded to float32. The reference's programs divide by the
     slot constant, which XLA compiles to a multiply by this reciprocal;
@@ -226,7 +226,7 @@ _SIGNATURES = {
 TASK_LAYOUT_KEYS = ("threads", "blocks_per_sm", "depth", "smem_bytes")
 
 
-@functools.cache
+@functools.lru_cache(maxsize=len(_SIGNATURES))  # one per C entry point
 def _entry(fn_name: str):
     """A C entry point of the library, its ctypes signature set once."""
     fn = getattr(kernel_library("policy_cost"), fn_name)
@@ -240,7 +240,9 @@ def _launch(fn_name: str, args: list, device: torch.device) -> None:
         raise RuntimeError(f"{fn_name}: CUDA error {rc} at launch")
 
 
-@functools.cache
+# Bounded: one entry per horizon (and card) in use; a miss only asks the
+# card again.
+@functools.lru_cache(maxsize=256)
 def task_layout(n_slots: int, device_index: int = 0) -> dict:
     """The task kernel's layout at ``n_slots`` on a card, as the ``.cu``
     sets it: threads per block, the blocks an SM holds, the search tree's
@@ -255,7 +257,7 @@ def task_layout(n_slots: int, device_index: int = 0) -> dict:
     return dict(zip(TASK_LAYOUT_KEYS, out))
 
 
-@functools.cache
+@functools.lru_cache(maxsize=16)  # bounded: one entry per card
 def _sms(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 

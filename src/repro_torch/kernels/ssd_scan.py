@@ -140,7 +140,7 @@ def vector_ok(t: torch.Tensor, width: int) -> bool:
         all(s * es % 16 == 0 for s in t.stride()[:-1])
 
 
-@functools.cache
+@functools.lru_cache(maxsize=1)  # the one C entry point
 def _entry():
     """The kernel's C entry point, its ctypes signature set once."""
     fn = kernel_library("ssd_scan").ssd_scan_launch

@@ -60,6 +60,7 @@ from repro_torch.core.scheduler import selfowned_counts_vec_device  # noqa: E402
 from repro_torch.core.tola import run_tola_scenarios  # noqa: E402
 from repro_torch.engine import (  # noqa: E402
     build_grid_plan,
+    clear_caches,
     evaluate_grid,
     resolve_plan_backend,
 )
@@ -221,6 +222,9 @@ def test_device_plans_match_reference(job_type, path, avail):
     ref32 = ref_evaluate_grid(jobs, pols, markets, 60, backend="jax",
                               plan_backend="device", **kw)
     jobs_t, markets_t, pols_t = port_inputs(jobs, markets, pols)
+    # The check below times a device build: start from an empty
+    # cross-call plan cache, so that the call builds its groups.
+    clear_caches()
     got = evaluate_grid(jobs_t, pols_t, markets_t, 60, device="cpu",
                         plan_backend="device", **kw)
     assert got.timings["plan_device"] > 0.0
@@ -251,6 +255,9 @@ def test_device_plan_never_calls_host_plan_layer(monkeypatch):
         raise AssertionError("host plan layer called on the device path")
 
     got = {}
+    # The device path must really build here, not serve the groups from
+    # the cross-call plan cache.
+    clear_caches()
     with monkeypatch.context() as m:
         m.setattr(plan_mod, "build_plans_batch", boom)
         m.setattr(plan_mod, "_selfowned_counts_vec", boom)
@@ -276,6 +283,9 @@ def test_device_plan_tensors_stay_float32_tensors():
     jobs_t, _, pols_t = port_inputs(
         jobs, ref_make_scenarios(max(j.deadline for j in jobs) + 1, 1),
         selfowned_policies()[::20])
+    # A fresh build (the cross-call plan cache emptied): its seconds are
+    # checked below, and cached groups would be views of earlier stacks.
+    clear_caches()
     gplan = build_grid_plan(jobs_t, pols_t, 40, plan_backend="device",
                             device="cpu")
     assert gplan.device and gplan.plan_backend == "device"
@@ -376,6 +386,8 @@ def test_tola_on_device_plans_matches_reference(grid, r):
     ref = ref_tola.run_tola_scenarios(jobs, pols, markets, r_total=r, seed=0,
                                       pool_iters=1, backend="jax", **kw)
     jobs_t, markets_t, pols_t = port_inputs(jobs, markets, pols)
+    # Round 0's device build is timed below: no cross-call plan cache hit.
+    clear_caches()
     got = run_tola_scenarios(jobs_t, pols_t, markets_t, r_total=r, seed=0,
                              pool_iters=1, plan_backend="device",
                              device="cpu", **kw)
