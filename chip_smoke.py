@@ -12,10 +12,14 @@ Phases, each failing the run with a non-zero exit:
    on the proposed grid and on the Even benchmark, r in {0, 1200}, plus the
    learner comparison over 21 instances: hedge and exp3 each with the
    paper's schedule and 8 constant etas, ucb1, egreedy and ftl) under
-   torch.profiler, with every kernel's launch counter set to 0 just before
-   and read just after; each kernel must have launched (``learner_replay``
-   once per r); the device's busy share is printed with its largest device
-   entries, and the plan backend ``"auto"`` resolves to (``device``: the
+   torch.profiler and the port's launch capture (``repro_torch.obs``), with
+   every kernel's launch counter set to 0 just before and read just after;
+   each kernel must have launched (``learner_replay`` once per r) and the
+   capture must count every launch the counters count; each kernel's
+   CUDA-event time comes from the capture, the device's busy share and its
+   largest device entries from the profiler (a lower bound where the
+   profiler kept fewer launches than the capture counted), and the plan
+   backend ``"auto"`` resolves to (``device``: the
    plan tensors are built on the card) with the device plan build's
    seconds, which must be positive;
 3. each of those kernels against its plain PyTorch version on the card, on
@@ -90,10 +94,12 @@ Phases, each failing the run with a non-zero exit:
    ``exp2_self_owned`` and ``exp3_policy12`` at 1500 jobs (the reference
    benchmarks' default stream; the cut from the paper's ~10000 is
    printed), seed 0, S = 1, job types 1-4, r in {300, 600, 900, 1200} —
-   under torch.profiler, the launch counters set to 0 just before and read
-   just after: the tables, each driver's wall, the engine's phase seconds
-   summed over the 76 sweeps, the Greedy seconds and the device's busy
-   share. It fails unless both cost kernels launched, every alpha and
+   under torch.profiler and the launch capture, the launch counters set to
+   0 just before and read just after: the tables, each driver's wall, the
+   engine's phase seconds summed over the 76 sweeps, the Greedy seconds,
+   the device's busy share (profiler) and the cost kernels' launches and
+   CUDA-event time (capture). It fails unless both cost kernels launched,
+   the capture counted each launch, every alpha and
    benchmark alpha is finite and in (0, p_od], every sweep's best-policy
    alpha lies within 1e-5 of the host's float64 ``run_jobs`` for that
    policy and mode, and the phase's last chain and task launches are
@@ -163,7 +169,26 @@ Phases, each failing the run with a non-zero exit:
    bit with a cache-off full re-evaluation; (d) at the end, the caches'
    counts, the card's peak allocated memory and the process's peak RSS,
    and the plan-cache groups summed over phase 8's sweeps and phase 10's
-   Table 6 runs.
+   Table 6 runs;
+13. observability (``repro_torch.obs``) — (a) phase 12's grid and spec
+   through ``evaluate_grid`` untraced and under
+   ``observe(programs=True)``: the results bit for bit, every timings entry
+   (and each chunk's) equal to its spans' seconds folded left to right,
+   each kernel's captured launches equal to the launch counter; each
+   kernel's captured CUDA-event time per launch printed beside the same
+   launch timed again and phase 3's median; the Chrome trace written to
+   ``build/archive/phase13_trace.json``; (b) ``replay_stream`` on the
+   adaptive family (S = 16, chunks of 8, hedge) under ``observe()``: the
+   escalation counters equal to the stream's own stage history, the plan
+   and view cache counters equal to the caches' own count deltas, one
+   weight-entropy observation per chunk; a re-bid delta's
+   ``engine.delta_groups_rescored`` equal to its timings; (c)
+   tinyllama-1.1b's serve (phase 5's two groups of four requests) captured:
+   44 tensor-core flash launches and one ``serve.requests`` span; (d) the
+   overhead measured directly: spans of (a) times one span's cost under 2 %
+   of (a)'s untraced wall with tracing off, and with tracing and capture
+   on (plus each captured launch times one captured launch's cost) under
+   10 %; (e) no ``nvcc`` build over the phase (``CompileWatch``).
 
 Then one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` name and
 power-limit line, and last ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -176,6 +201,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import functools
+import importlib
 import json
 import math
 import pathlib
@@ -221,12 +247,23 @@ STREAM_MEAN_RTOL = 1e-12
 CACHE_GROUPS = 65
 CACHE_REBID, CACHE_CHAIN_REBID = 10, 6
 CACHE_MAX_RESCORED = 18
-# H100 SXM: device memory rate, float32 rate outside the tensor cores and
-# the dense bfloat16 and TF32 tensor-core rates.
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-BF16_OPS_PER_S = 989e12
-TF32_OPS_PER_S = 495e12
+# Phase 13, observability: phase 12's grid and spec, the adaptive stream's
+# size, the repetitions that time one span and one captured launch, the
+# overhead bars (tests/test_obs.py's 2 % with spans off; bench_obs.py's
+# 1.1x gate with everything on) and where the Chrome trace goes.
+OBS_ADAPTIVE_S = 16
+SPAN_REPS, EVENT_REPS = 20000, 200
+DISABLED_SHARE, ENABLED_SHARE = 0.02, 0.10
+OBS_TRACE = pathlib.Path("build") / "archive" / "phase13_trace.json"
+# The device kernel names torch.profiler shows, one entry per captured
+# launch of each key (the Hedge call's trajectory pass).
+PROFILED_AS = {"policy_cost_chain": ("chain_smem_kernel", "chain_kernel"),
+               "policy_cost_chain_smem": ("chain_smem_kernel",),
+               "policy_cost": ("task_tree_kernel",),
+               "hedge_replay": ("trajectory_kernel",),
+               "learner_replay": ("learner_block_kernel",)}
+# Keys whose launches are a subset of another key's (one event pair each).
+SUBSET_KEYS = ("policy_cost_chain_smem", "flash_attention_tc")
 COST_TOL = 1e-5      # relative to max(1, |plain|)
 TABLE_TOL = 1e-5     # absolute, on alphas and unit costs of Tables 2-5
 TABLE_JOBS = 1500    # jobs per stream of Tables 2-5 (benchmarks/common.py)
@@ -413,13 +450,6 @@ def pass_device_ms(torch, fn, names, reps: int = 5) -> dict:
     return {n: out[n][0] / out[n][1] for n in names if n in out}
 
 
-def bound(n_bytes: float, n_ops: float,
-          ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / ops_per_s * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def kernel_named(key: str, names) -> str | None:
     """The first of ``names`` that the profiler key ``key`` is a kernel of
     (the name followed by its template or argument list)."""
@@ -574,11 +604,11 @@ def smi_clocks() -> dict:
 
 
 def device_breakdown(torch, prof, wall_s: float, top: int = 8,
-                     kernel: tuple[str, tuple[str, ...]] | None = None) -> None:
+                     kernel: tuple[str, tuple[str, ...]] | None = None):
     """Print the device's busy share over ``wall_s`` and its largest
     entries, from a torch.profiler run; with ``kernel`` = (label, names),
     also the device time, launches and busy share of the entries of those
-    kernel names together."""
+    kernel names together. Returns the device entries."""
     rows = sorted(
         (e for e in prof.key_averages()
          if e.device_type == torch.autograd.DeviceType.CUDA
@@ -599,6 +629,36 @@ def device_breakdown(torch, prof, wall_s: float, top: int = 8,
               f"{sum(e.count for e in hits)} launches, "
               f"{k_ms / busy_ms if busy_ms else math.nan:.6f} of the busy "
               "time")
+    return rows
+
+
+def capture_report(rows, reg, launches: dict, keys, smi: str) -> dict:
+    """Each kernel's launches and device time from a launch capture (a CUDA
+    event pair per launch: no record is lost), held against the launch
+    counters, beside the launches torch.profiler kept (``rows``, the
+    device entries ``device_breakdown`` returned); returns the capture's
+    kernel entries."""
+    snap = reg.snapshot()["kernels"]
+    short = []
+    for key in keys:
+        e = snap.get(key, {"launches": 0, "device_ms": 0.0})
+        n = e["launches"]
+        if n != launches.get(key, 0):
+            fail(f"the capture counted {n} {key} launches, the launch "
+                 f"counter {launches.get(key, 0)}")
+        kept = sum(r.count for r in rows
+                   if kernel_named(r.key, PROFILED_AS[key]))
+        per = e["device_ms"] / n if n else math.nan
+        bnd = f", bound {e['bound_ms']:.3f} ms" if "bound_ms" in e else ""
+        print(f"  {key}: {n} launches, {e['device_ms']:.3f} ms of CUDA-event "
+              f"time ({per:.4f} ms per launch{bnd}); torch.profiler kept "
+              f"{kept} [{smi}]")
+        if kept < n:
+            short.append(key)
+    if short:
+        print(f"  torch.profiler kept fewer launches than the capture counted "
+              f"({', '.join(short)}): the busy share above is a lower bound")
+    return snap
 
 
 def task_case(torch, np, n_slots: int, Sp: int, seed: int):
@@ -634,65 +694,6 @@ def device_ops(torch, fn, reps: int = 5) -> dict:
     return out
 
 
-def task_ops(n_slots: int) -> int:
-    """Operations of one active task: two binary searches of
-    ceil(log2(n+2)) comparisons each plus about 60 arithmetic operations
-    (four interpolations, the two inversions, the flexibility test and
-    the cost sums)."""
-    return 2 * math.ceil(math.log2(n_slots + 2)) + 60
-
-
-def attn_pairs(Sq: int, Sk: int, causal: bool, window: int,
-               prefix: int) -> int:
-    """(query, key) pairs the masks leave visible: the products the
-    attention of these inputs needs."""
-    import numpy as np
-    qp, kp = np.arange(Sq)[:, None], np.arange(Sk)[None, :]
-    ok = np.ones((Sq, Sk), bool)
-    if causal:
-        ok &= kp <= qp
-    if window > 0:
-        ok &= ((qp - kp) < window) | (kp < prefix)
-    return int(ok.sum())
-
-
-def ssd_ops(Bb: int, S: int, H: int, P: int, G: int, N: int,
-            Q: int) -> tuple[int, int]:
-    """Operations of the chunked SSD scan on these inputs, two per
-    multiply-add, split by operand: (the products with x: the causal
-    (C B^T .* L .* dt) x and the state update; the others: C B^T on the
-    causal half once per group and C times the entering state, none for the
-    first chunk, whose state is zero)."""
-    x_ops = other_ops = 0
-    for c, t0 in enumerate(range(0, S, Q)):
-        q = min(Q, S - t0)
-        pairs = q * (q + 1) // 2
-        x_ops += 2 * Bb * H * (pairs * P + q * N * P)
-        other_ops += 2 * Bb * (G * pairs * N + (H * q * N * P if c else 0))
-    return x_ops, other_ops
-
-
-def ssd_bounds(n_bytes: float, x_ops: int, other_ops: int,
-               x_bf16: bool) -> dict:
-    """Bounds of the SSD scan, (ms, by), under four rates for its products:
-    "row", the least time at f32 accuracy on the tensor cores, where a
-    product with a bfloat16 x (exact in bf16) splits its f32 operand into
-    three bf16 parts (three products at the dense bf16 rate) and every
-    other product takes three TF32 products; "kernel", the kernel's own
-    scheme (two TF32 products with a bfloat16 x, three elsewhere);
-    "tf32_3", three TF32 products each; "f32", the CUDA cores in f32."""
-    x3 = x_ops * 3 / TF32_OPS_PER_S
-    rest = other_ops * 3 / TF32_OPS_PER_S
-    t_ops = {
-        "row": (x_ops * 3 / BF16_OPS_PER_S if x_bf16 else x3) + rest,
-        "kernel": (x_ops * 2 / TF32_OPS_PER_S if x_bf16 else x3) + rest,
-        "tf32_3": x3 + rest,
-        "f32": (x_ops + other_ops) / F32_OPS_PER_S}
-    t_bytes = n_bytes / HBM_BYTES_PER_S
-    return {k: (t_bytes * 1e3, "bytes") if t_bytes >= t else
-            (t * 1e3, "operations") for k, t in t_ops.items()}
-
-
 def flash_plain_bshd(q, k, v, **kw):
     """The plain version on the models' (B, S, H, dh) layout."""
     from repro_torch.kernels.flash_attention import attention_plain
@@ -715,7 +716,8 @@ def serve_phases(torch, np) -> tuple[dict, dict]:
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import LAUNCHES
-    from repro_torch.kernels import flash_attention as fa
+    # The module (the package attribute of its name is the function).
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
     from repro_torch.kernels import ssd_scan as ss
     from repro_torch.launch.serve import serve_requests
     from repro_torch.models import build
@@ -795,9 +797,11 @@ def lm_kernel_entries(torch, counts, captured) -> list[dict]:
     """Each LM kernel against its plain version on the inputs of its last
     serve launch, timed beside its plain version, its library call and its
     bound."""
-    from repro_torch.kernels import flash_attention as fa
+    # The module (the package attribute of its name is the function).
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
     from repro_torch.kernels import ops
     from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.obs.compiled import work_bound
 
     entries = []
     (q, k, v, _), kw = captured["flash_attention"]
@@ -811,11 +815,8 @@ def lm_kernel_entries(torch, counts, captured) -> list[dict]:
     err_cc, ok_cc = allclose(out_cc, plain, LM_TOL[dtype]["flash"])
     B, Sq, H, dh = q.shape
     Sk = k.shape[1]
-    n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, got))
-    n_ops = 4 * dh * attn_pairs(Sq, Sk, kw["causal"], kw["window"],
-                                kw["prefix"]) * B * H
-    peak = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else F32_OPS_PER_S
-    b_ms, b_by = bound(n_bytes, n_ops, peak)
+    b_ms, b_by = work_bound(fa.flash_work(q, k, v, got, kw["causal"],
+                                          kw["window"], kw["prefix"]))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     lib = (lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)) \
@@ -870,8 +871,9 @@ def lm_kernel_entries(torch, counts, captured) -> list[dict]:
     G, N = Bm.shape[2:]
     n_bytes = sum(t.numel() * t.element_size()
                   for t in (x, dt, A, Bm, Cm, y, st))
-    x_ops, other_ops = ssd_ops(Bb, S, H, P, G, N, min(chunk, S))
-    bounds = ssd_bounds(n_bytes, x_ops, other_ops, x.dtype == torch.bfloat16)
+    x_ops, other_ops = ss.ssd_ops(Bb, S, H, P, G, N, min(chunk, S))
+    bounds = ss.ssd_bounds(n_bytes, x_ops, other_ops,
+                           x.dtype == torch.bfloat16)
     b_ms, b_by = bounds["row"]
     run = lambda: ss.ssd_scan(x, dt, A, Bm, Cm, chunk)  # noqa: E731
     dev_ms = device_ms(torch, run)
@@ -933,7 +935,8 @@ def lm_kernel_sweep(torch) -> None:
     """Both LM kernels against their plain versions at the reference's test
     shapes (window, prefix, ragged, non-causal, grouped), f32 and bf16."""
     from repro_torch.kernels import LAUNCHES
-    from repro_torch.kernels import flash_attention as fa
+    # The module (the package attribute of its name is the function).
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
     from repro_torch.kernels import ssd_scan as ss
     gen = torch.Generator("cuda").manual_seed(1)
     rand = lambda *shape: torch.randn(*shape, device="cuda",  # noqa: E731
@@ -1038,10 +1041,11 @@ def lm_model_check(torch, np) -> None:
                       f"the card and the CPU")
 
 
-def tables_phase(torch, np, n_jobs: int) -> dict:
+def tables_phase(torch, np, n_jobs: int, smi: str) -> dict:
     """Phase 8: paper Tables 2-5 (exp1-exp3) on the card, every check of
     the phase; returns each cost kernel's launches in the phase and its
     last launch's error against its plain version."""
+    from repro_torch.obs import capture
     from repro_torch.core import run_jobs
     from repro_torch.experiments import common
     from repro_torch.experiments import exp1_spot_ondemand as exp1
@@ -1104,7 +1108,8 @@ def tables_phase(torch, np, n_jobs: int) -> dict:
     LAUNCHES.clear()
     t_all = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+                             ProfilerActivity.CUDA]) as prof, \
+            capture() as reg:
         for label, call in (
                 ("exp1", lambda: exp1.run(n_jobs, types, 0, 1, "cuda")),
                 ("exp2", lambda: exp2.run(n_jobs, types, rs, 0, 1, "cuda")),
@@ -1126,19 +1131,14 @@ def tables_phase(torch, np, n_jobs: int) -> dict:
           + " ".join(f"{k}={v:.3f}s" for k, v in engine_s.items())
           + f" over {len(sweeps)} sweeps ({plan_cached[0]} groups from the "
           f"plan cache); greedy={greedy_s[0]:.3f}s; launches {launches}]")
-    names = ("chain_smem_kernel", "chain_kernel", "task_tree_kernel")
-    device_breakdown(torch, prof, t_all, kernel=("cost kernels", names))
+    # The busy share and the copies from torch.profiler; the cost kernels'
+    # launches and device time from the launch capture.
+    rows = device_breakdown(torch, prof, t_all)
+    captured_ms = capture_report(rows, reg, launches, (
+        "policy_cost_chain", "policy_cost_chain_smem", "policy_cost"), smi)
     for name in kernel_fns:
         if launches.get(name, 0) < 1:
             fail(f"kernel {name} was not launched by paper Tables 2-5")
-    seen = sum(e.count for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and kernel_named(e.key, names))
-    n_launched = sum(launches.get(n, 0) for n in kernel_fns)
-    if seen < n_launched:
-        print(f"WARNING: the profiler recorded {seen} of the {n_launched} "
-              "cost-kernel launches: it dropped records, so the busy time "
-              "above is a lower bound")
 
     # Every alpha of the tables is some sweep's best alpha (Greedy's only
     # through rho_vs_greedy).
@@ -1209,6 +1209,7 @@ def tables_phase(torch, np, n_jobs: int) -> dict:
             fail(f"{name}'s last launch of Tables 2-5 is not bit-equal to "
                  "its plain version")
     return {"launches": launches, "max_abs_err": errs,
+            "device_ms": {k: e["device_ms"] for k, e in captured_ms.items()},
             "knife_edges": n_off, "cells": n_cells, "gap_max": gap_max,
             "plan_cached": plan_cached[0], "sweeps": len(sweeps)}
 
@@ -1403,6 +1404,7 @@ def learner_checks(torch, np, learner_fn, calls, comparison, launches,
     from repro_torch.device import _library_path, _nvcc
     from repro_torch.kernels import learner_replay as lk
     from repro_torch.learn.replay import _replay_numpy_one, build_events
+    from repro_torch.obs.compiled import work_bound
 
     def plain_run(a, k):
         torch.cuda.synchronize()
@@ -1501,14 +1503,10 @@ def learner_checks(torch, np, learner_fn, calls, comparison, launches,
         fail("a planted fault in the learner trace passes the checks")
     del got, ref
 
-    # Times and the bound: each input read once, each output written once;
-    # operations per (instance, job) as the kernel does them: exp3 14 P
-    # (max, difference, exp, sum, quotient, product, sum of the
-    # distribution; the cdf's sums, quotients and comparisons; the expected
-    # cost's products and sums; the update's max and shift), ucb1 12 P,
-    # egreedy 10 P, ftl 7 P.
+    # Times and the bound (``learner_replay.learner_work``: each input read
+    # once, each output written once, ``OPS_PER_JOB`` per instance, job and
+    # policy).
     names = ("learner_block_kernel",)
-    per_job = {"exp3": 14, "ucb1": 12, "egreedy": 10, "ftl": 7}
     for sh, (a_, k_) in zip(shapes, calls):
         run = lambda: learner_fn(*a_, **k_)  # noqa: E731
         sh["ms"] = cuda_ms(torch, run)
@@ -1527,10 +1525,7 @@ def learner_checks(torch, np, learner_fn, calls, comparison, launches,
               f"device {sh['device_ms']:.4f}, the kernel alone "
               f"{sh['kernel_device_ms']}; one instance of each kind: "
               + ", ".join(f"{x} {v:.4f}" for x, v in one.items()))
-    n_bytes = 4 * (S * J * P + 2 * K * J + S * J + 4 * J + K
-                   + 3 * S * K * J + 4 * S * K * P)
-    n_ops = S * J * P * sum(per_job[kind] for kind in kinds)
-    b_ms, b_by = bound(n_bytes, n_ops)
+    b_ms, b_by = work_bound(lk.learner_work(kinds, S, J, P))
     nj = lk.lanes(P)
     # The update warp's exp3 step in the SASS: the loop-carried chain
     # through the REDUX of its max, at the probe's latencies, J times at
@@ -2309,6 +2304,299 @@ def cache_phase(torch, np, jobs) -> dict:
     return phase_launches
 
 
+def fold(xs) -> float:
+    """Left-to-right float sum (the tracer's totals fold the same way;
+    Python 3.12's ``sum()`` of floats is compensated and may differ)."""
+    total = 0.0
+    for x in xs:
+        total += x
+    return total
+
+
+def per_op_seconds(fn, reps: int) -> float:
+    """Host seconds per call of ``fn`` over ``reps`` calls."""
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t) / reps
+
+
+def obs_phase(torch, np, jobs, smi: str, phase3: dict) -> dict:
+    """Phase 13: the observability layer on the card. (a) The proposed
+    r = 1200 round-0 grid on phase 12's spec, untraced and under
+    ``observe(programs=True)``: bit for bit, timings equal to the spans,
+    captured launches equal to the launch counters, the Chrome trace
+    written; (b) ``replay_stream`` on the adaptive family and one re-bid
+    delta under ``observe()``: the escalation, cache and delta counters
+    against the stream's stage history, ``cache_info()`` and the delta's
+    timings; (c) tinyllama-1.1b's serve captured; (d) the overhead of spans
+    and capture, measured directly; (e) no kernel built. Returns the
+    captured device ms and launches by kernel."""
+    import collections
+
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.core import selfowned_policies
+    from repro_torch.engine import (
+        ScenarioSpec, ScenarioStream, cache, evaluate_grid,
+        evaluate_grid_delta)
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels import policy_cost as pc
+    from repro_torch.launch.serve import serve_requests
+    from repro_torch.learn import replay_stream
+
+    watch = obs.compiled.CompileWatch()
+    watch.__enter__()
+    horizon = max(j.deadline for j in jobs) + 1.0
+    spec = ScenarioSpec("fresh", horizon, STREAM_S["eval"], seed=STREAM_SEED)
+    K = STREAM_CHUNK
+    grid = selfowned_policies()
+    fields = ("unit_cost", "spot_cost", "ondemand_cost", "selfowned_work",
+              "spot_work", "ondemand_work", "selfowned_reserved")
+    chain_fn, last_chain = pc.policy_cost_chain, []
+
+    def chain_recorded(*a, **k):
+        last_chain[:] = [(a, k)]
+        return chain_fn(*a, **k)
+
+    def grid_run():
+        LAUNCHES.clear()
+        t = time.perf_counter()
+        res = evaluate_grid(jobs, grid, spec, 1200, scenario_chunk=K,
+                            device="cuda")
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t, dict(LAUNCHES)
+
+    # (a) untraced and traced, from warm caches (a first untimed run warms
+    # them whatever phase 12 left).
+    t0 = time.perf_counter()
+    grid_run()
+    base, wall_u, launches_u = grid_run()
+    pc.policy_cost_chain = chain_recorded
+    try:
+        with obs.observe(programs=True) as o:
+            traced, wall_t, launches_t = grid_run()
+    finally:
+        pc.policy_cost_chain = chain_fn
+    again, wall_u2, _ = grid_run()
+    tr, snap = o.tracer, traced.obs["compiled"]["kernels"]
+    ok = all(np.array_equal(getattr(base, f), getattr(traced, f))
+             for f in fields) and all(
+        np.array_equal(getattr(base, f), getattr(again, f)) for f in fields)
+    print(f"(a) proposed r = 1200 grid, S = {spec.n_scenarios} in chunks of "
+          f"{K}: untraced {wall_u:.3f}s, traced {wall_t:.3f}s, untraced "
+          f"again {wall_u2:.3f}s (walls for information) [{smi}]; traced "
+          f"and untraced results {'bit for bit' if ok else 'DIFFERENT'}")
+    if not ok:
+        fail("phase 13 (a): the traced result differs from the untraced one")
+    totals, bad = tr.totals(), []
+    for key in ("plan", "pool", "synth", "views", "eval"):
+        spans = [r.seconds for r in tr.named(key)]
+        if not (traced.timings[key] == fold(spans) == totals.get(key, 0.0)):
+            bad.append((key, traced.timings[key], fold(spans)))
+    chunks = tr.named("chunk")
+    if len(chunks) != len(traced.timings["chunks"]):
+        bad.append(("chunks", len(chunks), len(traced.timings["chunks"])))
+    for entry, c in zip(traced.timings["chunks"], chunks):
+        kids = tr.children(c.id)
+        for key in ("synth", "views", "eval"):
+            if entry[key] != fold(r.seconds for r in kids if r.name == key):
+                bad.append((f"chunk {c.attrs['index']} {key}", entry[key]))
+    print(f"(a) {len(tr)} spans; timings plan {traced.timings['plan']!r}, "
+          f"pool {traced.timings['pool']!r}, synth "
+          f"{traced.timings['synth']!r}, views {traced.timings['views']!r}, "
+          f"eval {traced.timings['eval']!r}: "
+          f"{'each equal to its spans bit for bit' if not bad else bad}")
+    if bad:
+        fail(f"phase 13 (a): timings differ from their spans: {bad}")
+    keys = sorted(set(snap) | set(launches_t))
+    mismatch = {k: (snap.get(k, {}).get("launches", 0), launches_t.get(k, 0))
+                for k in keys
+                if snap.get(k, {}).get("launches", 0) != launches_t.get(k, 0)}
+    if mismatch or launches_t != launches_u or not launches_t:
+        fail(f"phase 13 (a): captured launches vs the launch counter "
+             f"{mismatch}; untraced {launches_u}, traced {launches_t}")
+    for key in keys:
+        e = snap[key]
+        print(f"(a) {key}: {e['launches']} launches captured (= the launch "
+              f"counter), {e['device_ms']:.3f} ms of CUDA-event time, "
+              f"{e['device_ms'] / e['launches']:.4f} ms per launch, bound "
+              f"{e['bound_ms']:.4f} ms ({e['bound_by']}) [{smi}]")
+    # The last chain launch's inputs again: a call (CUDA events around the
+    # wrapper, median of 5) and the kernel alone (torch.profiler).
+    (a_, k_), = last_chain
+    B_, S_, n1_ = a_[0].shape
+    run = lambda: chain_fn(*a_, **k_)  # noqa: E731
+    same_ms = cuda_ms(torch, run)
+    alone = pass_device_ms(torch, run, ("chain_smem_kernel",)).get(
+        "chain_smem_kernel", math.nan)
+    per = snap["policy_cost_chain"]["device_ms"] \
+        / snap["policy_cost_chain"]["launches"]
+    p3 = phase3.get("policy_cost_chain", {})
+    print(f"(a) policy_cost_chain: captured {per:.4f} ms per launch; the "
+          f"last launch's inputs ({B_} bids x {S_} scenarios) again: "
+          f"{same_ms:.4f} ms per call, the kernel alone {alone:.4f} ms; "
+          f"phase 3 at the main path's last launch: "
+          f"{p3.get('ms', math.nan):.4f} ms per call, the kernel alone "
+          f"{p3.get('kernel_device_ms') or math.nan:.4f} ms [{smi}]")
+    path = pathlib.Path(__file__).resolve().parent / OBS_TRACE
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tr.save(path)
+    print(f"(a) Chrome trace of the traced run: {OBS_TRACE} "
+          f"({path.stat().st_size} bytes, {len(tr)} spans)")
+    n_spans = len(tr)
+    n_events = sum(e["launches"] for k, e in snap.items()
+                   if k not in SUBSET_KEYS)
+    print(f"[obs (a): {time.perf_counter() - t0:.3f}s]")
+
+    # (b) the adaptive stream, its counters against its own stage history
+    # and the caches' counts; then one re-bid delta.
+    t0 = time.perf_counter()
+    stream = ScenarioStream(ScenarioSpec("adaptive", horizon, OBS_ADAPTIVE_S,
+                                         seed=STREAM_SEED))
+    stages, plan_chunk = [], stream._plan_chunk
+
+    def staged(idx):
+        stages.append(stream.stage)
+        return plan_chunk(idx)
+    stream._plan_chunk = staged
+    info0 = {c: (c.cache_info(), c.evictions)
+             for c in (cache.PLAN_CACHE, cache.VIEW_CACHE)}
+    obs.METRICS.reset()        # counters from this block alone
+    with obs.observe() as o:
+        out = replay_stream(jobs, grid, stream, 1200, learners=["hedge"],
+                            seed=0, scenario_chunk=K, device="cuda")
+    m = out.obs["metrics"]
+
+    def series(name, label):
+        return {s["labels"][label]: s["value"]
+                for s in m.get(name, {"series": []})["series"]}
+    want_chunks = dict(collections.Counter(stages))
+    want_esc = dict(collections.Counter(
+        b for a, b in zip(stages, stages[1:]) if a != b))
+    got_chunks = series("scenarios.adaptive_chunks", "stage")
+    got_esc = series("scenarios.adaptive_escalations", "to")
+    print(f"(b) adaptive stream, S = {OBS_ADAPTIVE_S} in chunks of {K}: "
+          f"stages {stages}; adaptive_chunks {got_chunks} (history "
+          f"{want_chunks}), adaptive_escalations {got_esc} (history "
+          f"{want_esc})")
+    if got_chunks != want_chunks or got_esc != want_esc or not want_esc:
+        fail("phase 13 (b): the adaptive counters leave the stream's stage "
+             "history (or the stream never escalated)")
+    cache_ok = []
+    for c, metric in ((cache.PLAN_CACHE, "engine.plan_cache"),
+                      (cache.VIEW_CACHE, "engine.view_cache")):
+        (ci0, ev0), ci1 = info0[c], c.cache_info()
+        got = series(metric, "event")
+        want = {"evict": c.evictions - ev0}
+        if metric == "engine.plan_cache":   # the view cache emits evictions
+            want.update(hit=ci1.hits - ci0.hits, miss=ci1.misses - ci0.misses)
+        want = {k: v for k, v in want.items() if v}
+        cache_ok.append(got == want)
+        print(f"(b) {metric}: counters {got}, cache_info() deltas {want}")
+    if not all(cache_ok):
+        fail("phase 13 (b): the cache counters leave the caches' own counts")
+    ent = {k: s for k, s in ((s["labels"]["learner"], s) for s in
+                             m["learn.weight_entropy"]["series"])}
+    top = series("learn.top_weight", "learner")
+    print(f"(b) learn.weight_entropy {({k: (s['count'], s['sum']) for k, s in ent.items()})}, "
+          f"learn.top_weight {top}")
+    if any(s["count"] != out.n_chunks for s in ent.values()) or not top:
+        fail("phase 13 (b): not one weight-entropy observation per chunk")
+    obs.METRICS.reset()
+    with obs.observe() as o:
+        delta = evaluate_grid_delta(base, jobs, rebid(grid, CACHE_REBID),
+                                    spec, 1200, scenario_chunk=K)
+    d_series = delta.obs["metrics"]["engine.delta_groups_rescored"]["series"]
+    n_re = delta.timings["delta_groups_rescored"]
+    print(f"(b) re-bid delta: engine.delta_groups_rescored "
+          f"{d_series[0]['value']}, timings {n_re}")
+    if [s["value"] for s in d_series] != [n_re] or not n_re:
+        fail("phase 13 (b): the delta counter leaves its timings")
+    del delta, out
+    print(f"[obs (b): {time.perf_counter() - t0:.3f}s]")
+
+    # (c) tinyllama-1.1b's serve (phase 5's requests: two groups of four),
+    # captured.
+    t0 = time.perf_counter()
+    arch = "tinyllama_1_1b"
+    cfg = get_config(arch)
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab, (SERVE_REQUESTS, SERVE_PROMPT), dtype=np.int32)
+    expected = next(n for a, _, n, _ in SERVE if a == arch)
+    with obs.observe(programs=True) as o:
+        _, stats = serve_requests(cfg, prompts, SERVE_BATCH, SERVE_NEW,
+                                  seed=0, device="cuda")
+        serve_snap = o.compiled.snapshot()["kernels"]
+    serve_spans = o.tracer.named("serve.requests")
+    tc = serve_snap.get("flash_attention_tc", {"launches": 0})
+    fl = serve_snap.get("flash_attention", {"launches": 0, "device_ms": 0})
+    p6 = phase3.get("flash_attention", {})
+    print(f"(c) serve {cfg.name}: {tc['launches']} flash_attention_tc "
+          f"launches captured of {fl['launches']} flash_attention, "
+          f"{fl['device_ms']:.3f} ms of CUDA-event time "
+          f"({fl['device_ms'] / max(fl['launches'], 1):.4f} ms per launch; "
+          f"phase 6's median {p6.get('ms', math.nan):.4f} ms per call, "
+          f"device {p6.get('device_ms', math.nan):.4f}); serve.requests "
+          f"spans {len(serve_spans)}, serve loop {stats['wall_s']:.3f}s "
+          f"[{smi}]")
+    if tc["launches"] != expected or fl["launches"] != expected \
+            or len(serve_spans) != 1 \
+            or serve_spans[0].seconds != stats["wall_s"]:
+        fail(f"phase 13 (c): expected {expected} tensor-core launches and "
+             f"one serve.requests span whose seconds are the serve's wall")
+    torch.cuda.empty_cache()
+    print(f"[obs (c): {time.perf_counter() - t0:.3f}s]")
+
+    # (d) overhead, measured directly: spans opened by (a)'s traced run
+    # times one span's cost with tracing off (and on), plus its captured
+    # launches times one captured launch's cost (the chain's work count,
+    # its event pair and the snapshot that waits for it).
+    t0 = time.perf_counter()
+
+    def one_span():
+        with obs.span("x", a=1, b=2):
+            pass
+    off_s = per_op_seconds(one_span, SPAN_REPS)
+    with obs.tracing():
+        on_s = per_op_seconds(one_span, SPAN_REPS)
+    zz = a_[4] if a_[4].dim() == 4 else a_[4][:, None]
+    pp = a_[6] if a_[6].dim() == 4 else a_[6][:, None]
+    R_, L_ = a_[3].shape[-2:]
+    stream_ = torch.cuda.current_stream()
+
+    def work():
+        return pc.chain_work(B_, S_, zz.shape[1], R_, L_, n1_ - 1, zz, pp)
+    with obs.capture() as reg:
+        t = time.perf_counter()
+        for _ in range(EVENT_REPS):
+            with obs.record_launch("policy_cost_chain", stream_, work):
+                pass
+        reg.snapshot()
+        event_s = (time.perf_counter() - t) / EVENT_REPS
+    off_share = n_spans * off_s / wall_u
+    on_share = (n_spans * on_s + n_events * event_s) / wall_u
+    print(f"(d) {n_spans} spans x {off_s * 1e6:.3f} us with tracing off = "
+          f"{off_share:.6f} of the untraced wall {wall_u:.3f}s (bar "
+          f"{DISABLED_SHARE}); {n_spans} x {on_s * 1e6:.3f} us traced + "
+          f"{n_events} captured launches x {event_s * 1e6:.3f} us = "
+          f"{on_share:.6f} (bar {ENABLED_SHARE}); walls traced "
+          f"{wall_t:.3f}s, untraced {wall_u:.3f}s and {wall_u2:.3f}s "
+          f"(for information) [{smi}]")
+    if not (off_share < DISABLED_SHARE and on_share < ENABLED_SHARE):
+        fail("phase 13 (d): the observability overhead passes its bar")
+    print(f"[obs (d): {time.perf_counter() - t0:.3f}s]")
+
+    # (e) nothing was built.
+    watch.__exit__(None, None, None)
+    print(f"(e) nvcc builds over the phase: {watch.compiles}")
+    if watch.compiles:
+        fail(f"phase 13 (e): {watch.compiles} kernel build(s) on a warm path")
+    return {"grid": {k: e for k, e in snap.items()},
+            "serve": serve_snap, "disabled_share": off_share,
+            "enabled_share": on_share}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--jobs", type=int, default=10000,
@@ -2338,6 +2626,8 @@ def main() -> int:
     from repro_torch.kernels import learner_replay as lk
     from repro_torch.kernels import weight_update as wu
     from repro_torch.learn import LearnerSpec, Schedule
+    from repro_torch.obs import capture
+    from repro_torch.obs.compiled import work_bound
 
     t_all = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -2443,13 +2733,15 @@ def main() -> int:
     if args.jobs != 10000:
         print(f"CUT: Table 6 stream cut from 10000 to {args.jobs} jobs")
     # The main path runs under torch.profiler (CPU ops + CUDA activity) for
-    # the device's busy share; a few hundred device events, so the tracing
-    # cost is small against the host work.
+    # the device's busy share and copies, and under the port's launch
+    # capture for each kernel's launches and device time (the profiler may
+    # drop records of a long trace; the capture's event pairs do not).
     from torch.profiler import ProfilerActivity, profile
     LAUNCHES.clear()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+                             ProfilerActivity.CUDA]) as prof, \
+            capture() as main_reg:
         res = table6.run(args.jobs, [0, 1200], seed=0, scenarios=2,
                          learners=LEARNERS, eta_grid=ETA_GRID, device="cuda")
         torch.cuda.synchronize()
@@ -2457,7 +2749,12 @@ def main() -> int:
     launches = dict(LAUNCHES)
     table6.print_tables(res)
     print(f"[phase main path: {t_main:.3f}s; launches {launches}]")
-    device_breakdown(torch, prof, t_main)
+    rows = device_breakdown(torch, prof, t_main)
+    main_ms = {k: e["device_ms"] for k, e in capture_report(
+        rows, main_reg, launches, ("policy_cost_chain",
+                                   "policy_cost_chain_smem", "policy_cost",
+                                   "hedge_replay", "learner_replay"),
+        smi).items()}
     plan_auto = resolve_plan_backend("auto", dev)
     plan_s = {(r, leg): res[r]["timings"][leg]["plan_device"]
               for r in (0, 1200) for leg in ("proposed", "benchmark")}
@@ -2523,10 +2820,7 @@ def main() -> int:
     zz = z if z.dim() == 4 else z[:, None]
     Sp = zz.shape[1]
     pp = pins if pins.dim() == 4 else pins[:, None]
-    active = int(((zz > 0) | (pp > 0.5)).sum()) * (S // Sp)
-    b_ms, b_by = bound(4 * (2 * B * S * n1 + B * R + B * R * L
-                            + 3 * B * Sp * R * L + 4 * B * S * R),
-                       active * task_ops(n1 - 1))
+    b_ms, b_by = work_bound(pc.chain_work(B, S, Sp, R, L, n1 - 1, zz, pp))
     run = lambda: chain_fn(*a, **k)  # noqa: E731
     run_g = lambda: pc._chain_global_route(*a, **k)  # noqa: E731
     names = ("chain_smem_kernel", "chain_kernel")
@@ -2600,9 +2894,7 @@ def main() -> int:
     S, n1 = A.shape
     T = start.shape[0]
     Sp = z.shape[0] if z.dim() == 2 else 1
-    active = int((z > 0).sum()) * (S // Sp)
-    b_ms, b_by = bound(4 * (2 * S * n1 + 2 * T + 2 * Sp * T + 5 * S * T),
-                       active * task_ops(n1 - 1))
+    b_ms, b_by = work_bound(pc.task_work(S, Sp, T, n1 - 1, z))
     run = lambda: task_fn(*a, **k)  # noqa: E731
     layout = pc.task_layout(n1 - 1)
     blocks = pc.task_plan(S, T, layout["threads"], layout["blocks_per_sm"],
@@ -2690,8 +2982,7 @@ def main() -> int:
                                      n_done[:n].clamp_max(n))["logw"])
                   for n in rows}
     del ref
-    b_ms, b_by = bound(4 * (S * J * P + K * J + S * J + J + 3 * S * K * J
-                            + S * K * P), 12 * S * K * J * P)
+    b_ms, b_by = work_bound(wu.hedge_work(S, K, J, P))
     run = lambda: hedge_fn(*a, **k)  # noqa: E731
     dev_ms = device_ms(torch, run)
     passes = pass_device_ms(torch, run, HEDGE_PASSES)
@@ -2772,6 +3063,8 @@ def main() -> int:
     kernels.append(learner_checks(
         torch, np, learner_fn, every["learner_replay"], compare[-1],
         launches, regs_of, (lat, clocks)))
+    for k in kernels:       # the main path's CUDA-event time, all launches
+        k["main_path_device_ms"] = main_ms.get(k["name"])
 
     # -- 4. small input against the float64 host references -----------------
     jobs = generate_chain_jobs(60, 2, seed=3)
@@ -2837,11 +3130,12 @@ def main() -> int:
 
     # -- 8. paper Tables 2-5 on the card ------------------------------------
     t0 = time.perf_counter()
-    tables = tables_phase(torch, np, TABLE_JOBS)
+    tables = tables_phase(torch, np, TABLE_JOBS, smi)
     for k in kernels:
         if k["name"] in tables["max_abs_err"]:
             k["tables_launches"] = tables["launches"][k["name"]]
             k["tables_max_abs_err"] = tables["max_abs_err"][k["name"]]
+            k["tables_device_ms"] = tables["device_ms"][k["name"]]
     print(f"[phase tables with checks: {time.perf_counter() - t0:.3f}s]")
 
     # -- 9. the fleet orchestrator -------------------------------------------
@@ -2882,6 +3176,18 @@ def main() -> int:
     print(f"groups from the plan cache: {tables['plan_cached']} over phase "
           f"8's {tables['sweeps']} sweeps, {table6_cached} over phase 10's "
           f"Table 6 runs")
+
+    # -- 13. observability ---------------------------------------------------
+    t0 = time.perf_counter()
+    observed = obs_phase(torch, np, table6_jobs, smi,
+                         {k["name"]: k for k in kernels})
+    for k in kernels:
+        e = observed["grid"].get(k["name"]) or observed["serve"].get(
+            k["name"])
+        if e:
+            k["obs_launches"], k["obs_device_ms"] = e["launches"], \
+                e["device_ms"]
+    print(f"[phase observability: {time.perf_counter() - t0:.3f}s]")
 
     for k in kernels:    # the same two numbers under their other names
         k["max_abs_diff"], k["kernel_ms"] = k["max_abs_err"], k["ms"]

@@ -24,9 +24,12 @@ from repro_torch.core.pool import LazySegmentTree, SelfOwnedPool
 from repro_torch.core.scheduler import (
     Policy,
     StreamCosts,
+    build_plans_batch,
     evaluate_policy_fullpool,
+    job_arrays,
     run_jobs,
 )
+from repro_torch.core.simulate import simulate_tasks
 from repro_torch.core.tola import (
     TolaResult,
     cost_matrix,
@@ -43,16 +46,18 @@ from repro_torch.core.types import (
     TaskCost,
     chain_from_arrays,
 )
-from repro_torch.core.workload import generate_chain_jobs
+from repro_torch.core.workload import generate_chain_jobs, generate_dag_jobs
 
 __all__ = [
     "Allocation", "ChainJob", "DAGJob", "Task", "TaskCost", "JobCost",
     "chain_from_arrays", "SpotMarket", "SelfOwnedPool", "LazySegmentTree",
-    "transform", "chain_of", "Policy", "StreamCosts", "dealloc", "window_sizes", "window_sizes_batch",
+    "transform", "chain_of", "Policy", "StreamCosts", "build_plans_batch",
+    "job_arrays", "simulate_tasks", "dealloc", "window_sizes",
+    "window_sizes_batch",
     "expected_spot_work", "f_selfowned", "selfowned_allocation",
     "spot_ondemand_split", "run_jobs", "evaluate_policy_fullpool",
     "TolaResult", "cost_matrix", "run_tola", "run_tola_scenarios",
-    "generate_chain_jobs", "spot_od_policies", "selfowned_policies",
+    "generate_chain_jobs", "generate_dag_jobs", "spot_od_policies", "selfowned_policies",
     "benchmark_bid_policies", "run_greedy", "run_even", "sweep_policies",
     "C1_BETA0", "C2_BETA", "B_BIDS",
 ]

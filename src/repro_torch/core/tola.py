@@ -21,7 +21,6 @@ counterfactually and the weights are re-scaled with
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import numpy as np
 
@@ -36,7 +35,8 @@ from repro_torch.core.scheduler import (
 )
 from repro_torch.core.types import ChainJob
 from repro_torch.learn.learners import as_spec
-from repro_torch.learn.replay import replay as learn_replay
+from repro_torch.learn.replay import _replay_timed
+from repro_torch.obs import span
 
 __all__ = ["TolaResult", "cost_matrix", "run_tola", "run_tola_scenarios"]
 
@@ -124,19 +124,19 @@ def _tola_round(jobs, policies, C, arrivals, d, Z, spec, rng, market,
     float64), run the sampled policies against the shared pool, return the
     realized residual-availability query for the next refinement."""
     timings = {} if timings is None else timings
-    t0 = time.perf_counter()
-    lr = learn_replay(C, arrivals, d, workload=Z, learners=[spec],
-                      rng=rng, backend="numpy")
+    lr, replay_t = _replay_timed(C, arrivals, d, workload=Z, learners=[spec],
+                                 rng=rng, backend="numpy")
     chosen = lr.chosen[0, 0]
-    t1 = time.perf_counter()
-    plan = build_plans(jobs, [policies[c] for c in chosen], r_total, windows)
-    r_alloc, pool = _allocate_pool(plan, r_total, selfowned,
-                                   market.slots_per_unit)
-    realized = _simulate_plan(plan, r_alloc, market, early_start)
-    availability = None if pool is None else \
-        _residual_availability(pool, r_total, market.slot)
-    _add(timings, "replay", t1 - t0)
-    _add(timings, "realize", time.perf_counter() - t1)
+    with span("realize", r_total=r_total) as sp:
+        plan = build_plans(jobs, [policies[c] for c in chosen], r_total,
+                           windows)
+        r_alloc, pool = _allocate_pool(plan, r_total, selfowned,
+                                       market.slots_per_unit)
+        realized = _simulate_plan(plan, r_alloc, market, early_start)
+        availability = None if pool is None else \
+            _residual_availability(pool, r_total, market.slot)
+    _add(timings, "replay", replay_t)
+    _add(timings, "realize", sp.seconds)
     return lr, chosen, realized, availability
 
 

@@ -9,7 +9,8 @@ The kernels are CUDA C++ sources with a plain C interface under
 ``kernels/csrc/``. Each source is compiled by ``nvcc`` into its own shared
 library under ``<checkout>/build/torch_kernels/`` (named by the source's
 content hash, so an edited source is rebuilt) and loaded with ``ctypes``.
-``build_kernels`` starts one ``nvcc`` per source, all at once.
+``build_kernels`` starts one ``nvcc`` per source, all at once, and reports
+each to ``obs.compiled.CompileWatch``.
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ import shutil
 import subprocess
 
 import torch
+
+from repro_torch.obs.compiled import CompileWatch
 
 __all__ = ["resolve_device", "build_kernels", "kernel_library",
            "KERNEL_SOURCES", "BUILD_DIR"]
@@ -83,6 +86,7 @@ def build_kernels(names=KERNEL_SOURCES) -> dict[str, str]:
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
+        CompileWatch.note_build()
     logs, failed = {}, []
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()

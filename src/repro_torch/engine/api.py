@@ -20,7 +20,6 @@ adaptive adversary's feedback happens between chunks).
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Callable, Iterator, Sequence
 
 import numpy as np
@@ -36,6 +35,7 @@ from repro_torch.engine.plan import _PLAN_BACKENDS, build_grid_plan
 from repro_torch.engine.result import EngineResult
 from repro_torch.engine.scenarios import as_source
 from repro_torch.kernels.policy_cost import OUT_KEYS
+from repro_torch.obs import METRICS, maybe_snapshot, span
 
 __all__ = ["evaluate_grid", "evaluate_grid_chunks", "GridChunk",
            "resolve_plan_backend"]
@@ -139,17 +139,35 @@ def _prefetched(stream):
         yield prev
 
 
-def _run_chunk(gplan, batch, early_start, out) -> tuple[float, float, float]:
-    """Prepare a chunk, build its views and fill ``out``; returns the
-    (synth, views, eval) seconds."""
-    t0 = time.perf_counter()
-    batch.prepare()
-    t1 = time.perf_counter()
-    for bid in gplan.bids:
-        batch.stacked(bid)
-    t2 = time.perf_counter()
-    backend.run(gplan, batch, early_start, out)
-    return t1 - t0, t2 - t1, time.perf_counter() - t2
+def _run_chunk(ci, s0, s1, gplan, batch, early_start, out, overlap, dev):
+    """Prepare a chunk, build its views and fill ``out`` under the span
+    tree chunk -> {synth, views x bids, eval}; returns the synth seconds,
+    the views spans' seconds (bid order) and the eval seconds."""
+    with span("chunk", index=ci, s0=s0, s1=s1, backend=dev):
+        with span("synth", s0=s0, s1=s1, overlap=overlap) as sp_s:
+            batch.prepare()
+        views = batch.build_views(gplan.bids)
+        with span("eval", s0=s0, s1=s1, backend=dev) as sp_e:
+            backend.run(gplan, batch, early_start, out)
+    return sp_s.seconds, views, sp_e.seconds
+
+
+def _fold(seconds) -> float:
+    """Left-to-right float sum in completion order: the order the tracer's
+    totals fold the same spans in (``sum()`` of floats is compensated on
+    Python 3.12 and would leave them)."""
+    total = 0.0
+    for t in seconds:
+        total += t
+    return total
+
+
+def _chunk_metrics(dev, synth_t, views_t, eval_t) -> None:
+    if METRICS.enabled:
+        h = METRICS.histogram("engine.chunk_seconds")
+        h.observe(synth_t, phase="synth", backend=dev)
+        h.observe(views_t, phase="views", backend=dev)
+        h.observe(eval_t, phase="eval", backend=dev)
 
 
 @dataclasses.dataclass
@@ -204,9 +222,10 @@ def evaluate_grid_chunks(
     ``next()`` — a bad ``scenario_chunk`` fails here, at the call site.
     """
     dev = resolve_device(device)
-    source, gplan, chunk, _, overlap = _prepare_stream(
-        jobs, policies, scenarios, r_total, windows, selfowned, pool,
-        availability, plan_backend, scenario_chunk, overlap, dev)
+    with span("prepare_stream"):
+        source, gplan, chunk, _, overlap = _prepare_stream(
+            jobs, policies, scenarios, r_total, windows, selfowned, pool,
+            availability, plan_backend, scenario_chunk, overlap, dev)
 
     def _iter():
         J, P = gplan.n_jobs, gplan.n_policies
@@ -214,10 +233,12 @@ def evaluate_grid_chunks(
         stream = source.chunks(chunk, dev)
         if overlap:
             stream = _prefetched(stream)
-        for s0, s1, batch in stream:
+        for ci, (s0, s1, batch) in enumerate(stream):
             out = {k: np.zeros((s1 - s0, J, P)) for k in OUT_KEYS}
-            synth_t, views_t, eval_t = _run_chunk(gplan, batch, early_start,
-                                                  out)
+            synth_t, views, eval_t = _run_chunk(
+                ci, s0, s1, gplan, batch, early_start, out, overlap, str(dev))
+            views_t = _fold(views)
+            _chunk_metrics(str(dev), synth_t, views_t, eval_t)
             unit = (out["spot_cost"] + out["ondemand_cost"]) \
                 / wl[None, :, None]
             yield GridChunk(s0=s0, s1=s1, unit_cost=unit, out=out,
@@ -283,36 +304,52 @@ def evaluate_grid(
         raise ValueError("reduce='mean' cannot fold per-scenario "
                          "availability results; use reduce='stack'")
     dev = resolve_device(device)
-    source, gplan, chunk, single, overlap = _prepare_stream(
-        jobs, policies, scenarios, r_total, windows, selfowned, pool,
-        availability, plan_backend, scenario_chunk, overlap, dev)
-    S, J, P = source.n_scenarios, gplan.n_jobs, gplan.n_policies
+    with span("evaluate_grid", reduce=reduce) as root:
+        with span("prepare_stream"):
+            source, gplan, chunk, single, overlap = _prepare_stream(
+                jobs, policies, scenarios, r_total, windows, selfowned, pool,
+                availability, plan_backend, scenario_chunk, overlap, dev)
+        S, J, P = source.n_scenarios, gplan.n_jobs, gplan.n_policies
+        root.set(backend=str(dev), scenarios=S, overlap=overlap)
 
-    if reduce == "stack":
-        out = {k: np.zeros((S, J, P)) for k in OUT_KEYS}
-    else:
-        acc = {k: np.zeros((J, P)) for k in OUT_KEYS}
-        buf = {k: np.zeros((chunk, J, P)) for k in OUT_KEYS}
-    chunk_timings: list[dict] = []
-    # The stack path writes the backend's output straight into the
-    # (S, J, P) slices, so it does not go through GridChunk.
-    stream = source.chunks(chunk, dev)
-    if overlap:
-        stream = _prefetched(stream)
-    for s0, s1, batch in stream:
         if reduce == "stack":
-            out_chunk = {k: v[s0:s1] for k, v in out.items()}
+            out = {k: np.zeros((S, J, P)) for k in OUT_KEYS}
         else:
-            out_chunk = {k: v[:s1 - s0] for k, v in buf.items()}
-        synth_t, views_t, eval_t = _run_chunk(gplan, batch, early_start,
-                                              out_chunk)
+            acc = {k: np.zeros((J, P)) for k in OUT_KEYS}
+            buf = {k: np.zeros((chunk, J, P)) for k in OUT_KEYS}
+        chunk_timings: list[dict] = []
+        synth_total = views_total = eval_total = 0.0
+        # The stack path writes the backend's output straight into the
+        # (S, J, P) slices, so it does not go through GridChunk.
+        stream = source.chunks(chunk, dev)
+        if overlap:
+            stream = _prefetched(stream)
+        for ci, (s0, s1, batch) in enumerate(stream):
+            if reduce == "stack":
+                out_chunk = {k: v[s0:s1] for k, v in out.items()}
+            else:
+                out_chunk = {k: v[:s1 - s0] for k, v in buf.items()}
+            synth_t, views, eval_t = _run_chunk(
+                ci, s0, s1, gplan, batch, early_start, out_chunk, overlap,
+                str(dev))
+            if reduce == "mean":
+                for k in OUT_KEYS:
+                    acc[k] += out_chunk[k].sum(axis=0)
+            # Totals fold every span in completion order, as the tracer
+            # does: the views total over each bid's span, not the chunks'.
+            synth_total += synth_t
+            for t in views:
+                views_total += t
+            eval_total += eval_t
+            views_t = _fold(views)
+            _chunk_metrics(str(dev), synth_t, views_t, eval_t)
+            chunk_timings.append({"scenarios": [s0, s1], "synth": synth_t,
+                                  "views": views_t, "eval": eval_t})
         if reduce == "mean":
-            for k in OUT_KEYS:
-                acc[k] += out_chunk[k].sum(axis=0)
-        chunk_timings.append({"scenarios": [s0, s1], "synth": synth_t,
-                              "views": views_t, "eval": eval_t})
-    if reduce == "mean":
-        out = {k: v[None] / S for k, v in acc.items()}
+            out = {k: v[None] / S for k, v in acc.items()}
+    if METRICS.enabled:
+        METRICS.gauge("engine.scenarios_per_sec").set(
+            S / max(root.seconds, 1e-12), backend=str(dev))
 
     so_shape = (S, J, P) if gplan.per_scenario else (J, P)
     selfowned_work = np.zeros(so_shape)
@@ -355,12 +392,12 @@ def evaluate_grid(
         device=str(dev), single_market=single and reduce == "stack",
         n_scenarios_total=S,
         timings={"plan": gplan.plan_seconds, "pool": gplan.pool_seconds,
-                 "synth": sum(c["synth"] for c in chunk_timings),
-                 "views": sum(c["views"] for c in chunk_timings),
-                 "eval": sum(c["eval"] for c in chunk_timings),
+                 "synth": synth_total, "views": views_total,
+                 "eval": eval_total,
                  "chunks": chunk_timings, "overlap": overlap,
                  "plan_cached": gplan.plan_cached,
                  # The device plan build alone: on the staged path the pool
                  # phase is mostly the host's availability queries.
                  "plan_device": gplan.plan_seconds if gplan.device else 0.0},
+        obs=maybe_snapshot(),
         delta_state=delta_state)

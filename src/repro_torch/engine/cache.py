@@ -44,10 +44,13 @@ import os
 import numpy as np
 import torch
 
+from repro_torch.obs import METRICS, maybe_snapshot
+
 __all__ = [
     "PLAN_CACHE", "VIEW_CACHE", "enabled", "configure", "disabled",
-    "clear_caches", "fingerprint_job_arrays", "jobs_fingerprint",
-    "scenario_fingerprint", "device_key", "evaluate_grid_delta",
+    "clear_caches", "plan_cache_events", "fingerprint_job_arrays",
+    "jobs_fingerprint", "scenario_fingerprint", "device_key",
+    "evaluate_grid_delta",
 ]
 
 _CacheInfo = collections.namedtuple(
@@ -58,11 +61,15 @@ class _LRU:
     """Bounded recency-ordered cache with hit, miss and eviction counts.
 
     ``cache_info()`` has the ``functools.lru_cache`` field layout, and
-    ``evictions`` counts the entries pushed out by the bound.
+    ``evictions`` counts the entries pushed out by the bound (so
+    ``obs.compiled.factory_caches`` reports it like the ``lru_cache``
+    factories). When ``metric`` is set, evictions by ``put`` emit
+    ``<metric>{event=evict}`` through ``obs.METRICS``.
     """
 
-    def __init__(self, maxsize: int):
+    def __init__(self, maxsize: int, metric: str | None = None):
         self.maxsize = int(maxsize)
+        self.metric = metric
         self._data: collections.OrderedDict = collections.OrderedDict()
         self.hits = 0
         self.misses = 0
@@ -83,12 +90,17 @@ class _LRU:
             return
         self._data[key] = value
         self._data.move_to_end(key)
-        self._evict()
+        n = self._evict()
+        if n and self.metric and METRICS.enabled:
+            METRICS.counter(self.metric).inc(float(n), event="evict")
 
-    def _evict(self) -> None:
+    def _evict(self) -> int:
+        n = 0
         while len(self._data) > self.maxsize:
             self._data.popitem(last=False)
-            self.evictions += 1
+            n += 1
+        self.evictions += n
+        return n
 
     def __len__(self) -> int:
         return len(self._data)
@@ -115,8 +127,8 @@ class _LRU:
 # (host float64 or device float32); 1024 entries cover many concurrent
 # policy grids. Stacked views are (chunk, n_slots+1)-sized per bid; 128
 # entries cover a serving loop replaying the same spec windows.
-PLAN_CACHE = _LRU(1024)
-VIEW_CACHE = _LRU(128)
+PLAN_CACHE = _LRU(1024, metric="engine.plan_cache")
+VIEW_CACHE = _LRU(128, metric="engine.view_cache")
 
 _ENABLED_OVERRIDE: bool | None = None
 
@@ -162,6 +174,18 @@ def clear_caches() -> None:
     """Drop every cross-call entry (plan groups and scenario views)."""
     PLAN_CACHE.clear()
     VIEW_CACHE.clear()
+
+
+def plan_cache_events(hits: int = 0, misses: int = 0) -> None:
+    """Emit the plan cache's hit and miss counters (one labeled series;
+    evictions are emitted by the cache itself)."""
+    if not METRICS.enabled or not (hits or misses):
+        return
+    c = METRICS.counter("engine.plan_cache")
+    if hits:
+        c.inc(float(hits), event="hit")
+    if misses:
+        c.inc(float(misses), event="miss")
 
 
 def device_key(device) -> str:
@@ -342,6 +366,9 @@ def evaluate_grid_delta(prev, jobs, policies, scenarios, r_total: int = 0, *,
         device = inner.device
         for k in ("plan", "pool", "synth", "views", "eval", "plan_cached"):
             timings[k] = inner.timings[k]
+    if METRICS.enabled:
+        METRICS.counter("engine.delta_groups_rescored").inc(
+            float(len(changed)))
 
     workload = prev.workload.copy()
     total = out["spot_cost"] + out["ondemand_cost"]
@@ -359,6 +386,7 @@ def evaluate_grid_delta(prev, jobs, policies, scenarios, r_total: int = 0, *,
         single_market=prev.single_market,
         n_scenarios_total=S,
         timings=timings,
+        obs=maybe_snapshot(),
         delta_state={
             "jobs_fp": st["jobs_fp"],
             "scenario_fp": st["scenario_fp"],

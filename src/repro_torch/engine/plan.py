@@ -42,7 +42,6 @@ and per (window plan, beta_0) cell.
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import numpy as np
 import torch
@@ -59,6 +58,7 @@ from repro_torch.core.scheduler import (
 )
 from repro_torch.core.types import ChainJob
 from repro_torch.engine import cache as _cache
+from repro_torch.obs import span
 
 __all__ = ["EvalGroup", "GridPlan", "build_grid_plan", "scenario_cat",
            "concat_rows", "distinct_window_params"]
@@ -330,47 +330,53 @@ def build_grid_plan(
     w_pos = {w: i for i, w in enumerate(need_w)}
     params = list(s.key_param.values())
 
-    t0 = time.perf_counter()
-    if not need_w:
-        built: list[PlanBatch] = []
-    elif windows == "even":
-        built = build_plans_batch(jobs, windows="even", arrays=arrays)
-    else:
-        built = build_plans_batch(jobs, [params[w] for w in need_w],
-                                  windows="dealloc", arrays=arrays)
-    t1 = time.perf_counter()
-    alloc = {ai: _group_alloc(built[w_pos[s.a_plan[ai]]], s.a_beta0[ai],
-                              r_total, selfowned, pool, availability,
-                              slots_per_unit)
-             for ai in need_ai}
-    groups: list[EvalGroup] = []
-    for gi in range(len(s.g_bid)):
-        if gi in cached:
-            groups.append(cached[gi])
-            continue
-        ai = s.g_akey[gi]
-        plan = built[w_pos[s.a_plan[ai]]]
-        z_t, d_eff, pins, so_work, so_res = _cloud_residuals(plan, alloc[ai])
-        g = EvalGroup(
-            plan=plan, policy_idx=np.asarray(s.g_pols[gi]),
-            bid=s.g_bid[gi], r_alloc=alloc[ai], z_t=z_t, d_eff=d_eff,
-            pins=pins, selfowned_work=so_work, selfowned_reserved=so_res)
-        groups.append(g)
-        if use_cache:
-            _cache.PLAN_CACHE.put((base, s.g_key[gi]), g)
-    t2 = time.perf_counter()
+    # Spans are opened even on an all-hit call: timings["plan"/"pool"]
+    # stay the same floats as the span tracer's totals.
+    with span("plan", plan_backend="host", windows=windows,
+              n_plans=len(need_w), n_cached=len(cached)) as sp:
+        if not need_w:
+            built: list[PlanBatch] = []
+        elif windows == "even":
+            built = build_plans_batch(jobs, windows="even", arrays=arrays)
+        else:
+            built = build_plans_batch(jobs, [params[w] for w in need_w],
+                                      windows="dealloc", arrays=arrays)
+    plan_seconds = sp.seconds
+    with span("pool", plan_backend="host", pool=pool,
+              n_groups=len(miss)) as sp:
+        alloc = {ai: _group_alloc(built[w_pos[s.a_plan[ai]]], s.a_beta0[ai],
+                                  r_total, selfowned, pool, availability,
+                                  slots_per_unit)
+                 for ai in need_ai}
+        groups: list[EvalGroup] = []
+        for gi in range(len(s.g_bid)):
+            if gi in cached:
+                groups.append(cached[gi])
+                continue
+            ai = s.g_akey[gi]
+            plan = built[w_pos[s.a_plan[ai]]]
+            z_t, d_eff, pins, so_work, so_res = _cloud_residuals(plan,
+                                                                 alloc[ai])
+            g = EvalGroup(
+                plan=plan, policy_idx=np.asarray(s.g_pols[gi]),
+                bid=s.g_bid[gi], r_alloc=alloc[ai], z_t=z_t, d_eff=d_eff,
+                pins=pins, selfowned_work=so_work, selfowned_reserved=so_res)
+            groups.append(g)
+            if use_cache:
+                _cache.PLAN_CACHE.put((base, s.g_key[gi]), g)
     return GridPlan(jobs=jobs, policies=policies, groups=groups,
                     workload=arrays.z.sum(axis=1), arrival=arrays.arrival,
                     n_jobs=len(jobs), n_policies=len(policies),
-                    L=arrays.z.shape[1], plan_seconds=t1 - t0,
-                    pool_seconds=t2 - t1, plan_cached=len(cached),
+                    L=arrays.z.shape[1], plan_seconds=plan_seconds,
+                    pool_seconds=sp.seconds, plan_cached=len(cached),
                     jobs_fp=jobs_fp, group_keys=list(s.g_key))
 
 
 def _cache_lookup(s: _GridStructure, base: tuple, use_cache: bool):
     """Consult the cross-call group cache: {group index -> cached group
     carrying this grid's policy columns} and the list of missing groups,
-    which the callers build (and only those)."""
+    which the callers build (and only those); the hit and miss counters
+    are emitted here."""
     cached: dict[int, EvalGroup] = {}
     if use_cache:
         for gi in range(len(s.g_bid)):
@@ -381,6 +387,8 @@ def _cache_lookup(s: _GridStructure, base: tuple, use_cache: bool):
                 # across calls alike, so the hit is bit for bit.
                 cached[gi] = dataclasses.replace(
                     rec, policy_idx=np.asarray(s.g_pols[gi]))
+        _cache.plan_cache_events(hits=len(cached),
+                                 misses=len(s.g_bid) - len(cached))
     miss = [gi for gi in range(len(s.g_bid)) if gi not in cached]
     return cached, miss
 
@@ -490,41 +498,46 @@ def _build_grid_plan_device(jobs, policies, s: _GridStructure, arrays,
     def f32(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
 
-    t0 = time.perf_counter()
-    if miss:
-        z, delta = f32(arrays.z), f32(arrays.delta)
-        mask = torch.from_numpy(arrays.mask).to(dev)
-        plan_of_akey = torch.as_tensor([w_pos[s.a_plan[ai]] for ai in need_ai],
-                                       dtype=torch.int64, device=dev)
-        b0 = f32([np.nan if s.a_beta0[ai] is None else s.a_beta0[ai]
-                  for ai in need_ai])
-        # Even windows: xs is the per-job slack share of the one plan.
-        sizes, starts, ends = _device_plans(
-            windows, f32(arrays.e), delta, mask, f32(arrays.omega),
-            f32(arrays.arrival), f32(xs if windows == "even" else xs[need_w]))
-    if not staged:
+    # The query-free path is one "plan" span (windows through residuals,
+    # the reference's fused program; pool 0.0); the staged path splits at
+    # the host's availability queries into "plan" and "pool".
+    with span("plan", plan_backend="device", windows=windows,
+              n_cached=len(cached)) as sp:
         if miss:
+            z, delta = f32(arrays.z), f32(arrays.delta)
+            mask = torch.from_numpy(arrays.mask).to(dev)
+            plan_of_akey = torch.as_tensor(
+                [w_pos[s.a_plan[ai]] for ai in need_ai], dtype=torch.int64,
+                device=dev)
+            b0 = f32([np.nan if s.a_beta0[ai] is None else s.a_beta0[ai]
+                      for ai in need_ai])
+            # Even windows: xs is the per-job slack share of the one plan.
+            sizes, starts, ends = _device_plans(
+                windows, f32(arrays.e), delta, mask, f32(arrays.omega),
+                f32(arrays.arrival),
+                f32(xs if windows == "even" else xs[need_w]))
+        if not staged and miss:
             avail = torch.tensor(float(max(r_total, 0)), dtype=torch.float32,
                                  device=dev)
             cells = _device_cells(counts_fn, z, delta, mask, sizes,
                                   plan_of_akey, b0, avail)
         _sync(dev)
-        t1 = t2 = time.perf_counter()
-    else:
-        _sync(dev)
-        t1 = time.perf_counter()
-        h_starts, h_ends = starts.cpu().numpy(), ends.cpu().numpy()
-        plan_rows = [w_pos[s.a_plan[ai]] for ai in need_ai]
-        if isinstance(availability, (list, tuple)):
-            avail = np.stack([[q(h_starts[p], h_ends[p]) for q in availability]
-                              for p in plan_rows])
-        else:
-            avail = np.stack([availability(h_starts[p], h_ends[p])
-                              for p in plan_rows])
-        cells = _device_cells(counts_fn, z, delta, mask, sizes, plan_of_akey,
-                              b0, f32(avail))
-        _sync(dev)
-        t2 = time.perf_counter()
+    plan_seconds, pool_seconds = sp.seconds, 0.0
+    if staged:
+        with span("pool", plan_backend="device") as sp:
+            h_starts, h_ends = starts.cpu().numpy(), ends.cpu().numpy()
+            plan_rows = [w_pos[s.a_plan[ai]] for ai in need_ai]
+            if isinstance(availability, (list, tuple)):
+                avail = np.stack([[q(h_starts[p], h_ends[p])
+                                   for q in availability]
+                                  for p in plan_rows])
+            else:
+                avail = np.stack([availability(h_starts[p], h_ends[p])
+                                  for p in plan_rows])
+            cells = _device_cells(counts_fn, z, delta, mask, sizes,
+                                  plan_of_akey, b0, f32(avail))
+            _sync(dev)
+        pool_seconds = sp.seconds
 
     groups = []
     if miss:
@@ -556,7 +569,7 @@ def _build_grid_plan_device(jobs, policies, s: _GridStructure, arrays,
     return GridPlan(jobs=jobs, policies=policies, groups=groups,
                     workload=arrays.z.sum(axis=1), arrival=arrays.arrival,
                     n_jobs=len(jobs), n_policies=len(policies),
-                    L=arrays.z.shape[1], plan_seconds=t1 - t0,
-                    pool_seconds=t2 - t1, plan_backend="device",
+                    L=arrays.z.shape[1], plan_seconds=plan_seconds,
+                    pool_seconds=pool_seconds, plan_backend="device",
                     plan_cached=len(cached), jobs_fp=jobs_fp,
                     group_keys=list(s.g_key))

@@ -33,14 +33,21 @@ class EngineResult:
     # Scenarios EVALUATED — differs from the leading axis length only under
     # reduce="mean", where the arrays hold the scenario mean (axis 1).
     n_scenarios_total: int | None = None
-    # Phase wall seconds: "plan" (window tensors), "pool" (self-owned +
-    # residuals), "synth" (scenario synthesis, under overlap the residual
-    # wait), "views" (stacked market views on the device), "eval" (cost
-    # kernels, device results back on the host), each summed over the
-    # scenario chunks; "chunks" the per-chunk split, "overlap" whether
-    # chunk synthesis was double-buffered; "plan_cached" the groups the
-    # cross-call plan cache served.
+    # Phase wall seconds, derived from the ``repro_torch.obs`` span tree
+    # (every value is some span's ``.seconds``, or a left-to-right sum of
+    # them in completion order, so under an active ``obs.tracing()`` the
+    # dict and the tracer's totals agree bit for bit): "plan" (window
+    # tensors), "pool" (self-owned + residuals), "synth" (scenario
+    # synthesis, under overlap the residual wait), "views" (stacked market
+    # views on the device, one span per bid), "eval" (cost kernels, device
+    # results back on the host), each summed over the scenario chunks;
+    # "chunks" the per-chunk split, "overlap" whether chunk synthesis was
+    # double-buffered; "plan_cached" the groups the cross-call plan cache
+    # served.
     timings: dict = dataclasses.field(default_factory=dict)
+    # Observability snapshot ({"metrics": ..., "compiled": ...}) taken when
+    # an ``repro_torch.obs`` collection context was active; None otherwise.
+    obs: dict | None = None
     # Delta-evaluation handle: the jobs/scenario fingerprints, resolved
     # config and per-group dedup signatures this result was computed
     # under, read by ``evaluate_grid_delta`` to re-score only changed

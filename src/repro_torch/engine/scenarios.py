@@ -54,6 +54,7 @@ from repro_torch.core.market import (
     stacked_view_tensors,
 )
 from repro_torch.engine import cache as _cache
+from repro_torch.obs import METRICS, span
 
 __all__ = ["ScenarioSpec", "ScenarioStream", "ScenarioSource",
            "ScenarioBatch", "MarketListBatch", "SynthBatch", "as_source",
@@ -510,6 +511,17 @@ class ScenarioBatch:
         """Synthesize/realize the chunk's price paths (timed by the API)."""
         return self
 
+    def build_views(self, bids) -> list[float]:
+        """Build (or fetch from the view cache) the chunk's views at every
+        bid, one ``views`` span per bid; returns the spans' seconds in bid
+        order (the engine's per-chunk "views" phase)."""
+        seconds = []
+        for bid in bids:
+            with span("views", bid=bid, scenarios=self.n_scenarios) as sp:
+                self.stacked(bid)
+            seconds.append(sp.seconds)
+        return seconds
+
     def stacked(self, bid: float):
         """(A, C) float32 tensors of shape (S_chunk, n_slots+1) on the
         device."""
@@ -625,14 +637,16 @@ class SynthBatch(ScenarioBatch):
     def dispatch(self) -> "SynthBatch":
         if self.host or self._parts is not None:
             return self
-        if self.device.type != "cuda":
-            self._parts = self._synth()
-            return self
-        side = _side_stream(self.device)
-        with torch.cuda.stream(side):
-            self._parts = self._synth()
-            self._event = torch.cuda.Event()
-            self._event.record(side)
+        with span("synth.dispatch", s0=self.start, s1=self.stop,
+                  kind=self.spec.kind):
+            if self.device.type != "cuda":
+                self._parts = self._synth()
+                return self
+            side = _side_stream(self.device)
+            with torch.cuda.stream(side):
+                self._parts = self._synth()
+                self._event = torch.cuda.Event()
+                self._event.record(side)
         return self
 
     def prepare(self) -> "SynthBatch":
@@ -642,7 +656,10 @@ class SynthBatch(ScenarioBatch):
         if self._parts is None:
             self.dispatch()
         if self._event is not None:
-            self._event.synchronize()
+            # Under overlap the dispatch ran during the previous chunk's
+            # eval, so this span measures only the residual wait.
+            with span("synth.wait", s0=self.start, s1=self.stop):
+                self._event.synchronize()
             cur = torch.cuda.current_stream(self.device)
             cur.wait_event(self._event)
             # Made on the side stream, read on this one: the allocator must
@@ -790,6 +807,7 @@ class ScenarioStream(ScenarioSource):
         self._f_count = np.zeros(spec.n_phases, np.int64)
         self._locked_period: int | None = None
         self._pending: tuple[str, np.ndarray] | None = None
+        self._last_stage: str | None = None
         self.chunk_periods: list[np.ndarray] = []  # audit trail (time units)
         self.chunk_offsets: list[np.ndarray] = []  # audit trail (slots)
         self._materialized: list[SpotMarket] | None = None
@@ -825,7 +843,14 @@ class ScenarioStream(ScenarioSource):
     def _plan_chunk(self, idx: np.ndarray):
         if self.spec.kind != "adaptive":
             return None, None
-        if self.stage == "periods":
+        stage = self.stage
+        if METRICS.enabled:
+            METRICS.counter("scenarios.adaptive_chunks").inc(stage=stage)
+            if self._last_stage is not None and stage != self._last_stage:
+                METRICS.counter("scenarios.adaptive_escalations").inc(
+                    to=stage)
+        self._last_stage = stage
+        if stage == "periods":
             menu_idx = idx % self.spec.n_periods
             periods = self._menu[menu_idx]
             offsets = np.full(len(idx), -1, np.int64)   # hash-random phases

@@ -15,7 +15,6 @@ benchmark is host float64 either way.
 from __future__ import annotations
 
 import argparse
-import time
 
 import numpy as np
 
@@ -23,6 +22,7 @@ from repro_torch.core import generate_chain_jobs, run_greedy, sweep_policies
 from repro_torch.core.scheduler import Policy
 from repro_torch.device import resolve_device
 from repro_torch.engine import ScenarioSpec, as_source, make_scenarios
+from repro_torch.obs import span
 
 __all__ = ["Setup", "make_setup", "sweep_min", "greedy_min",
            "argparser", "print_table", "Timer", "SCENARIO_KINDS"]
@@ -133,12 +133,15 @@ def print_table(title: str, header: list[str], rows: list[list[str]]):
 
 
 class Timer:
+    """A span named ``label`` that prints its seconds at exit."""
+
     def __init__(self, label: str):
         self.label = label
 
     def __enter__(self):
-        self.t0 = time.perf_counter()
+        self._span = span(self.label).__enter__()
         return self
 
     def __exit__(self, *a):
-        print(f"[{self.label}: {time.perf_counter() - self.t0:.1f}s]")
+        self._span.__exit__(*a)
+        print(f"[{self.label}: {self._span.seconds:.1f}s]")

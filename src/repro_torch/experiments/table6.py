@@ -28,7 +28,6 @@ spec reacts to the first learner at each chunk boundary).
 from __future__ import annotations
 
 import argparse
-import time
 
 import numpy as np
 
@@ -40,6 +39,7 @@ from repro_torch.core import (
 )
 from repro_torch.engine import ScenarioStream
 from repro_torch.experiments.common import SCENARIO_KINDS, make_setup
+from repro_torch.obs import span
 from repro_torch.learn import (
     LEARNER_KINDS,
     LearnerSpec,
@@ -70,67 +70,72 @@ def run(n_jobs: int, rs: list[int], seed: int = 0, scenarios: int = 1,
         scenario_chunk: int | None = None) -> dict:
     """Table 6 rows per r (plus ``"comparison"`` rows with an eta grid or
     several learners, and ``"stream"`` rows with a scenario chunk), and
-    ``"timings"``: wall seconds per phase."""
+    ``"timings"``: wall seconds per phase, each the seconds of the span
+    of its name."""
     learners = learners or ["hedge"]
     eta_grid = eta_grid or []
     compare = len(learners) > 1 or bool(eta_grid)
-    t0 = time.perf_counter()
-    setup = make_setup(n_jobs, job_type, seed, scenarios=scenarios,
-                       scenario_kind=scenario_kind, device=device,
-                       scenario_chunk=scenario_chunk)
-    jobs, markets = setup.jobs, setup.markets
-    arrivals = np.array([j.arrival for j in jobs])
-    d = max(j.deadline - j.arrival for j in jobs)
-    Z = np.array([j.total_work for j in jobs])
-    out: dict = {"timings": {"setup": time.perf_counter() - t0}}
+    with span("setup", n_jobs=n_jobs, scenarios=scenarios) as sp:
+        setup = make_setup(n_jobs, job_type, seed, scenarios=scenarios,
+                           scenario_kind=scenario_kind, device=device,
+                           scenario_chunk=scenario_chunk)
+        jobs, markets = setup.jobs, setup.markets
+        arrivals = np.array([j.arrival for j in jobs])
+        d = max(j.deadline - j.arrival for j in jobs)
+        Z = np.array([j.total_work for j in jobs])
+    out: dict = {"timings": {"setup": sp.seconds}}
     for r in rs:
-        t_r = time.perf_counter()
-        grid = selfowned_policies() if r > 0 else spot_od_policies()
-        props = run_tola_scenarios(
-            jobs, grid, markets, r_total=r, seed=seed, early_start=True,
-            learner=learners[0], device=device)
-        benches = run_tola_scenarios(
-            jobs, benchmark_bid_policies(), markets, r_total=r,
-            windows="even", selfowned="naive", early_start=False, seed=seed,
-            learner=learners[0], device=device)
-        a_prop = np.array([p.average_unit_cost() for p in props])
-        a_bench = np.array([b.average_unit_cost() for b in benches])
-        row = {
-            "learner": learners[0],
-            "alpha_tola": float(a_prop.mean()),
-            "alpha_bench": float(a_bench.mean()),
-            "rho_bar": 1 - float(a_prop.mean()) / float(a_bench.mean()),
-            "best_fixed": float(np.mean(
-                [p.best_fixed_unit_cost for p in props])),
-            "regret": float(np.mean([p.regret_per_job for p in props])),
-            "top_weight": float(np.mean([p.weights.max() for p in props])),
-            "timings": {"proposed": dict(props[0].timings),
-                        "benchmark": dict(benches[0].timings)},
-        }
-        if len(markets) > 1:
-            row["alpha_tola_std"] = float(a_prop.std())
-        if compare:
-            # One batched replay of every (learner, eta) instance over the
-            # scenario-stacked cost tensor of the last round.
-            t_c = time.perf_counter()
-            C = np.stack([p.cost_matrix for p in props])
-            lr = replay(C, arrivals, d, workload=Z,
+        with span("wall", r=r) as sp_r:
+            grid = selfowned_policies() if r > 0 else spot_od_policies()
+            props = run_tola_scenarios(
+                jobs, grid, markets, r_total=r, seed=seed, early_start=True,
+                learner=learners[0], device=device)
+            benches = run_tola_scenarios(
+                jobs, benchmark_bid_policies(), markets, r_total=r,
+                windows="even", selfowned="naive", early_start=False,
+                seed=seed, learner=learners[0], device=device)
+            a_prop = np.array([p.average_unit_cost() for p in props])
+            a_bench = np.array([b.average_unit_cost() for b in benches])
+            row = {
+                "learner": learners[0],
+                "alpha_tola": float(a_prop.mean()),
+                "alpha_bench": float(a_bench.mean()),
+                "rho_bar": 1 - float(a_prop.mean()) / float(a_bench.mean()),
+                "best_fixed": float(np.mean(
+                    [p.best_fixed_unit_cost for p in props])),
+                "regret": float(np.mean([p.regret_per_job for p in props])),
+                "top_weight": float(np.mean([p.weights.max()
+                                             for p in props])),
+                "timings": {"proposed": dict(props[0].timings),
+                            "benchmark": dict(benches[0].timings)},
+            }
+            if len(markets) > 1:
+                row["alpha_tola_std"] = float(a_prop.std())
+            if compare:
+                # One batched replay of every (learner, eta) instance over
+                # the scenario-stacked cost tensor of the last round.
+                with span("compare_replay") as sp:
+                    C = np.stack([p.cost_matrix for p in props])
+                    lr = replay(C, arrivals, d, workload=Z,
+                                learners=comparison_specs(learners,
+                                                          eta_grid),
+                                seed=seed, backend="torch", device=device)
+                    row["comparison"] = lr.summary()
+                row["timings"]["compare_replay"] = sp.seconds
+            if scenario_chunk:
+                # Streamed counterfactual regret straight from the spec: no
+                # (S, J, P) tensor, no per-scenario market objects; a fresh
+                # adversary state per r.
+                with span("stream") as sp:
+                    slr = replay_stream(
+                        jobs, grid, ScenarioStream(setup.scenarios),
+                        r_total=r,
                         learners=comparison_specs(learners, eta_grid),
-                        seed=seed, backend="torch", device=device)
-            row["comparison"] = lr.summary()
-            row["timings"]["compare_replay"] = time.perf_counter() - t_c
-        if scenario_chunk:
-            # Streamed counterfactual regret straight from the spec: no
-            # (S, J, P) tensor, no per-scenario market objects; a fresh
-            # adversary state per r.
-            t_s = time.perf_counter()
-            slr = replay_stream(
-                jobs, grid, ScenarioStream(setup.scenarios), r_total=r,
-                learners=comparison_specs(learners, eta_grid), seed=seed,
-                scenario_chunk=scenario_chunk, device=device)
-            row["stream"] = slr.summary()
-            row["timings"]["stream"] = time.perf_counter() - t_s
-        row["timings"]["wall"] = time.perf_counter() - t_r
+                        seed=seed, scenario_chunk=scenario_chunk,
+                        device=device)
+                    row["stream"] = slr.summary()
+                row["timings"]["stream"] = sp.seconds
+        row["timings"]["wall"] = sp_r.seconds
         out[r] = row
     return out
 

@@ -23,19 +23,30 @@ version.
   tensor-core products; ``ops.ssd``).
 
 A wrapper given CPU tensors computes its plain version; given CUDA tensors
-it launches its kernel or raises. ``LAUNCHES`` counts kernel launches by
+it launches its kernel or raises. ``flash_attention`` and ``ssd`` are the
+kernels as the models call them (``ops.py``, the reference's public names).
+``LAUNCHES`` counts kernel launches by
 wrapper name (plain-version calls do not count), so a run can show which
 kernels its path went through; ``policy_cost_chain`` counts both chain
 kernels and ``policy_cost_chain_smem`` the shared-memory ones among them;
 ``flash_attention`` counts both attention kernels and
 ``flash_attention_tc`` the tensor-core ones among them;
 ``ssd_scan`` counts calls, each of which launches the scan's four passes.
+Under ``repro_torch.obs.capture()`` each of those launches also records a
+CUDA event pair and its work under the same name.
+
+The package attribute ``flash_attention`` is the function (as in the
+reference), which shadows the submodule of that name: import the module
+as ``from repro_torch.kernels.flash_attention import ...`` or through
+``importlib.import_module``.
 """
 
 from __future__ import annotations
 
 import collections
 
-__all__ = ["LAUNCHES"]
+__all__ = ["LAUNCHES", "flash_attention", "ssd"]
 
 LAUNCHES: collections.Counter = collections.Counter()
+
+from repro_torch.kernels.ops import flash_attention, ssd  # noqa: E402

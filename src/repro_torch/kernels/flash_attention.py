@@ -31,14 +31,17 @@ import ctypes
 import functools
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.device import kernel_library
 from repro_torch.kernels import LAUNCHES
+from repro_torch.obs.compiled import record_launch
 
 __all__ = ["flash_attention_fwd", "flash_attention_strided",
            "launch_cuda_core", "tensor_core_route",
-           "tma_layout", "bshd_view", "attention_plain", "NEG_INF"]
+           "tma_layout", "bshd_view", "attention_plain", "attn_pairs",
+           "flash_work", "NEG_INF"]
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -155,16 +158,47 @@ def _check(q, k, v, out) -> None:
                          "B*H <= 65535 and Sq, Sk >= 1")
 
 
+def attn_pairs(Sq: int, Sk: int, causal: bool, window: int,
+               prefix: int) -> int:
+    """(query, key) pairs the masks leave visible: the products the
+    attention of these inputs needs. Per query row i: keys up to i (all
+    without ``causal``), of those the band i - window < key (with a
+    window) and the prefix key < prefix."""
+    i = np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(i, Sk - 1) if causal else np.full(Sq, Sk - 1)
+    if window <= 0:
+        return int(np.maximum(hi + 1, 0).sum())
+    lo = np.maximum(i - window + 1, 0)
+    band = np.maximum(hi - lo + 1, 0)
+    pre = np.maximum(np.minimum(np.minimum(prefix, hi + 1), lo), 0)
+    return int((band + pre).sum())
+
+
+def flash_work(q, k, v, out, causal: bool, window: int, prefix: int) -> dict:
+    """Work of one attention launch on (B, S, heads, dh) operands: q, k, v
+    read once and out written once, and 4 dh operations (two products'
+    multiply-adds) per visible (query, key) pair and query head, at the
+    bfloat16 rate for bfloat16 operands."""
+    B, Sq, H, dh = q.shape
+    n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, out))
+    n_ops = 4 * dh * attn_pairs(Sq, k.shape[1], causal, window, prefix) \
+        * B * H
+    return {"bytes": n_bytes,
+            "ops": {"bf16" if q.dtype == torch.bfloat16 else "f32": n_ops}}
+
+
 def _launch_cuda_core(q, k, v, out, causal, window, prefix) -> None:
     B, Sq, H, dh = q.shape
     Sk, K = k.shape[1], k.shape[2]
     strides = (ctypes.c_longlong * 12)(
         *(s for t in (q, k, v, out) for s in t.stride()[:3]))
-    rc = _entry("flash_attention_launch")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _DTYPES[q.dtype], B, H, K, Sq, Sk, dh, strides, int(causal), window,
-        prefix, 1.0 / math.sqrt(dh),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    stream = torch.cuda.current_stream(q.device)
+    with record_launch("flash_attention", stream, lambda: flash_work(
+            q, k, v, out, causal, window, prefix)):
+        rc = _entry("flash_attention_launch")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            _DTYPES[q.dtype], B, H, K, Sq, Sk, dh, strides, int(causal),
+            window, prefix, 1.0 / math.sqrt(dh), stream.cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_launch: CUDA error {rc} at launch")
     LAUNCHES["flash_attention"] += 1
@@ -175,10 +209,14 @@ def _launch_tensor_core(q, k, v, out, causal, window, prefix) -> None:
     Sk, K = k.shape[1], k.shape[2]
     layouts, o_strides = _tc_arrays(
         *((tuple(t.shape), t.stride()) for t in (q, k, v, out)))
-    rc = _entry("flash_attention_tc_launch")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, K,
-        Sq, Sk, dh, layouts, o_strides, int(causal), window, prefix,
-        1.0 / math.sqrt(dh), torch.cuda.current_stream(q.device).cuda_stream)
+    stream = torch.cuda.current_stream(q.device)
+    with record_launch(("flash_attention", "flash_attention_tc"), stream,
+                       lambda: flash_work(q, k, v, out, causal, window,
+                                          prefix)):
+        rc = _entry("flash_attention_tc_launch")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
+            K, Sq, Sk, dh, layouts, o_strides, int(causal), window, prefix,
+            1.0 / math.sqrt(dh), stream.cuda_stream)
     if rc != 0:
         raise RuntimeError(
             f"flash_attention_tc_launch: error {rc} at launch (-1: no "

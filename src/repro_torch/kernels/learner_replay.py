@@ -40,9 +40,10 @@ import torch
 
 from repro_torch.device import kernel_library
 from repro_torch.kernels import LAUNCHES
+from repro_torch.obs.compiled import record_launch
 
-__all__ = ["learner_replay", "learner_replay_plain", "lanes", "schedule",
-           "margin_bound", "gap_bound", "KIND_CODES", "LANE_COUNTS",
+__all__ = ["learner_replay", "learner_replay_plain", "learner_work",
+           "OPS_PER_JOB", "lanes", "schedule", "margin_bound", "gap_bound", "KIND_CODES", "LANE_COUNTS",
            "F32_UNIT"]
 
 KIND_CODES = {"exp3": 0, "ucb1": 1, "egreedy": 2, "ftl": 3}
@@ -322,6 +323,24 @@ def gap_bound(kind: str, n_done, scale, unit: float = F32_UNIT):
     return unit * 2 * (2 * n_done + 5) * scale
 
 
+# Operations per (instance, job, policy) as the kernel does them: exp3 14
+# (max, difference, exp, sum, quotient, product, sum of the distribution;
+# the cdf's sums, quotients and comparisons; the expected cost's products
+# and sums; the update's max and shift), ucb1 12, egreedy 10, ftl 7.
+OPS_PER_JOB = {"exp3": 14, "ucb1": 12, "egreedy": 10, "ftl": 7}
+
+
+def learner_work(kinds, S: int, J: int, P: int) -> dict:
+    """Work of one ``learner_replay`` call: C, etas, gammas, u, the event
+    stream and the kind codes read once, the traces (chosen, p_chosen,
+    expected_cost) and the four (S, K, P) state arrays written once, and
+    ``OPS_PER_JOB`` of each instance's kind per (scenario, job, policy)."""
+    K = len(kinds)
+    return {"bytes": 4 * (S * J * P + 2 * K * J + S * J + 4 * J + K
+                          + 3 * S * K * J + 4 * S * K * P),
+            "ops": {"f32": S * J * P * sum(OPS_PER_JOB[k] for k in kinds)}}
+
+
 def learner_replay(kinds, C, etas, gammas, u, ev_kind, ev_j):
     """Replay exp3 / ucb1 / egreedy / ftl instances over a (S, J, P) cost
     tensor, one launch.
@@ -368,11 +387,15 @@ def learner_replay(kinds, C, etas, gammas, u, ev_kind, ev_j):
     fn = kernel_library("learner_replay").learner_replay_launch
     fn.restype = ctypes.c_int
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
-    rc = fn(*map(ptr, (C, etas, gammas, u, sched, kinds_t, chosen, p_chosen,
-                       expected, record, state["weights"], state["logw"],
-                       state["sums"], state["counts"])),
-            *map(ctypes.c_int, (S, K, J, P, nj)), ctypes.c_float(-math.log(P)),
-            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    stream = torch.cuda.current_stream(dev)
+    with record_launch("learner_replay", stream,
+                       lambda: learner_work(kinds, S, J, P)):
+        rc = fn(*map(ptr, (C, etas, gammas, u, sched, kinds_t, chosen,
+                           p_chosen, expected, record, state["weights"],
+                           state["logw"], state["sums"], state["counts"])),
+                *map(ctypes.c_int, (S, K, J, P, nj)),
+                ctypes.c_float(-math.log(P)),
+                ctypes.c_void_p(stream.cuda_stream))
     if rc != 0:
         raise RuntimeError(f"learner_replay_launch: CUDA error {rc} at launch")
     LAUNCHES["learner_replay"] += 1

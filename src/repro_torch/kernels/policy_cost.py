@@ -47,6 +47,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import math
 
 import numpy as np
 import torch
@@ -54,10 +55,12 @@ import torch
 from repro_torch.core.simulate import _WORK_EPS, FLEX_ABS, FLEX_REL
 from repro_torch.device import kernel_library
 from repro_torch.kernels import LAUNCHES
+from repro_torch.obs.compiled import record_launch
 
 __all__ = ["policy_cost_chain", "policy_cost_chain_plain", "policy_cost",
            "policy_cost_plain", "h_cum", "chain_plan", "ChainPlan",
-           "task_plan", "task_layout", "OUT_KEYS"]
+           "task_plan", "task_layout", "OUT_KEYS", "task_ops", "chain_work",
+           "task_work"]
 
 OUT_KEYS = ("spot_cost", "ondemand_cost", "spot_work", "ondemand_work")
 _F32 = torch.float32
@@ -234,10 +237,40 @@ def _entry(fn_name: str):
     return fn
 
 
-def _launch(fn_name: str, args: list, device: torch.device) -> None:
-    rc = _entry(fn_name)(*args, torch.cuda.current_stream(device).cuda_stream)
+def _launch(fn_name: str, args: list, stream) -> None:
+    rc = _entry(fn_name)(*args, stream.cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{fn_name}: CUDA error {rc} at launch")
+
+
+def task_ops(n_slots: int) -> int:
+    """Operations of one active task: two binary searches of
+    ceil(log2(n+2)) comparisons each plus about 60 arithmetic operations
+    (four interpolations, the two inversions, the flexibility test and
+    the cost sums)."""
+    return 2 * math.ceil(math.log2(n_slots + 2)) + 60
+
+
+def chain_work(B, S, Sp, R, L, n_slots, z_t, pins) -> dict:
+    """Work of one chain call (``obs.compiled``'s record): each input read
+    once (A, C, arrival, ends, z_t, d_eff, pins), each output written once
+    (four (B, S, R) arrays), and ``task_ops`` per active (scenario, task):
+    one with work or pinned. ``z_t`` and ``pins`` are the (B, Sp, R, L)
+    plans; the active count stays a device tensor (no host sync)."""
+    active = ((z_t > 0) | (pins > 0.5)).sum() * (S // Sp)
+    return {"bytes": 4 * (2 * B * S * (n_slots + 1) + B * R + B * R * L
+                          + 3 * B * Sp * R * L + 4 * B * S * R),
+            "ops": {"f32": active * task_ops(n_slots)}}
+
+
+def task_work(S, Sp, T, n_slots, z_t) -> dict:
+    """Work of one planned-start call: inputs A, C, start, end, z_t, d_eff
+    read once, the five (S, T) outputs written once, ``task_ops`` per
+    (scenario, task) with work; ``z_t`` is (Sp, T)."""
+    active = (z_t > 0).sum() * (S // Sp)
+    return {"bytes": 4 * (2 * S * (n_slots + 1) + 2 * T + 2 * Sp * T
+                          + 5 * S * T),
+            "ops": {"f32": active * task_ops(n_slots)}}
 
 
 # Bounded: one entry per horizon (and card) in use; a miss only asks the
@@ -325,16 +358,21 @@ def _chain_on_card(force_global, A, C, arrival, ends, z_t, d_eff, pins,
     scalars = [B, S, Sp, R, L, n_slots, slot, inverse_slot(slot), p_od,
                FLEX_REL, FLEX_ABS, _WORK_EPS]
     plans = map(torch.Tensor.data_ptr, (arrival, ends_w, z_w, d_w, p_w, out))
+    stream = torch.cuda.current_stream(A.device)
+    work = lambda: chain_work(B, S, Sp, R, L, n_slots, z_t, pins)  # noqa: E731
     if plan.route == "smem" and not force_global:
-        _launch("policy_cost_chain_smem_launch",
-                [A.data_ptr(), C.data_ptr(), *plans, *scalars,
-                 plan.blocks_per_pair], A.device)
+        with record_launch(("policy_cost_chain", "policy_cost_chain_smem"),
+                           stream, work):
+            _launch("policy_cost_chain_smem_launch",
+                    [A.data_ptr(), C.data_ptr(), *plans, *scalars,
+                     plan.blocks_per_pair], stream)
         LAUNCHES["policy_cost_chain_smem"] += 1
     else:
         H = h_cum(A, slot)                 # held until the launch is queued
-        _launch("policy_cost_chain_launch",
-                [A.data_ptr(), C.data_ptr(), H.data_ptr(), *plans, *scalars],
-                A.device)
+        with record_launch("policy_cost_chain", stream, work):
+            _launch("policy_cost_chain_launch",
+                    [A.data_ptr(), C.data_ptr(), H.data_ptr(), *plans,
+                     *scalars], stream)
     LAUNCHES["policy_cost_chain"] += 1
     return dict(zip(OUT_KEYS, out.unbind(0)))
 
@@ -395,9 +433,12 @@ def policy_cost(A, C, start, end, z_t, d_eff, *, slot: float = 1.0 / 12.0,
     blocks = task_plan(S, T, layout["threads"], layout["blocks_per_sm"],
                        _sms(A.device.index))
     out = torch.empty((5, S, T), dtype=_F32, device=A.device)
-    _launch("policy_cost_launch",
-            [*map(torch.Tensor.data_ptr, (*ins, out)), S, Sp, T, n1 - 1, slot,
-             inverse_slot(slot), p_od, FLEX_REL, FLEX_ABS, _WORK_EPS, blocks],
-            A.device)
+    stream = torch.cuda.current_stream(A.device)
+    with record_launch("policy_cost", stream,
+                       lambda: task_work(S, Sp, T, n1 - 1, z2)):
+        _launch("policy_cost_launch",
+                [*map(torch.Tensor.data_ptr, (*ins, out)), S, Sp, T, n1 - 1,
+                 slot, inverse_slot(slot), p_od, FLEX_REL, FLEX_ABS,
+                 _WORK_EPS, blocks], stream)
     LAUNCHES["policy_cost"] += 1
     return dict(zip(OUT_KEYS + ("finish",), out.unbind(0)))

@@ -31,9 +31,14 @@ import torch
 
 from repro_torch.device import kernel_library
 from repro_torch.kernels import LAUNCHES
+from repro_torch.obs.compiled import (
+    HBM_BYTES_PER_S,
+    PEAK_OPS_PER_S,
+    record_launch,
+)
 
 __all__ = ["ssd_scan", "ssd_scan_plain", "ssd_plan", "smem_bytes",
-           "vector_ok"]
+           "vector_ok", "ssd_ops", "ssd_bounds", "ssd_work"]
 
 GRID_X_LIMIT = 2 ** 31 - 1   # largest x grid dimension
 GRID_LIMIT = 65535           # largest y and z grid dimension
@@ -172,6 +177,61 @@ def _plan_args(Bb, S, H, P, G, N, chunk, dtype, x_stride):
     return plan, ints, (ctypes.c_longlong * 3)(*x_stride[:3])
 
 
+def ssd_ops(Bb: int, S: int, H: int, P: int, G: int, N: int,
+            Q: int) -> tuple[int, int]:
+    """Operations of the chunked SSD scan on these inputs, two per
+    multiply-add, split by operand: (the products with x: the causal
+    (C B^T .* L .* dt) x and the state update; the others: C B^T on the
+    causal half once per group and C times the entering state, none for the
+    first chunk, whose state is zero)."""
+    x_ops = other_ops = 0
+    for c, t0 in enumerate(range(0, S, Q)):
+        q = min(Q, S - t0)
+        pairs = q * (q + 1) // 2
+        x_ops += 2 * Bb * H * (pairs * P + q * N * P)
+        other_ops += 2 * Bb * (G * pairs * N + (H * q * N * P if c else 0))
+    return x_ops, other_ops
+
+
+def ssd_bounds(n_bytes: float, x_ops: int, other_ops: int,
+               x_bf16: bool) -> dict:
+    """Bounds of the SSD scan, (ms, by), under four rates for its products:
+    "row", the least time at f32 accuracy on the tensor cores, where a
+    product with a bfloat16 x (exact in bf16) splits its f32 operand into
+    three bf16 parts (three products at the dense bf16 rate) and every
+    other product takes three TF32 products; "kernel", the kernel's own
+    scheme (two TF32 products with a bfloat16 x, three elsewhere);
+    "tf32_3", three TF32 products each; "f32", the CUDA cores in f32."""
+    tf32, bf16 = PEAK_OPS_PER_S["tf32"], PEAK_OPS_PER_S["bf16"]
+    x3 = x_ops * 3 / tf32
+    rest = other_ops * 3 / tf32
+    t_ops = {
+        "row": (x_ops * 3 / bf16 if x_bf16 else x3) + rest,
+        "kernel": (x_ops * 2 / tf32 if x_bf16 else x3) + rest,
+        "tf32_3": x3 + rest,
+        "f32": (x_ops + other_ops) / PEAK_OPS_PER_S["f32"]}
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    return {k: (t_bytes * 1e3, "bytes") if t_bytes >= t else
+            (t * 1e3, "operations") for k, t in t_ops.items()}
+
+
+def ssd_work(x, dt, A, B, C, y, state, chunk: int) -> dict:
+    """Work of one scan call (its four passes): x, dt, A, B, C read once, y
+    and the final state written once, and the products of ``ssd_ops`` as
+    the "row" bound of ``ssd_bounds`` counts them: three products per
+    f32-accurate product, at the bfloat16 rate for those with a bfloat16
+    x, at the TF32 rate for the others."""
+    Bb, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    x_ops, other_ops = ssd_ops(Bb, S, H, P, G, N, min(chunk, S))
+    x_class = "bf16" if x.dtype == torch.bfloat16 else "tf32"
+    ops = {"tf32": 3 * other_ops}
+    ops[x_class] = ops.get(x_class, 0) + 3 * x_ops
+    return {"bytes": sum(t.numel() * t.element_size()
+                         for t in (x, dt, A, B, C, y, state)),
+            "ops": ops}
+
+
 def ssd_scan(x, dt, A, B, C, chunk: int = 128):
     """x: (Bb, S, H, P) float32 or bfloat16; dt: (Bb, S, H); A: (H,);
     B/C: (Bb, S, G, N), float32. Returns (y, final_state): y (Bb, S, H, P)
@@ -201,13 +261,16 @@ def ssd_scan(x, dt, A, B, C, chunk: int = 128):
     cum = torch.empty(sc["cum"], dtype=torch.float64, device=x.device)
     cb = torch.empty(sc["cb"], dtype=torch.float32, device=x.device)
     states = torch.empty(sc["states"], dtype=torch.float32, device=x.device)
-    rc = _entry()(x.data_ptr(), x_strides,
-                  *(t.data_ptr() for t in (dt, A, B, C, y, state, cum, cb,
-                                           states)),
-                  _DTYPES[x.dtype], Bb, S, H, P, G, N, ints,
-                  int(vector_ok(x, P)),
-                  int(vector_ok(B, N) and vector_ok(C, N)),
-                  torch.cuda.current_stream(x.device).cuda_stream)
+    stream = torch.cuda.current_stream(x.device)
+    with record_launch("ssd_scan", stream, lambda: ssd_work(
+            x, dt, A, B, C, y, state, chunk)):
+        rc = _entry()(x.data_ptr(), x_strides,
+                      *(t.data_ptr() for t in (dt, A, B, C, y, state, cum,
+                                               cb, states)),
+                      _DTYPES[x.dtype], Bb, S, H, P, G, N, ints,
+                      int(vector_ok(x, P)),
+                      int(vector_ok(B, N) and vector_ok(C, N)),
+                      stream.cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ssd_scan_launch: CUDA error {rc} at launch")
     LAUNCHES["ssd_scan"] += 1

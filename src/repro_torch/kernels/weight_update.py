@@ -33,9 +33,10 @@ import torch
 
 from repro_torch.device import kernel_library
 from repro_torch.kernels import LAUNCHES
+from repro_torch.obs.compiled import record_launch
 
-__all__ = ["hedge_replay", "hedge_replay_plain", "hedge_plan", "HedgePlan",
-           "ring"]
+__all__ = ["hedge_replay", "hedge_replay_plain", "hedge_work", "hedge_plan",
+           "HedgePlan", "ring"]
 
 MAX_BLOCK_WARPS = 4         # kMaxBlockWarps: one schedule per scheduler
 
@@ -107,6 +108,16 @@ def hedge_replay_plain(C, etas, u, n_done):
     }
 
 
+def hedge_work(S: int, K: int, J: int, P: int) -> dict:
+    """Work of one ``hedge_replay`` call: C, etas, u and n_done read once,
+    chosen, p_chosen, expected_cost and logw written once, and 12
+    operations per (scenario, instance, job, policy): the trajectory's
+    update and normalisation, the sample's distribution and cdf."""
+    return {"bytes": 4 * (S * J * P + K * J + S * J + J + 3 * S * K * J
+                          + S * K * P),
+            "ops": {"f32": 12 * S * K * J * P}}
+
+
 def hedge_replay(C, etas, u, n_done):
     """Fused Hedge replay over a (S, J, P) cost tensor, one launch.
 
@@ -145,11 +156,14 @@ def hedge_replay(C, etas, u, n_done):
     fn = kernel_library("hedge_replay").hedge_replay_launch
     fn.restype = ctypes.c_int
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
-    rc = fn(*map(ptr, (C, etas, u, n_done, traj, chosen, p_chosen, expected,
-                       logw)),
-            *map(ctypes.c_int, (S, K, J, P)), ctypes.c_float(-math.log(P)),
-            *map(ctypes.c_int, (plan.groups, plan.warps)),
-            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    stream = torch.cuda.current_stream(dev)
+    with record_launch("hedge_replay", stream,
+                       lambda: hedge_work(S, K, J, P)):
+        rc = fn(*map(ptr, (C, etas, u, n_done, traj, chosen, p_chosen,
+                           expected, logw)),
+                *map(ctypes.c_int, (S, K, J, P)), ctypes.c_float(-math.log(P)),
+                *map(ctypes.c_int, (plan.groups, plan.warps)),
+                ctypes.c_void_p(stream.cuda_stream))
     if rc != 0:
         raise RuntimeError(f"hedge_replay_launch: CUDA error {rc} at launch")
     LAUNCHES["hedge_replay"] += 1

@@ -12,7 +12,6 @@ until the group ends.
 from __future__ import annotations
 
 import argparse
-import time
 
 import numpy as np
 import torch
@@ -21,6 +20,7 @@ from repro_torch.configs import get_config, smoke_config
 from repro_torch.device import resolve_device
 from repro_torch.launch import steps as step_lib
 from repro_torch.models import build
+from repro_torch.obs import span
 
 __all__ = ["serve_requests", "main"]
 
@@ -44,21 +44,22 @@ def serve_requests(cfg, prompts: np.ndarray, batch: int, max_new: int,
 
     out = np.zeros((n, max_new), np.int32)
     queue = list(range(n))
-    t0 = time.perf_counter()
-    while queue:
-        ids = queue[:batch]
-        queue = queue[len(ids):]
-        toks = np.concatenate(
-            [prompts[ids], np.zeros((batch - len(ids), S), np.int32)], axis=0)
-        token, cache = prefill_fn({"tokens": torch.as_tensor(toks,
-                                                             device=dev)})
-        pos0 = S + (cfg.n_meta_tokens or 0)
-        tokens = [token]
-        for t in range(max_new - 1):
-            token, cache = decode_fn(cache, token, pos0 + t)
-            tokens.append(token)
-        out[ids] = torch.cat(tokens, 1)[:len(ids), :max_new].cpu().numpy()
-    wall = time.perf_counter() - t0
+    with span("serve.requests", n=n, batch=batch, max_new=max_new) as sp:
+        while queue:
+            ids = queue[:batch]
+            queue = queue[len(ids):]
+            toks = np.concatenate(
+                [prompts[ids], np.zeros((batch - len(ids), S), np.int32)],
+                axis=0)
+            token, cache = prefill_fn({"tokens": torch.as_tensor(
+                toks, device=dev)})
+            pos0 = S + (cfg.n_meta_tokens or 0)
+            tokens = [token]
+            for t in range(max_new - 1):
+                token, cache = decode_fn(cache, token, pos0 + t)
+                tokens.append(token)
+            out[ids] = torch.cat(tokens, 1)[:len(ids), :max_new].cpu().numpy()
+    wall = sp.seconds
     return out, {"requests": n, "tokens_per_s": n * max_new / max(wall, 1e-9),
                  "wall_s": wall}
 

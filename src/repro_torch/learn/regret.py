@@ -151,6 +151,10 @@ class StreamLearnResult:
     curve_sq: np.ndarray | None = None         # (K, J)
     weights_sum: np.ndarray | None = None      # (K, P) final distributions
     top_weight_sum: np.ndarray | None = None   # (K,)
+    # ``repro_torch.obs`` snapshot ({"metrics": ..., "compiled": ...})
+    # taken by replay_stream when an observability context was active;
+    # None otherwise.
+    obs: dict | None = None
 
     @property
     def labels(self) -> list[str]:

@@ -40,6 +40,7 @@ from repro_torch.learn.learners import (
     update_state,
 )
 from repro_torch.learn.regret import LearnResult, StreamLearnResult
+from repro_torch.obs import METRICS, maybe_snapshot, span
 
 __all__ = ["replay", "replay_stream", "build_events"]
 
@@ -95,6 +96,24 @@ def _replay_numpy_one(C, spec, u, ev_kind, ev_j, etas, gammas):
     return chosen, p_sel, e_cost, weights
 
 
+def _weight_metrics(specs, weights_mean) -> None:
+    """Per-chunk learner telemetry: Shannon entropy (nats) of the mean
+    weight posterior and the heaviest expert's share, one labeled series
+    per learner instance. No-op unless the metrics registry is collecting."""
+    if not METRICS.enabled:
+        return
+    w = np.maximum(np.asarray(weights_mean, np.float64), 0.0)
+    w = w / np.maximum(w.sum(axis=1, keepdims=True), 1e-300)
+    ent = -(w * np.log(np.maximum(w, 1e-300))).sum(axis=1)
+    top = w.max(axis=1)
+    hist = METRICS.histogram("learn.weight_entropy")
+    gauge = METRICS.gauge("learn.top_weight")
+    for k, sp in enumerate(specs):
+        label = f"{k}:{sp.kind}"
+        hist.observe(float(ent[k]), learner=label)
+        gauge.set(float(top[k]), learner=label)
+
+
 def replay(
     C,
     arrivals,
@@ -118,6 +137,22 @@ def replay(
     otherwise scenario s uses ``seed + s``. ``device`` is where
     ``backend="torch"`` runs its kernels.
     """
+    return _replay_timed(C, arrivals, d, workload, learners, seed, rng,
+                         backend, device)[0]
+
+
+def _replay_timed(
+    C,
+    arrivals,
+    d: float,
+    workload=None,
+    learners=("hedge",),
+    seed: int = 0,
+    rng: np.random.Generator | None = None,
+    backend: str = "torch",
+    device="cuda",
+) -> tuple[LearnResult, float]:
+    """:func:`replay` and the seconds of its ``replay`` span."""
     if hasattr(C, "unit_cost"):
         if workload is None:
             workload = C.workload
@@ -152,24 +187,25 @@ def replay(
                       for s in range(S)])
 
     K = len(specs)
-    if backend == "numpy":
-        chosen = np.zeros((S, K, n), dtype=np.int64)
-        p_sel = np.zeros((S, K, n))
-        e_cost = np.zeros((S, K, n))
-        weights = np.zeros((S, K, m))
-        for s in range(S):
-            for k, sp in enumerate(specs):
-                chosen[s, k], p_sel[s, k], e_cost[s, k], weights[s, k] = \
-                    _replay_numpy_one(C[s], sp, u[s], ev_kind, ev_j,
-                                      etas[k], gammas[k])
-    else:
-        chosen, p_sel, e_cost, weights = _replay_torch(
-            C, specs, etas, gammas, u, ev_kind, ev_j, n_done, dev)
+    with span("replay", backend=backend, scenarios=S, learners=K) as sp_r:
+        if backend == "numpy":
+            chosen = np.zeros((S, K, n), dtype=np.int64)
+            p_sel = np.zeros((S, K, n))
+            e_cost = np.zeros((S, K, n))
+            weights = np.zeros((S, K, m))
+            for s in range(S):
+                for k, sp in enumerate(specs):
+                    chosen[s, k], p_sel[s, k], e_cost[s, k], weights[s, k] \
+                        = _replay_numpy_one(C[s], sp, u[s], ev_kind, ev_j,
+                                            etas[k], gammas[k])
+        else:
+            chosen, p_sel, e_cost, weights = _replay_torch(
+                C, specs, etas, gammas, u, ev_kind, ev_j, n_done, dev)
 
     return LearnResult(
         specs=specs, chosen=chosen, p_chosen=p_sel, expected_unit=e_cost,
         weights=weights, unit_cost=C, arrivals=arrivals, workload=Z,
-        feedback_delay=float(d), backend=backend)
+        feedback_delay=float(d), backend=backend), sp_r.seconds
 
 
 def replay_stream(
@@ -231,13 +267,20 @@ def replay_stream(
         jobs, policies, source, r_total, scenario_chunk=scenario_chunk,
         windows=windows, selfowned=selfowned, early_start=early_start,
         pool="dedicated", overlap=overlap, device=device)
-    for ch in stream:
-        lr = replay(ch.unit_cost, arrivals, d, workload=Z, learners=specs,
-                    seed=seed + ch.s0, backend=backend, device=device)
-        # The chunk-boundary round trip: a no-op for every non-adaptive
-        # source; the generator builds the NEXT chunk only after this
-        # returns, so the adversary's state is current when spikes land.
-        source.observe(acc.fold(lr))
+    with span("replay_stream", backend=backend):
+        for ci, ch in enumerate(stream):
+            with span("fold", chunk=ci, s0=ch.s0, s1=ch.s1):
+                lr = replay(ch.unit_cost, arrivals, d, workload=Z,
+                            learners=specs, seed=seed + ch.s0,
+                            backend=backend, device=device)
+                feedback = acc.fold(lr)
+            _weight_metrics(specs, lr.weights.mean(axis=0))
+            # The chunk-boundary round trip: a no-op for every non-adaptive
+            # source; the generator builds the NEXT chunk only after this
+            # returns, so the adversary's state is current when spikes
+            # land.
+            source.observe(feedback)
+    acc.obs = maybe_snapshot()
     return acc
 
 def _replay_torch(C, specs, etas, gammas, u, ev_kind, ev_j, n_done, dev):

@@ -5,6 +5,7 @@ given, checked on the CPU. Both kernels run only on the card
 here the rule and the layouts are held to what the models and the reference
 kernel tests pass in."""
 
+import importlib
 import types
 
 import numpy as np
@@ -14,7 +15,8 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import LAUNCHES, ops  # noqa: E402
-from repro_torch.kernels import flash_attention as fa  # noqa: E402
+# The module (the package attribute of its name is the function).
+fa = importlib.import_module("repro_torch.kernels.flash_attention")
 from repro_torch.models import layers  # noqa: E402
 
 FLASH_SHAPES = [                 # tests/test_kernels.py:17-39
