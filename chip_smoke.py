@@ -188,7 +188,32 @@ Phases, each failing the run with a non-zero exit:
    overhead measured directly: spans of (a) times one span's cost under 2 %
    of (a)'s untraced wall with tracing off, and with tracing and capture
    on (plus each captured launch times one captured launch's cost) under
-   10 %; (e) no ``nvcc`` build over the phase (``CompileWatch``).
+   10 %; (e) no ``nvcc`` build over the phase (``CompileWatch``);
+14. the scenario x policy-group mesh (``repro_torch.engine.mesh``) — (a) a
+   1x1 mesh over NCCL, on a process group of one rank (a ``FileStore``
+   under ``build/archive/phase14/``) set up and torn down here: phase 12's
+   grid and spec (S = 16 in chunks of 8) through ``evaluate_grid(mesh=)``
+   bit for bit with the unsharded call, early-start (one chain launch per
+   chunk) and Even planned-start (one task launch per bid per chunk);
+   ``run_tola_scenarios(mesh=)`` on phase 2's r = 1200 proposed inputs (S =
+   2, with its refinement round): cost matrices and chosen traces bit for
+   bit with phase 2's; ``replay_stream(mesh=)`` with hedge and exp3 within
+   1e-4 of the unmeshed host fold on every statistic; the adaptive
+   stream's round trip under the mesh (S = 16, chunks of 8, hedge) within
+   1e-4 of the unmeshed one; ``collective_counts``: no collective in an
+   eval program, one all-gather per evaluated chunk, one all-reduce per
+   folded chunk; eval and splice seconds and the card's peak memory;
+   (b) a 2x2 mesh of four gloo ranks sharing the card (NCCL refuses two
+   ranks on one device), started by ``torch.multiprocessing`` (spawn) with
+   a join timeout, each loading the libraries phase 1 built and building
+   none: at S = 13 (scenario padding) on the r = 1200 grid (13 groups per
+   bid: group padding), every rank's (S, J, P) tensors bit for bit the
+   unsharded card tensors (SHA-256 per scenario and field), the fold
+   (hedge, exp3, chunks of 8) within 1e-4 of the unmeshed host fold, each
+   rank's collective counts and kernel launches (one chain launch per rank
+   per chunk), eval and splice seconds and peak memory printed. A rank on
+   the CPU, a rank that fails or hangs, or a gloo process group where NCCL
+   was asked for fails the run.
 
 Then one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` name and
 power-limit line, and last ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -255,6 +280,20 @@ OBS_ADAPTIVE_S = 16
 SPAN_REPS, EVENT_REPS = 20000, 200
 DISABLED_SHARE, ENABLED_SHARE = 0.02, 0.10
 OBS_TRACE = pathlib.Path("build") / "archive" / "phase13_trace.json"
+# Phase 14, the mesh: (a) phase 12's grid and spec on a 1x1 NCCL mesh, (b)
+# a 2x2 mesh of four gloo ranks sharing the card at S = 13.
+MESH_DIR = pathlib.Path("build") / "archive" / "phase14"
+MESH_SHAPE = (2, 2)
+MESH_S = 13
+MESH_LEARNERS = ["hedge", "exp3"]
+MESH_FOLD_TOL = 1e-4     # absolute, the reference's fold bar
+MESH_TIMEOUT = 300.0     # seconds for the four ranks, start to end
+MESH_FIELDS = ("unit_cost", "spot_cost", "ondemand_cost", "spot_work",
+               "ondemand_work")
+MESH_EVAL_KEYS = ("engine.eval.chain:sharded", "engine.eval.task:sharded",
+                  "engine.eval.chain_ps:sharded",
+                  "engine.eval.task_ps:sharded")
+MESH_KEYS = MESH_EVAL_KEYS + ("engine.gather:sharded", "learn.fold:sharded")
 # The device kernel names torch.profiler shows, one entry per captured
 # launch of each key (the Hedge call's trajectory pass).
 PROFILED_AS = {"policy_cost_chain": ("chain_smem_kernel", "chain_kernel"),
@@ -2597,6 +2636,338 @@ def obs_phase(torch, np, jobs, smi: str, phase3: dict) -> dict:
             "enabled_share": on_share}
 
 
+def fold_stats(np, r) -> dict:
+    """Every statistic of a ``StreamLearnResult`` the mesh phase holds to
+    the host fold."""
+    mean, lo, hi = r.confidence_bands()
+    top = np.array([row["top_weight"] for row in r.summary()])
+    return {"regret": r.regret_per_job(),
+            "expected": r.regret_per_job(expected=True),
+            "realized": r.realized_unit(), "std": r.regret_std(),
+            "best_fixed": np.asarray([r.best_fixed()]),
+            "weights": r.weights(), "curve": mean, "lo": lo, "hi": hi,
+            "top_weight": top,
+            "n": np.asarray([r.n_scenarios, r.n_chunks], np.float64)}
+
+
+def fold_gap(np, a: dict, b: dict) -> float:
+    return max(float(np.abs(np.asarray(a[k]) - np.asarray(b[k])).max())
+               for k in a)
+
+
+def scenario_digests(np, res) -> dict:
+    """SHA-256 of every (field, scenario) slab of a result: bit equality
+    of two (S, J, P) tensors without moving them between processes."""
+    import hashlib
+
+    return {f: [hashlib.sha256(np.ascontiguousarray(
+        getattr(res, f)[s]).tobytes()).hexdigest()
+        for s in range(getattr(res, f).shape[0])] for f in MESH_FIELDS}
+
+
+def mesh_counts(compiled) -> tuple[dict, dict]:
+    return ({k: compiled.collective_counts(k) for k in MESH_KEYS},
+            {k: compiled.program_runs(k) for k in MESH_KEYS})
+
+
+def count_faults(counts: dict, runs: dict, folded: int) -> list[str]:
+    """What breaks the placement contract: a collective in an eval program,
+    other than one all-gather per evaluated chunk, other than one
+    all-reduce per folded chunk."""
+    bad = [f"{k}: {counts[k]['total']} collective(s)"
+           for k in MESH_EVAL_KEYS if counts[k]["total"]]
+    evaluated = sum(runs[k] for k in MESH_EVAL_KEYS)
+    g = counts["engine.gather:sharded"]
+    if not g["all-gather"] == g["total"] == runs["engine.gather:sharded"] \
+            == evaluated:
+        bad.append(f"splice: {g} over {evaluated} evaluated chunks")
+    f = counts["learn.fold:sharded"]
+    if not f["all-reduce"] == f["total"] == runs["learn.fold:sharded"] \
+            == folded:
+        bad.append(f"fold: {f} over {folded} folded chunks")
+    return bad
+
+
+def mesh_rank(rank: int, out_dir: str) -> None:
+    """One of phase 14 (b)'s four gloo ranks on the card (spawned)."""
+    import datetime
+    import os
+    import pickle
+
+    os.environ["GLOO_SOCKET_IFNAME"] = "lo"
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    out = pathlib.Path(out_dir)
+    torch.cuda.set_device(0)
+    world = MESH_SHAPE[0] * MESH_SHAPE[1]
+    dist.init_process_group(
+        "gloo", init_method=f"file://{out / 'store'}", world_size=world,
+        rank=rank, timeout=datetime.timedelta(seconds=MESH_TIMEOUT))
+    try:
+        from repro_torch.engine import GridMesh, ScenarioSpec, evaluate_grid
+        from repro_torch.kernels import LAUNCHES
+        from repro_torch.learn import replay_stream
+        from repro_torch.obs import compiled
+
+        with open(out / "inputs.pkl", "rb") as f:
+            x = pickle.load(f)
+        spec = ScenarioSpec("fresh", x["horizon"], MESH_S, seed=STREAM_SEED)
+        mesh = GridMesh.create(*MESH_SHAPE)
+        compiled.reset_collectives()
+        torch.cuda.reset_peak_memory_stats()
+        watch = compiled.CompileWatch()
+        with watch:
+            LAUNCHES.clear()
+            res = evaluate_grid(x["jobs"], x["grid"], spec, 1200,
+                                device="cuda", mesh=mesh)
+            torch.cuda.synchronize()
+            eval_launches = dict(LAUNCHES)
+            LAUNCHES.clear()
+            fold = replay_stream(x["jobs"], x["grid"], spec, 1200,
+                                 learners=MESH_LEARNERS, seed=0,
+                                 scenario_chunk=STREAM_CHUNK, device="cuda",
+                                 mesh=mesh)
+            torch.cuda.synchronize()
+            fold_launches = dict(LAUNCHES)
+        counts, runs = mesh_counts(compiled)
+        np.savez(out / f"rank{rank}.npz", **fold_stats(np, fold))
+        (out / f"rank{rank}.json").write_text(json.dumps({
+            "coords": [mesh.data_rank, mesh.model_rank],
+            "backend": dist.get_backend(), "device": res.device,
+            "digests": scenario_digests(np, res),
+            "eval_s": res.timings["eval"], "splice_s": res.timings["splice"],
+            "eval_launches": eval_launches, "fold_launches": fold_launches,
+            "fold_chunks": fold.n_chunks, "counts": counts, "runs": runs,
+            "compiles": watch.compiles,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}))
+        # No rank tears its connections down while another is still in a
+        # collective with it.
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(fn, world: int, args, timeout: float) -> None:
+    """Run ``fn(rank, *args)`` in ``world`` spawned processes; fail the run
+    if one raises or they are not all done within ``timeout`` seconds (the
+    processes are killed either way before this returns)."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(fn, args=args, nprocs=world, join=False,
+                             start_method="spawn")
+    deadline = time.perf_counter() + timeout
+    try:
+        while not ctx.join(timeout=max(deadline - time.perf_counter(), 0.0)):
+            if time.perf_counter() >= deadline:
+                fail(f"phase 14 (b): the {world} ranks did not finish "
+                     f"within {timeout} s")
+    except mp.ProcessRaisedException as e:
+        fail(f"phase 14 (b): a rank failed:\n{e}")
+    except mp.ProcessExitedException as e:
+        fail(f"phase 14 (b): a rank exited: {e}")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join()
+
+
+def mesh_phase(torch, np, jobs, tola_call) -> dict:
+    """Phase 14: the scenario x policy-group mesh, (a) a 1x1 mesh over
+    NCCL and (b) a 2x2 mesh of four gloo ranks sharing the card. Returns
+    the kernels' launches of (a) and of one rank of (b)."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from repro_torch.core import (
+        benchmark_bid_policies, run_tola_scenarios, selfowned_policies)
+    from repro_torch.engine import (
+        GridMesh, ScenarioSpec, ScenarioStream, evaluate_grid)
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.learn import replay_stream
+    from repro_torch.obs import compiled
+
+    horizon = max(j.deadline for j in jobs) + 1.0
+    grid = selfowned_policies()
+    K = STREAM_CHUNK
+    spec = ScenarioSpec("fresh", horizon, STREAM_S["eval"], seed=STREAM_SEED)
+    phase_launches: dict = {}
+
+    def run(fn, *a, **k):
+        """(result, wall, launches) of a call on the card."""
+        LAUNCHES.clear()
+        t = time.perf_counter()
+        res = fn(*a, **k)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        for name, n in LAUNCHES.items():
+            phase_launches[name] = phase_launches.get(name, 0) + n
+        return res, wall, dict(LAUNCHES)
+
+    def same(a, b) -> bool:
+        return all(np.array_equal(getattr(a, f), getattr(b, f))
+                   for f in MESH_FIELDS + ("selfowned_work",))
+
+    # -- (a) a 1x1 mesh over NCCL -------------------------------------------
+    MESH_DIR.mkdir(parents=True, exist_ok=True)
+    store = (MESH_DIR / "nccl_store").resolve()
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl", init_method=f"file://{store}",
+                            world_size=1, rank=0)
+    try:
+        mesh = GridMesh.create(1)
+        if mesh.mesh is None or dist.get_backend() != "nccl":
+            fail(f"phase 14 (a): the 1x1 mesh is not on an NCCL group "
+                 f"({dist.get_backend()})")
+        compiled.reset_collectives()
+        torch.cuda.reset_peak_memory_stats()
+        n_chunks = -(-spec.n_scenarios // K)
+        legs = [("early start (chain)", grid, {}, "policy_cost_chain",
+                 n_chunks),
+                ("Even planned start (task)", benchmark_bid_policies(),
+                 {"windows": "even", "selfowned": "naive",
+                  "early_start": False}, "policy_cost",
+                 n_chunks * len({round(p.bid, 12)
+                                 for p in benchmark_bid_policies()}))]
+        for label, g, kw, kernel, want in legs:
+            un, t_un, l_un = run(evaluate_grid, jobs, g, spec, 1200,
+                                 scenario_chunk=K, device="cuda", **kw)
+            me, t_me, l_me = run(evaluate_grid, jobs, g, spec, 1200,
+                                 scenario_chunk=K, device="cuda", mesh=mesh,
+                                 **kw)
+            print(f"(a) {label}, S = {spec.n_scenarios} in chunks of {K}: "
+                  f"meshed {'bit for bit' if same(un, me) else 'DIFFERS'}; "
+                  f"unsharded {t_un:.3f}s (eval {un.timings['eval']:.3f}s), "
+                  f"meshed {t_me:.3f}s (eval {me.timings['eval']:.3f}s, of "
+                  f"which splice {me.timings['splice']:.3f}s); {kernel} "
+                  f"launches {l_un.get(kernel, 0)} and "
+                  f"{l_me.get(kernel, 0)}")
+            if not same(un, me) or not me.device.startswith("cuda"):
+                fail(f"phase 14 (a) {label}: the meshed result differs from "
+                     f"the unsharded one (device {me.device})")
+            if l_me.get(kernel, 0) != want or l_un.get(kernel, 0) != want:
+                fail(f"phase 14 (a) {label}: {kernel} launched "
+                     f"{l_un.get(kernel, 0)} and {l_me.get(kernel, 0)} "
+                     f"times, expected {want}")
+        # TOLA on phase 2's r = 1200 proposed inputs, refinement included.
+        args, kwargs, ref = tola_call
+        got, t_tola, l_tola = run(run_tola_scenarios, *args,
+                                  **dict(kwargs, mesh=mesh))
+        ok = all(np.array_equal(a.cost_matrix, b.cost_matrix)
+                 and np.array_equal(a.chosen, b.chosen)
+                 for a, b in zip(ref, got))
+        print(f"(a) run_tola_scenarios(mesh=) on phase 2's r = 1200 inputs "
+              f"(S = {len(got)}, {kwargs.get('pool_iters', 1)} refinement "
+              f"round(s)): cost matrices and chosen traces "
+              f"{'bit for bit' if ok else 'DIFFER'} from phase 2's; "
+              f"{t_tola:.3f}s; launches {l_tola}")
+        if not ok:
+            fail("phase 14 (a): meshed TOLA differs from phase 2's")
+        # The fold, and the adaptive round trip.
+        for label, src, learners in (
+                ("fresh", lambda: spec, MESH_LEARNERS),
+                ("adaptive", lambda: ScenarioStream(ScenarioSpec(
+                    "adaptive", horizon, OBS_ADAPTIVE_S, seed=STREAM_SEED)),
+                 ["hedge"])):
+            host, t_h, _ = run(replay_stream, jobs, grid, src(), 1200,
+                               learners=learners, seed=0, scenario_chunk=K,
+                               device="cuda")
+            sh, t_s, l_s = run(replay_stream, jobs, grid, src(), 1200,
+                               learners=learners, seed=0, scenario_chunk=K,
+                               device="cuda", mesh=mesh)
+            gap = fold_gap(np, fold_stats(np, host), fold_stats(np, sh))
+            print(f"(a) replay_stream(mesh=) {label} {learners}: "
+                  f"{sh.n_chunks} chunks, largest gap to the host fold "
+                  f"{gap:.3e} (bar {MESH_FOLD_TOL}); host {t_h:.3f}s, "
+                  f"meshed {t_s:.3f}s; launches {l_s}")
+            if gap >= MESH_FOLD_TOL or sh.n_scenarios != host.n_scenarios:
+                fail(f"phase 14 (a): the sharded fold ({label}) leaves the "
+                     f"host fold by {gap}")
+        counts, runs = mesh_counts(compiled)
+        folded = 2 * n_chunks
+        bad = count_faults(counts, runs, folded)
+        print(f"(a) collective_counts: "
+              f"{ {k: counts[k]['total'] for k in MESH_KEYS} } over runs "
+              f"{runs}")
+        if bad:
+            fail(f"phase 14 (a): placement contract broken: {bad}")
+        print(f"(a) peak memory on the card "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    finally:
+        dist.destroy_process_group()
+
+    # -- (b) a 2x2 mesh of four gloo ranks sharing the card -----------------
+    spec13 = ScenarioSpec("fresh", horizon, MESH_S, seed=STREAM_SEED)
+    ref, t_ref, _ = run(evaluate_grid, jobs, grid, spec13, 1200,
+                        device="cuda")
+    want = scenario_digests(np, ref)
+    host, t_host, _ = run(replay_stream, jobs, grid, spec13, 1200,
+                          learners=MESH_LEARNERS, seed=0, scenario_chunk=K,
+                          device="cuda")
+    host_stats = fold_stats(np, host)
+    out = (MESH_DIR / "ranks").resolve()
+    out.mkdir(parents=True, exist_ok=True)
+    for f in out.iterdir():
+        f.unlink()
+    with open(out / "inputs.pkl", "wb") as f:
+        pickle.dump({"jobs": jobs, "grid": grid, "horizon": horizon}, f)
+    world = MESH_SHAPE[0] * MESH_SHAPE[1]
+    t0 = time.perf_counter()
+    spawn_ranks(mesh_rank, world, (str(out),), MESH_TIMEOUT)
+    t_ranks = time.perf_counter() - t0
+    print(f"(b) {MESH_SHAPE[0]}x{MESH_SHAPE[1]} mesh, {world} gloo ranks on "
+          f"the card, S = {MESH_S}, {len(grid)} policies: ranks "
+          f"{t_ranks:.3f}s start to end; unsharded reference {t_ref:.3f}s, "
+          f"host fold {t_host:.3f}s")
+    rank_launches = {}
+    n_fold = -(-MESH_S // K)
+    for r in range(world):
+        meta = json.loads((out / f"rank{r}.json").read_text())
+        with np.load(out / f"rank{r}.npz") as z:
+            gap = fold_gap(np, host_stats, {k: z[k] for k in z.files})
+        diff = {f: [s for s, (a, b) in enumerate(zip(want[f],
+                                                      meta["digests"][f]))
+                    if a != b] for f in MESH_FIELDS}
+        diff = {f: v for f, v in diff.items() if v}
+        bad = count_faults(meta["counts"], meta["runs"], n_fold)
+        chain = meta["eval_launches"].get("policy_cost_chain", 0)
+        print(f"(b) rank {r} at {tuple(meta['coords'])} ({meta['backend']}, "
+              f"{meta['device']}): tensors "
+              f"{'bit for bit' if not diff else f'DIFFER at {diff}'}; fold "
+              f"gap {gap:.3e}; eval {meta['eval_s']:.3f}s of which splice "
+              f"{meta['splice_s']:.3f}s; peak {meta['peak_gib']:.3f} GiB; "
+              f"launches eval {meta['eval_launches']} fold "
+              f"{meta['fold_launches']}; collectives "
+              f"{ {k: v['total'] for k, v in meta['counts'].items()} }; "
+              f"nvcc builds {meta['compiles']}")
+        if diff:
+            fail(f"phase 14 (b): rank {r}'s tensors differ from the "
+                 f"unsharded card tensors at {diff}")
+        if not meta["device"].startswith("cuda") \
+                or meta["backend"] != "gloo":
+            fail(f"phase 14 (b): rank {r} ran on {meta['device']} over "
+                 f"{meta['backend']}")
+        if gap >= MESH_FOLD_TOL or meta["fold_chunks"] != n_fold:
+            fail(f"phase 14 (b): rank {r}'s fold leaves the host fold by "
+                 f"{gap}")
+        if bad or chain != 1 \
+                or meta["fold_launches"].get("policy_cost_chain", 0) \
+                != n_fold:
+            fail(f"phase 14 (b): rank {r}: {bad}, {chain} chain launch(es) "
+                 f"in a one-chunk evaluation")
+        if meta["compiles"]:
+            fail(f"phase 14 (b): rank {r} built {meta['compiles']} kernel "
+                 f"librar(ies)")
+        if r == 0:
+            for d in (meta["eval_launches"], meta["fold_launches"]):
+                for name, n in d.items():
+                    rank_launches[name] = rank_launches.get(name, 0) + n
+    return {"a": phase_launches, "b": rank_launches}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--jobs", type=int, default=10000,
@@ -2716,6 +3087,16 @@ def main() -> int:
         compare.append((C, arrivals, d, kw, lr))
         return lr
     table6.replay = compare_replay
+    # Phase 2's r = 1200 proposed TOLA call and its results: phase 14 runs
+    # it again under a mesh.
+    tola_calls, tola_fn = [], table6.run_tola_scenarios
+
+    def recorded_tola(*a, **k):
+        out = tola_fn(*a, **k)
+        if k.get("r_total") == 1200 and "windows" not in k:
+            tola_calls.append((a, k, out))
+        return out
+    table6.run_tola_scenarios = recorded_tola
     # Each chain launch's route and share of tasks with work (kept on the
     # device, read after the run).
     chain_seen, recorded_chain = [], pc.policy_cost_chain
@@ -2791,6 +3172,9 @@ def main() -> int:
     wu.hedge_replay = hedge_fn
     lk.learner_replay = learner_fn
     table6.replay = replay_fn
+    table6.run_tola_scenarios = tola_fn
+    if len(tola_calls) != 1:
+        fail(f"phase 2 made {len(tola_calls)} r = 1200 proposed TOLA calls")
 
     # -- 3. kernels against their plain versions, main-path inputs ----------
     kernels = []
@@ -3188,6 +3572,15 @@ def main() -> int:
             k["obs_launches"], k["obs_device_ms"] = e["launches"], \
                 e["device_ms"]
     print(f"[phase observability: {time.perf_counter() - t0:.3f}s]")
+
+    # -- 14. the scenario x policy-group mesh -------------------------------
+    t0 = time.perf_counter()
+    meshed = mesh_phase(torch, np, table6_jobs, tola_calls[0])
+    for k in kernels:
+        k["mesh_launches"] = meshed["a"].get(k["name"], 0)
+        k["mesh_rank0_launches"] = meshed["b"].get(k["name"], 0)
+    print(f"[phase mesh: {time.perf_counter() - t0:.3f}s; launches (a) "
+          f"{meshed['a']}, rank 0 of (b) {meshed['b']}]")
 
     for k in kernels:    # the same two numbers under their other names
         k["max_abs_diff"], k["kernel_ms"] = k["max_abs_err"], k["ms"]

@@ -61,6 +61,7 @@ def sweep_policies(
     early_start: bool = True,
     device="cuda",
     scenario_chunk: int | None = None,
+    mesh=None,
 ) -> "tuple[Policy, float, StreamCosts, EngineResult]":  # noqa: F821
     """min over a policy grid of the realized average unit cost.
 
@@ -70,14 +71,15 @@ def sweep_policies(
     are given, its StreamCosts in scenario 0, the full EngineResult).
     ``markets`` accepts everything ``evaluate_grid`` does (a market, a
     list, a ``ScenarioSpec`` / source); ``scenario_chunk`` streams the
-    scenario axis K per pass.
+    scenario axis K per pass; ``mesh`` shards the scenario axis over a
+    mesh of ranks (DESIGN.md §9).
     """
     from repro_torch.engine import evaluate_grid
 
     res = evaluate_grid(jobs, policies, markets, r_total, windows=windows,
                         selfowned=selfowned, early_start=early_start,
                         pool="shared", scenario_chunk=scenario_chunk,
-                        device=device)
+                        device=device, mesh=mesh)
     p, alpha = res.best()
     return policies[p], alpha, res.stream_costs(p, 0), res
 

@@ -181,6 +181,7 @@ def run_tola_scenarios(
     learner="hedge",
     plan_backend: str = "auto",
     device="cuda",
+    mesh=None,
 ) -> list[TolaResult]:
     """Algorithm 4 across S market scenarios, cost matrices batched.
 
@@ -192,8 +193,15 @@ def run_tola_scenarios(
     ``seed + s``, as looping single-market ``run_tola`` would. With device
     plans the refinement rounds take the plan layer's two-stage path: the
     planned windows go to the host once for the per-scenario queries.
+
+    ``mesh`` shards the scenario axis (DESIGN.md §9) in every round: round
+    0's ordinary scenario axis and the refinement rounds' per-scenario
+    availability pass (the (S, R, L) refined plan stacks are sliced with
+    the views). Every rank replays all scenarios on the host and returns
+    the full result.
     """
     from repro_torch.engine import evaluate_grid  # engine depends on core
+    from repro_torch.engine.mesh import as_scenario_mesh
 
     if not jobs or not policies:
         raise ValueError("need jobs and policies")
@@ -202,6 +210,7 @@ def run_tola_scenarios(
     spec = as_spec(learner)
     rngs = [np.random.default_rng(seed + s) for s in range(S)]
     timings: dict = {}
+    mesh = as_scenario_mesh(mesh)
 
     avails: list | None = None
     iters = 1 + (pool_iters if r_total > 0 else 0)
@@ -209,7 +218,8 @@ def run_tola_scenarios(
         res = evaluate_grid(
             jobs, policies, markets, r_total, windows=windows,
             selfowned=selfowned, early_start=early_start, pool="dedicated",
-            availability=avails, plan_backend=plan_backend, device=device)
+            availability=avails, plan_backend=plan_backend, device=device,
+            mesh=mesh)
         for key, sec in res.timings.items():
             if isinstance(sec, float):      # not the chunk list or the flag
                 _add(timings, key, sec)

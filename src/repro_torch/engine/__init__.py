@@ -7,7 +7,10 @@
 ``markets`` may also be a ``ScenarioSpec`` (synthesized on the card) with
 ``scenario_chunk=K``; ``evaluate_grid_chunks`` yields the chunks. A
 re-bid grid is re-scored against an earlier result with
-``evaluate_grid_delta(res, jobs, policies2, markets, r_total)``.
+``evaluate_grid_delta(res, jobs, policies2, markets, r_total)``. Every
+entry point takes ``mesh=`` (a ``GridMesh``, an int or a ``DeviceMesh``)
+to shard the scenario and group axes over a ``torch.distributed``
+process group.
 """
 
 from repro_torch.engine.api import (
@@ -23,6 +26,7 @@ from repro_torch.engine.cache import (
     scenario_fingerprint,
 )
 from repro_torch.engine.cache import configure as configure_caches
+from repro_torch.engine.mesh import GridMesh, ScenarioMesh, as_scenario_mesh
 from repro_torch.engine.plan import EvalGroup, GridPlan, build_grid_plan
 from repro_torch.engine.result import EngineResult
 from repro_torch.engine.scenarios import (
@@ -49,4 +53,4 @@ __all__ = ["evaluate_grid", "evaluate_grid_chunks", "GridChunk",
            "ScenarioStream", "ScenarioSource", "ScenarioBatch",
            "MarketListBatch", "SynthBatch", "as_source", "check_scenarios",
            "make_scenarios", "adversarial_scenarios", "replay_scenarios",
-           "stack_views"]
+           "stack_views", "GridMesh", "ScenarioMesh", "as_scenario_mesh"]

@@ -15,6 +15,10 @@ against ONE grid plan, a spec's chunks synthesized on the device.
 ``evaluate_grid_chunks`` yields the same stream one chunk at a time (the
 online-learning replay folds it without the full (S, J, P) tensor, and the
 adaptive adversary's feedback happens between chunks).
+
+``mesh=`` shards the scenario axis (and the group axis of a 2-D mesh)
+over the ranks of a ``torch.distributed`` process group (``mesh.py``,
+DESIGN.md §9); every rank returns the full result.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from repro_torch.core.types import ChainJob
 from repro_torch.device import resolve_device
 from repro_torch.engine import backend
 from repro_torch.engine.cache import scenario_fingerprint
+from repro_torch.engine.mesh import as_scenario_mesh
 from repro_torch.engine.plan import _PLAN_BACKENDS, build_grid_plan
 from repro_torch.engine.result import EngineResult
 from repro_torch.engine.scenarios import as_source
@@ -86,11 +91,11 @@ def _check_scenario_chunk(scenario_chunk) -> None:
 
 def _prepare_stream(jobs, policies, scenarios, r_total, windows, selfowned,
                     pool, availability, plan_backend, scenario_chunk,
-                    overlap, dev):
+                    overlap, dev, mesh=None):
     """Shared validation + plan build of the chunked evaluation paths.
 
-    Returns ``(source, gplan, chunk, single, overlap)`` — the grid plan is
-    built ONCE and reused across every scenario chunk (it is
+    Returns ``(source, gplan, chunk, single, overlap, mesh)`` — the grid
+    plan is built ONCE and reused across every scenario chunk (it is
     scenario-independent apart from the per-scenario availability case,
     which requires a single full-batch chunk)."""
     if not jobs:
@@ -108,6 +113,11 @@ def _prepare_stream(jobs, policies, scenarios, r_total, windows, selfowned,
             "scenario_chunk cannot split a batch with per-scenario "
             "availability queries (the plan's self-owned tensors are "
             "indexed by the full scenario axis); evaluate in one chunk")
+    # Per-scenario availability (refined plans) is shardable: the (S, R, L)
+    # self-owned stacks are sliced on both axes with the views.
+    mesh = as_scenario_mesh(mesh)
+    if mesh is not None:
+        mesh.check_device(dev)
     if overlap is None:
         overlap = dev.type == "cuda" and not source.reactive
     elif overlap and source.reactive:
@@ -121,7 +131,7 @@ def _prepare_stream(jobs, policies, scenarios, r_total, windows, selfowned,
         slots_per_unit=source.slots_per_unit, n_scenarios=S,
         plan_backend=resolve_plan_backend(plan_backend, dev, pool),
         device=dev)
-    return source, gplan, chunk, single, bool(overlap)
+    return source, gplan, chunk, single, bool(overlap), mesh
 
 
 def _prefetched(stream):
@@ -139,17 +149,20 @@ def _prefetched(stream):
         yield prev
 
 
-def _run_chunk(ci, s0, s1, gplan, batch, early_start, out, overlap, dev):
+def _run_chunk(ci, s0, s1, gplan, batch, early_start, out, overlap, dev,
+               mesh=None):
     """Prepare a chunk, build its views and fill ``out`` under the span
-    tree chunk -> {synth, views x bids, eval}; returns the synth seconds,
-    the views spans' seconds (bid order) and the eval seconds."""
+    tree chunk -> {synth, views x bids, eval [-> splice under a mesh]};
+    returns the synth seconds, the views spans' seconds (bid order), the
+    eval seconds and the splice seconds (part of eval; 0.0 unsharded)."""
     with span("chunk", index=ci, s0=s0, s1=s1, backend=dev):
         with span("synth", s0=s0, s1=s1, overlap=overlap) as sp_s:
             batch.prepare()
         views = batch.build_views(gplan.bids)
         with span("eval", s0=s0, s1=s1, backend=dev) as sp_e:
-            backend.run(gplan, batch, early_start, out)
-    return sp_s.seconds, views, sp_e.seconds
+            splice_t = backend.run(gplan, batch, early_start, out,
+                                   mesh=mesh)
+    return sp_s.seconds, views, sp_e.seconds, splice_t
 
 
 def _fold(seconds) -> float:
@@ -204,6 +217,7 @@ def evaluate_grid_chunks(
     plan_backend: str = "auto",
     overlap: bool | None = None,
     device="cuda",
+    mesh=None,
 ) -> Iterator[GridChunk]:
     """Stream the grid evaluation one scenario chunk at a time.
 
@@ -216,35 +230,39 @@ def evaluate_grid_chunks(
     boundary the adaptive adversary's feedback round-trip is defined at.
     ``overlap`` double-buffers chunk synthesis (default: on a CUDA card,
     except for reactive adaptive streams, whose chunks cannot be
-    prefetched).
+    prefetched). ``mesh`` shards each chunk over a mesh of ranks (see
+    :func:`evaluate_grid`).
 
     Validation (and the plan build) runs at the call, not at the first
     ``next()`` — a bad ``scenario_chunk`` fails here, at the call site.
     """
     dev = resolve_device(device)
     with span("prepare_stream"):
-        source, gplan, chunk, _, overlap = _prepare_stream(
+        source, gplan, chunk, _, overlap, mesh = _prepare_stream(
             jobs, policies, scenarios, r_total, windows, selfowned, pool,
-            availability, plan_backend, scenario_chunk, overlap, dev)
+            availability, plan_backend, scenario_chunk, overlap, dev, mesh)
 
     def _iter():
         J, P = gplan.n_jobs, gplan.n_policies
         wl = np.maximum(gplan.workload, 1e-12)
-        stream = source.chunks(chunk, dev)
+        stream = source.chunks(chunk, dev, mesh)
         if overlap:
             stream = _prefetched(stream)
         for ci, (s0, s1, batch) in enumerate(stream):
             out = {k: np.zeros((s1 - s0, J, P)) for k in OUT_KEYS}
-            synth_t, views, eval_t = _run_chunk(
-                ci, s0, s1, gplan, batch, early_start, out, overlap, str(dev))
+            synth_t, views, eval_t, splice_t = _run_chunk(
+                ci, s0, s1, gplan, batch, early_start, out, overlap, str(dev),
+                mesh)
             views_t = _fold(views)
             _chunk_metrics(str(dev), synth_t, views_t, eval_t)
             unit = (out["spot_cost"] + out["ondemand_cost"]) \
                 / wl[None, :, None]
+            timings = {"synth": synth_t, "views": views_t, "eval": eval_t,
+                       "overlap": overlap}
+            if mesh is not None:
+                timings["splice"] = splice_t
             yield GridChunk(s0=s0, s1=s1, unit_cost=unit, out=out,
-                            workload=gplan.workload.copy(),
-                            timings={"synth": synth_t, "views": views_t,
-                                     "eval": eval_t, "overlap": overlap})
+                            workload=gplan.workload.copy(), timings=timings)
 
     return _iter()
 
@@ -265,6 +283,7 @@ def evaluate_grid(
     reduce: str = "stack",
     overlap: bool | None = None,
     device="cuda",
+    mesh=None,
 ) -> EngineResult:
     """Evaluate every job under every policy in every market scenario.
 
@@ -292,6 +311,16 @@ def evaluate_grid(
     the synthesis seconds (under overlap the RESIDUAL wait) and
     ``timings["chunks"]`` the per-chunk split.
 
+    ``mesh`` shards the SCENARIO axis, and on a 2-D mesh the group axis,
+    over the ranks of a ``torch.distributed`` process group (DESIGN.md §9):
+    a ``GridMesh``, an int shard count (clamped to the process group's
+    ranks with a warning; 1 without a process group) or a ``DeviceMesh``
+    with a ``"data"`` dim. Each rank synthesizes and scores only its
+    scenario slab x group block, with no collective in the cost launches;
+    a chunk whose scenario or group count does not divide is padded (the
+    last one repeated) and the padding dropped at the splice, so every
+    rank returns the full result, bit for bit the unsharded one.
+
     Plan groups and spec views are kept across calls (``engine/cache.py``;
     ``timings["plan_cached"]`` counts the groups served from the cache),
     and a ``reduce="stack"`` result over a fingerprintable scenario input
@@ -306,9 +335,10 @@ def evaluate_grid(
     dev = resolve_device(device)
     with span("evaluate_grid", reduce=reduce) as root:
         with span("prepare_stream"):
-            source, gplan, chunk, single, overlap = _prepare_stream(
+            source, gplan, chunk, single, overlap, mesh = _prepare_stream(
                 jobs, policies, scenarios, r_total, windows, selfowned, pool,
-                availability, plan_backend, scenario_chunk, overlap, dev)
+                availability, plan_backend, scenario_chunk, overlap, dev,
+                mesh)
         S, J, P = source.n_scenarios, gplan.n_jobs, gplan.n_policies
         root.set(backend=str(dev), scenarios=S, overlap=overlap)
 
@@ -318,10 +348,10 @@ def evaluate_grid(
             acc = {k: np.zeros((J, P)) for k in OUT_KEYS}
             buf = {k: np.zeros((chunk, J, P)) for k in OUT_KEYS}
         chunk_timings: list[dict] = []
-        synth_total = views_total = eval_total = 0.0
+        synth_total = views_total = eval_total = splice_total = 0.0
         # The stack path writes the backend's output straight into the
         # (S, J, P) slices, so it does not go through GridChunk.
-        stream = source.chunks(chunk, dev)
+        stream = source.chunks(chunk, dev, mesh)
         if overlap:
             stream = _prefetched(stream)
         for ci, (s0, s1, batch) in enumerate(stream):
@@ -329,9 +359,9 @@ def evaluate_grid(
                 out_chunk = {k: v[s0:s1] for k, v in out.items()}
             else:
                 out_chunk = {k: v[:s1 - s0] for k, v in buf.items()}
-            synth_t, views, eval_t = _run_chunk(
+            synth_t, views, eval_t, splice_t = _run_chunk(
                 ci, s0, s1, gplan, batch, early_start, out_chunk, overlap,
-                str(dev))
+                str(dev), mesh)
             if reduce == "mean":
                 for k in OUT_KEYS:
                     acc[k] += out_chunk[k].sum(axis=0)
@@ -341,10 +371,13 @@ def evaluate_grid(
             for t in views:
                 views_total += t
             eval_total += eval_t
+            splice_total += splice_t
             views_t = _fold(views)
             _chunk_metrics(str(dev), synth_t, views_t, eval_t)
             chunk_timings.append({"scenarios": [s0, s1], "synth": synth_t,
                                   "views": views_t, "eval": eval_t})
+            if mesh is not None:
+                chunk_timings[-1]["splice"] = splice_t
         if reduce == "mean":
             out = {k: v[None] / S for k, v in acc.items()}
     if METRICS.enabled:
@@ -398,6 +431,8 @@ def evaluate_grid(
                  "plan_cached": gplan.plan_cached,
                  # The device plan build alone: on the staged path the pool
                  # phase is mostly the host's availability queries.
-                 "plan_device": gplan.plan_seconds if gplan.device else 0.0},
+                 "plan_device": gplan.plan_seconds if gplan.device else 0.0,
+                 # Under a mesh: the gathers and splices, part of eval.
+                 **({"splice": splice_total} if mesh is not None else {})},
         obs=maybe_snapshot(),
         delta_state=delta_state)

@@ -270,7 +270,7 @@ def evaluate_grid_delta(prev, jobs, policies, scenarios, r_total: int = 0, *,
                         early_start: bool = True, pool: str = "dedicated",
                         device=None, plan_backend: str | None = None,
                         scenario_chunk: int | None = None,
-                        overlap: bool | None = None):
+                        overlap: bool | None = None, mesh=None):
     """Re-evaluate a policy grid incrementally against a previous result.
 
     Diffs the new grid's evaluation groups (the plan layer's
@@ -285,7 +285,9 @@ def evaluate_grid_delta(prev, jobs, policies, scenarios, r_total: int = 0, *,
     over the SAME jobs, scenarios and pool configuration (checked against
     the fingerprints on ``prev.delta_state``; a mismatch raises naming the
     offending input). ``device`` and ``plan_backend`` default to
-    ``prev``'s. The number of re-scored groups is returned in
+    ``prev``'s. ``mesh`` shards the re-scoring pass (see
+    ``evaluate_grid``; the splice from ``prev`` is host work on every
+    rank). The number of re-scored groups is returned in
     ``timings["delta_groups_rescored"]``.
     """
     from repro_torch.engine.api import evaluate_grid
@@ -356,7 +358,7 @@ def evaluate_grid_delta(prev, jobs, policies, scenarios, r_total: int = 0, *,
             jobs, rep_pols, scenarios, r_total, windows=windows,
             selfowned=selfowned, early_start=early_start, pool=pool,
             plan_backend=plan_backend, scenario_chunk=scenario_chunk,
-            reduce="stack", overlap=overlap, device=device)
+            reduce="stack", overlap=overlap, device=device, mesh=mesh)
         cols = [p for gi in changed for p in s.g_pols[gi]]
         reps = [i for i, gi in enumerate(changed) for _ in s.g_pols[gi]]
         for k in keys:

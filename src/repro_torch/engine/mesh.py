@@ -1,0 +1,384 @@
+"""Scenario x policy-group mesh on ``torch.distributed`` (DESIGN.md §9).
+
+The port's counterpart of the reference's ``engine/mesh.py``. Scenarios
+are independent (only the regret fold crosses them), and so are the
+evaluation groups of a grid plan, so a mesh shards the scenario axis over
+a dim named ``"data"`` and the group axis over a dim named ``"model"``.
+The reference runs one program over many devices; the port runs one
+process per mesh position (SPMD): each rank synthesizes, views and scores
+only its scenario slab x group block, and the results come back to every
+rank through one all-gather per chunk.
+
+``GridMesh`` wraps a ``torch.distributed.device_mesh.DeviceMesh`` with dims
+``("data", "model")``, or ``("data",)`` when the model dim is 1 wide, and
+owns the padding contract of both axes:
+
+* scenario axis: a chunk of K scenarios is padded to ``pad(K)`` rows, the
+  LAST row repeated, so every ``"data"`` rank holds the same row count;
+* group axis: a bid's G groups are padded to ``pad_groups(G)``, the LAST
+  group repeated, so every ``"model"`` rank owns the same number of whole
+  groups.
+
+Padded lanes carry real (duplicated) data, are masked out of every
+reduction, and are dropped at the splice. A 1x1 mesh needs no process
+group: it is the unsharded computation, through the same code.
+
+Every collective of the port goes through :func:`all_gather` (over the
+whole mesh) and :func:`all_reduce` (over ``"data"``), each recorded under
+the running program key (``obs.compiled.collective_counts``). The process
+group's backend decides how a tensor on the card reaches the collective:
+NCCL takes it as it is; gloo, which has no all-gather for CUDA tensors,
+gets a host copy. A gloo all-reduce is copied back into its tensor; a
+gloo all-gather stays on the host, where the splice reads it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import warnings
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.obs.compiled import note_collective
+
+__all__ = [
+    "GridMesh", "ScenarioMesh", "as_scenario_mesh", "pad_to", "edge_repeat",
+    "scen_rows", "all_gather", "all_reduce",
+]
+
+_DIMS = ("data", "model")
+
+# Once-per-process clamp-warning keys: (requested data, requested model,
+# ranks in the process group).
+_CLAMP_WARNED: set[tuple[int, int, int]] = set()
+# Meshes built by GridMesh.create, per (data, model) shape, with the world
+# group they were built on: one DeviceMesh (and one set of sub-groups) per
+# shape and process group, not one per call.
+_MESHES: dict[tuple[int, int], tuple[Any, "GridMesh"]] = {}
+
+
+def pad_to(k: int, n: int) -> int:
+    """Smallest multiple of ``n`` that is ``>= k`` (the padded lane count)."""
+    return -(-k // n) * n
+
+
+def edge_repeat(a: np.ndarray, rows: int) -> np.ndarray:
+    """Pad the leading axis to ``rows`` by repeating the last entry.
+
+    The padding contract for both mesh axes: padded lanes are real
+    (duplicated) data, never NaN/zero filler, so every shard computes a
+    well-posed problem and the splice just drops the extra lanes.
+    """
+    k = a.shape[0]
+    if rows == k:
+        return a
+    if rows < k:
+        raise ValueError(f"cannot pad {k} rows down to {rows}")
+    reps = np.repeat(a[-1:], rows - k, axis=0)
+    return np.concatenate([a, reps], axis=0)
+
+
+def scen_rows(a, rows: int):
+    """Edge-repeat a leading-scenario stack to ``rows`` rows: numpy arrays
+    through :func:`edge_repeat`, tensors on their own device."""
+    if not isinstance(a, torch.Tensor):
+        return edge_repeat(a, rows)
+    k = a.shape[0]
+    if rows == k:
+        return a
+    if rows < k:
+        raise ValueError(f"cannot pad {k} rows down to {rows}")
+    return torch.cat([a, a[-1:].expand(rows - k, *a.shape[1:])], dim=0)
+
+
+def _dist():
+    """``torch.distributed`` when a process group is initialised, else
+    None."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist
+    return None
+
+
+def _check_backend(dist) -> None:
+    """NCCL refuses two ranks on one card: a mesh whose ranks would share
+    one raises here, naming the backend that works. Nothing switches
+    backend on its own."""
+    if dist.get_backend() != "nccl":
+        return
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", dist.get_world_size()))
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if local > cards:
+        raise ValueError(
+            f"a mesh of {local} NCCL ranks on {cards} card(s) would put two "
+            f"ranks on one device, which NCCL refuses; initialise the "
+            f"process group with backend='gloo' for ranks that share a card")
+
+
+@dataclasses.dataclass(frozen=True)
+class GridMesh:
+    """A ``("data", "model")`` mesh of ranks plus its padding contract.
+
+    Frozen and hashable (it joins the plan-cache key through its
+    partition). ``mesh`` is the ``DeviceMesh``; it is None only for the
+    1x1 mesh of a process without a process group, which issues its
+    collectives to itself.
+    """
+
+    mesh: Any                 # torch.distributed.device_mesh.DeviceMesh
+    data_shards: int = 1
+    model_shards: int = 1
+
+    @classmethod
+    def create(cls, n_devices: int | None = None,
+               model_devices: int = 1) -> "GridMesh":
+        """Mesh of ``n_devices x model_devices`` ranks, clamped to the
+        ranks of the process group (1 without one).
+
+        ``n_devices`` (default: every rank the model dim leaves) shards the
+        scenario axis as ``"data"``; ``model_devices`` shards the group
+        axis as ``"model"``. Clamping warns (once per process per request
+        shape) rather than raises, so ``--mesh 8`` runs unchanged on a box
+        with one card (the 1x1 mesh is the unsharded computation). Every
+        rank of the process group must take a position: a mesh that
+        spans fewer ranks raises.
+        """
+        dist = _dist()
+        avail = dist.get_world_size() if dist is not None else 1
+        m = int(model_devices)
+        if m < 1:
+            raise ValueError(
+                f"mesh needs >= 1 model device (got {model_devices})")
+        n = max(avail // m, 1) if n_devices is None else int(n_devices)
+        if n < 1:
+            raise ValueError(f"mesh needs >= 1 device (got {n_devices})")
+        if n * m > avail:
+            key = (n, m, avail)
+            if key not in _CLAMP_WARNED:
+                _CLAMP_WARNED.add(key)
+                warnings.warn(
+                    f"requested a {n}x{m} ({n * m}-rank) scenario x group "
+                    f"mesh but only {avail} rank(s) are in the process "
+                    f"group — clamping to {avail} (start more ranks with "
+                    f"torch.distributed.init_process_group to shard "
+                    f"further)", stacklevel=2)
+            m = min(m, avail)
+            n = max(avail // m, 1)
+        if dist is None:
+            return cls(mesh=None)
+        if n * m != avail:
+            raise ValueError(
+                f"a {n}x{m} mesh must span all {avail} ranks of the process "
+                f"group (one rank per mesh position)")
+        cached = _MESHES.get((n, m))
+        if cached is not None and cached[0] is dist.group.WORLD:
+            return cached[1]
+        _check_backend(dist)
+        from torch.distributed.device_mesh import init_device_mesh
+
+        device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+        shape, dims = ((n, m), _DIMS) if m > 1 else ((n,), _DIMS[:1])
+        mesh = cls.from_device_mesh(
+            init_device_mesh(device_type, shape, mesh_dim_names=dims))
+        _MESHES[(n, m)] = (dist.group.WORLD, mesh)
+        return mesh
+
+    @classmethod
+    def from_device_mesh(cls, mesh) -> "GridMesh":
+        """Wrap a ``DeviceMesh`` whose dims are ``"data"`` and, optionally,
+        ``"model"``, spanning every rank of the process group."""
+        names = tuple(mesh.mesh_dim_names or ())
+        if "data" not in names:
+            raise ValueError(
+                f"scenario mesh needs a 'data' dim (got dims {names}); "
+                f"build one with GridMesh.create(n) or init_device_mesh(..., "
+                f"mesh_dim_names=('data',))")
+        extra = set(names) - set(_DIMS)
+        if extra:
+            raise ValueError(f"scenario mesh dims must be 'data' and "
+                             f"optionally 'model' (got dims {names})")
+        dist = _dist()
+        if dist is None or mesh.size() != dist.get_world_size():
+            raise ValueError(
+                "a scenario mesh must span every rank of the initialised "
+                "process group")
+        _check_backend(dist)
+        shape = dict(zip(names, mesh.mesh.shape))
+        return cls(mesh=mesh, data_shards=int(shape["data"]),
+                   model_shards=int(shape.get("model", 1)))
+
+    # -- partition --------------------------------------------------------
+    @property
+    def n_shards(self) -> int:
+        return self.data_shards * self.model_shards
+
+    @property
+    def dims(self) -> tuple[str, ...]:
+        return _DIMS if self.model_shards > 1 else _DIMS[:1]
+
+    def coords(self, rank: int) -> tuple[int, int]:
+        """(data, model) position of process-group rank ``rank``."""
+        if self.mesh is None:
+            return 0, 0
+        names = tuple(self.mesh.mesh_dim_names)
+        pos = (self.mesh.mesh == rank).nonzero()[0].tolist()
+        at = dict(zip(names, pos))
+        return int(at["data"]), int(at.get("model", 0))
+
+    @property
+    def rank_coords(self) -> list[tuple[int, int]]:
+        """(data, model) position of every rank, in rank order — the order
+        :func:`all_gather` stacks its parts in."""
+        return [self.coords(r) for r in range(self.n_shards)]
+
+    @property
+    def data_rank(self) -> int:
+        return self._here()[0]
+
+    @property
+    def model_rank(self) -> int:
+        return self._here()[1]
+
+    def _here(self) -> tuple[int, int]:
+        if self.mesh is None:
+            return 0, 0
+        return self.coords(_dist().get_rank())
+
+    def pad(self, k: int) -> int:
+        """Rows after padding k scenarios to a multiple of ``data_shards``."""
+        return pad_to(k, self.data_shards)
+
+    def pad_groups(self, g: int) -> int:
+        """Entries after padding g eval groups to a multiple of
+        ``model_shards`` (whole groups per ``"model"`` rank)."""
+        return pad_to(g, self.model_shards)
+
+    def pad_rows(self, a: np.ndarray) -> np.ndarray:
+        """Pad a leading-scenario host array to ``pad(len)`` rows (the last
+        row repeated — real data, masked or sliced away downstream)."""
+        return edge_repeat(a, self.pad(a.shape[0]))
+
+    def slab(self, k: int, data_rank: int | None = None) -> np.ndarray:
+        """Positions (into a chunk of k scenarios) of a ``"data"`` rank's
+        padded rows: the rank's block of ``pad(k)`` rows, each padding row
+        pointing at the last real one."""
+        d = self.data_rank if data_rank is None else data_rank
+        per = self.pad(k) // self.data_shards
+        return np.minimum(np.arange(d * per, (d + 1) * per), k - 1)
+
+    def slab_valid(self, k: int, data_rank: int | None = None) -> np.ndarray:
+        """Which of a ``"data"`` rank's padded rows are real scenarios."""
+        d = self.data_rank if data_rank is None else data_rank
+        per = self.pad(k) // self.data_shards
+        return np.arange(d * per, (d + 1) * per) < k
+
+    def group_block(self, g: int, model_rank: int | None = None) -> range:
+        """Indices (into the ``pad_groups(g)`` padded groups) of a
+        ``"model"`` rank's whole groups."""
+        m = self.model_rank if model_rank is None else model_rank
+        per = self.pad_groups(g) // self.model_shards
+        return range(m * per, (m + 1) * per)
+
+    def check_device(self, device) -> None:
+        """NCCL moves CUDA tensors only: a mesh over NCCL refuses an
+        evaluation on another device (no silent move to the card)."""
+        dist = _dist()
+        if self.mesh is not None and dist is not None \
+                and dist.get_backend() == "nccl" \
+                and torch.device(device).type != "cuda":
+            raise ValueError(
+                f"a mesh over NCCL needs device='cuda' (got {device!r}); "
+                f"use a gloo process group for CPU ranks")
+
+    def rows(self, a):
+        """This rank's slab of a leading-scenario array (host or device,
+        kept where it is): padded to ``pad(len)`` rows by repeating the
+        last, then the rank's block."""
+        per = self.pad(a.shape[0]) // self.data_shards
+        d = self.data_rank
+        return scen_rows(a, self.pad(a.shape[0]))[d * per:(d + 1) * per]
+
+    def put_rows(self, a, device=None) -> torch.Tensor:
+        """This rank's padded slab of a leading-scenario array as a tensor
+        on ``device`` (a tensor's own device when None; the card for a
+        host array)."""
+        t = self.rows(a)
+        if not isinstance(t, torch.Tensor):
+            t = torch.from_numpy(np.ascontiguousarray(t))
+            device = "cuda" if device is None else device
+        return t if device is None else t.to(device)
+
+
+# The 1-D scenario mesh is a GridMesh with a 1-wide (absent) "model" dim.
+ScenarioMesh = GridMesh
+
+
+def as_scenario_mesh(mesh) -> GridMesh | None:
+    """Normalise every accepted ``mesh=`` argument.
+
+    Accepts ``None`` (unsharded), a ``GridMesh``/``ScenarioMesh``, an int
+    (scenario-shard count, clamped to the process group's ranks), or a
+    ``DeviceMesh`` whose dims include ``"data"`` (a ``"model"`` dim, when
+    present, shards the eval-group axis).
+    """
+    if mesh is None or isinstance(mesh, GridMesh):
+        return mesh
+    if isinstance(mesh, bool):
+        raise ValueError(f"mesh must be None, an int shard count, a "
+                         f"GridMesh, or a torch DeviceMesh (got {mesh!r})")
+    if isinstance(mesh, (int, np.integer)):
+        return GridMesh.create(int(mesh))
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if isinstance(mesh, DeviceMesh):
+        return GridMesh.from_device_mesh(mesh)
+    raise ValueError(f"mesh must be None, an int shard count, a "
+                     f"GridMesh, or a torch DeviceMesh (got {type(mesh)})")
+
+
+# --------------------------------------------------------------------------
+# The two collectives
+# --------------------------------------------------------------------------
+
+def all_gather(mesh: GridMesh, t: torch.Tensor) -> torch.Tensor:
+    """Gather ``t`` (the same shape on every rank) from the whole mesh:
+    ``(n_shards, *t.shape)`` in rank order, on ``t``'s device under NCCL
+    and on the host under gloo (which stages through it; the splice reads
+    the blocks there, so they do not go back to the card). Recorded as one
+    ``all-gather`` of the running program."""
+    note_collective("all-gather")
+    dist = _dist()
+    if mesh.mesh is None or dist is None:
+        return t[None]
+    t = t.contiguous()
+    if dist.get_backend() == "nccl":
+        out = torch.empty((mesh.n_shards,) + tuple(t.shape), dtype=t.dtype,
+                          device=t.device)
+        dist.all_gather_into_tensor(out, t)
+        return out
+    host = t.cpu()
+    parts = [torch.empty_like(host) for _ in range(mesh.n_shards)]
+    dist.all_gather(parts, host)
+    return torch.stack(parts)
+
+
+def all_reduce(mesh: GridMesh, t: torch.Tensor) -> torch.Tensor:
+    """Sum ``t`` over the ``"data"`` dim, in place (every ``"model"``
+    column reduces on its own). Recorded as one ``all-reduce`` of the
+    running program."""
+    note_collective("all-reduce")
+    dist = _dist()
+    if mesh.mesh is None or dist is None:
+        return t
+    group = mesh.mesh.get_group("data")
+    if dist.get_backend(group) == "nccl":
+        dist.all_reduce(t, group=group)
+        return t
+    host = t.cpu()
+    dist.all_reduce(host, group=group)
+    t.copy_(host)
+    return t

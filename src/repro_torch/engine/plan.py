@@ -291,8 +291,9 @@ def build_grid_plan(
     ``plan_backend="device"`` builds the plan tensors in float32 on
     ``device`` (see the module docstring; ``pool="dedicated"`` only).
     Without ``availability``, groups found in the cross-call plan cache
-    are reused and only the missing ones are built. The reference's mesh
-    partition of that cache key comes with the mesh (ROADMAP A9).
+    are reused and only the missing ones are built. A mesh plays no part
+    here: every rank builds the full, unsharded group tensors and slices
+    its block at launch, so meshed and unmeshed calls share the cache.
     """
     if pool not in ("dedicated", "shared"):
         raise ValueError(f"unknown pool mode {pool!r}")

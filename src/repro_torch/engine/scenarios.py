@@ -490,6 +490,12 @@ class ScenarioBatch:
     ``stacked(bid)`` returns the (S_chunk, n_slots+1) float32 A/C
     cumulative tensors, built once per bid (keyed on ``round(bid, 12)``);
     ``markets`` adapts the chunk to host-only consumers.
+
+    With a ``GridMesh`` the chunk is padded to ``n_rows`` (a multiple of
+    ``data_shards``; the last scenario repeated) and ``stacked`` holds
+    only this rank's slab of those rows (``mesh.slab``): the rank builds
+    no view of another rank's scenarios. Meshed batches bypass the view
+    cache (DESIGN.md §9 padding contract).
     """
 
     slot: float
@@ -498,9 +504,27 @@ class ScenarioBatch:
     n_slots: int
     n_scenarios: int
 
-    def __init__(self, device):
+    def __init__(self, device, mesh=None):
         self.device = torch.device(device)
+        self.mesh = mesh
         self._stacked: dict[float, tuple] = {}
+
+    @property
+    def n_rows(self) -> int:
+        """Row count of the chunk after mesh padding."""
+        if self.mesh is None:
+            return self.n_scenarios
+        return self.mesh.pad(self.n_scenarios)
+
+    def _local(self, items):
+        """``items`` (one per chunk scenario, an array or a list) restricted
+        to this rank's padded rows; all of them without a mesh."""
+        if self.mesh is None:
+            return items
+        pos = self.mesh.slab(self.n_scenarios)
+        if isinstance(items, np.ndarray):
+            return items[pos]
+        return [items[i] for i in pos]
 
     def dispatch(self) -> "ScenarioBatch":
         """Enqueue (but do not await) the chunk's synthesis — the
@@ -524,7 +548,7 @@ class ScenarioBatch:
 
     def stacked(self, bid: float):
         """(A, C) float32 tensors of shape (S_chunk, n_slots+1) on the
-        device."""
+        device (this rank's slab of ``n_rows`` under a mesh)."""
         key = _bid_key(bid)
         if key not in self._stacked:
             # Cross-call reuse: batches whose views are a pure function of
@@ -559,8 +583,8 @@ class MarketListBatch(ScenarioBatch):
     float64 host views go to the device as float32."""
 
     def __init__(self, markets: Sequence[SpotMarket], device, *,
-                 checked: bool = False):
-        super().__init__(device)
+                 checked: bool = False, mesh=None):
+        super().__init__(device, mesh)
         self._markets = list(markets)
         if not checked:
             check_scenarios(self._markets)
@@ -576,7 +600,9 @@ class MarketListBatch(ScenarioBatch):
         return self._markets
 
     def _build_views(self, bid: float):
-        return _upload(stack_views(self._markets, bid), self.device)
+        # Under a mesh: the host views of this rank's (padded) rows only.
+        return _upload(stack_views(self._local(self._markets), bid),
+                       self.device)
 
 
 class SynthBatch(ScenarioBatch):
@@ -591,12 +617,18 @@ class SynthBatch(ScenarioBatch):
     On a CUDA device ``dispatch`` enqueues the synthesis on a side stream
     and records an event; ``prepare`` waits for it on the host (the
     residual wait the API times) and makes the current stream wait on it.
+
+    Under a mesh only this rank's slab is synthesized, from the global
+    indices of its rows (the counter hash makes each row the one the
+    whole chunk would give; padding rows repeat the last real scenario,
+    with its wave parameters).
     """
 
     def __init__(self, spec: ScenarioSpec, start: int, stop: int, device,
                  periods: np.ndarray | None = None,
-                 offsets: np.ndarray | None = None, host: bool = False):
-        super().__init__(device)
+                 offsets: np.ndarray | None = None, host: bool = False,
+                 mesh=None):
+        super().__init__(device, mesh)
         if not host and not spec.generative:
             raise ValueError("replay traces are host data; device synthesis "
                              "supports the generative families only")
@@ -616,22 +648,25 @@ class SynthBatch(ScenarioBatch):
         self._markets: list[SpotMarket] | None = None
 
     def _wave(self):
-        """(pslots, sslots, offsets) int64 rows of the chunk's square wave
-        (placeholders for the families without one)."""
+        """(pslots, sslots, offsets) int64 rows of the synthesized rows'
+        square wave (placeholders for the families without one)."""
+        idx = self._local(self._idx)
+        n = len(idx)
         if self.spec.kind in ("adversarial", "adaptive"):
-            periods = self._periods if self._periods is not None \
-                else self.spec.default_periods(self._idx)
+            periods = self._local(self._periods) \
+                if self._periods is not None \
+                else self.spec.default_periods(idx)
             pslots, sslots = self.spec.wave_slots(periods)
         else:
-            pslots = np.full(self.n_scenarios, 2, np.int64)
-            sslots = np.ones(self.n_scenarios, np.int64)
-        offsets = np.full(self.n_scenarios, -1, np.int64) \
-            if self._offsets is None else np.asarray(self._offsets, np.int64)
+            pslots = np.full(n, 2, np.int64)
+            sslots = np.ones(n, np.int64)
+        offsets = np.full(n, -1, np.int64) if self._offsets is None \
+            else self._local(np.asarray(self._offsets, np.int64))
         return pslots, sslots, offsets
 
     def _synth(self):
         args = [torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(
-            self.device) for a in (self._idx, *self._wave())]
+            self.device) for a in (self._local(self._idx), *self._wave())]
         return _device_synth(self.spec, *args)
 
     def dispatch(self) -> "SynthBatch":
@@ -684,9 +719,11 @@ class SynthBatch(ScenarioBatch):
         return self._markets
 
     def _view_key(self, bid: float):
-        if self._periods is not None or self._offsets is not None:
+        if self.mesh is not None or self._periods is not None \
+                or self._offsets is not None:
             # Explicit periods/offsets mean an adaptive adversary planned
-            # this chunk from feedback: no cross-call identity.
+            # this chunk from feedback: no cross-call identity. Meshed
+            # views are one rank's slab of one partition.
             return None
         # host=True views are the float64 oracle's rows uploaded as
         # float32: other bits than the device synthesis's.
@@ -695,11 +732,12 @@ class SynthBatch(ScenarioBatch):
 
     def _build_views(self, bid: float):
         if self.host:
-            return _upload(stack_views(self.markets, bid), self.device)
+            return _upload(stack_views(self._local(self.markets), bid),
+                           self.device)
         self.prepare()
         h, price, spike = self._parts
-        thresh = torch.from_numpy(self.spec.thresholds(bid, self._idx)).to(
-            self.device)
+        thresh = torch.from_numpy(self.spec.thresholds(
+            bid, self._local(self._idx))).to(self.device)
         return _device_views(h, price, spike, thresh,
                              self.spec.price_hi <= bid + 1e-12, self.slot)
 
@@ -727,7 +765,10 @@ class ScenarioSource:
         the engine's double-buffering is disabled for it."""
         return False
 
-    def chunks(self, chunk: int, device):
+    def chunks(self, chunk: int, device, mesh=None):
+        """Yield ``(s0, s1, batch)`` per chunk of ``chunk`` scenarios, the
+        batches on ``device`` and, with a ``GridMesh``, each holding this
+        rank's slab."""
         raise NotImplementedError
 
     def observe(self, values: np.ndarray) -> None:
@@ -757,19 +798,21 @@ class _ListSource(ScenarioSource):
     def markets(self) -> list[SpotMarket]:
         return self._markets
 
-    def chunks(self, chunk: int, device):
+    def chunks(self, chunk: int, device, mesh=None):
         S = self.n_scenarios
-        if chunk >= S:
+        if chunk >= S and mesh is None:
             key = str(torch.device(device))
             if key not in self._whole:
                 self._whole[key] = MarketListBatch(self._markets, device,
                                                    checked=True)
             yield 0, S, self._whole[key]
             return
+        # A meshed batch is always fresh: the kept whole-list batch holds
+        # unsharded views, and one memo must not mix the two layouts.
         for s0 in range(0, S, chunk):
             s1 = min(s0 + chunk, S)
             yield s0, s1, MarketListBatch(self._markets[s0:s1], device,
-                                          checked=True)
+                                          checked=True, mesh=mesh)
 
 
 class ScenarioStream(ScenarioSource):
@@ -902,14 +945,15 @@ class ScenarioStream(ScenarioSource):
     def reactive(self) -> bool:
         return self.spec.kind == "adaptive"
 
-    def chunks(self, chunk: int, device):
+    def chunks(self, chunk: int, device, mesh=None):
         S = self.n_scenarios
         for s0 in range(0, S, chunk):
             s1 = min(s0 + chunk, S)
             periods, offsets = self._plan_chunk(np.arange(s0, s1))
             yield s0, s1, SynthBatch(self.spec, s0, s1, device,
                                      periods=periods, offsets=offsets,
-                                     host=not self.spec.generative)
+                                     host=not self.spec.generative,
+                                     mesh=mesh)
 
 
 def as_source(scenarios) -> ScenarioSource:

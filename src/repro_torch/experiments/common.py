@@ -9,7 +9,10 @@ through the engine K scenarios per pass and synthesized on the device
 (``adaptive`` needs this path: its adversary reacts at chunk boundaries).
 The policy sweeps run on the card (``device="cuda"``, the default) or,
 when asked, on the CPU through the kernels' plain versions; the Greedy
-benchmark is host float64 either way.
+benchmark is host float64 either way. ``--mesh N`` shards the sweeps'
+scenario axis over N ranks of a ``torch.distributed`` process group
+(DESIGN.md §9), clamped with a warning to the ranks there are (1 without
+a process group).
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from repro_torch.core import generate_chain_jobs, run_greedy, sweep_policies
 from repro_torch.core.scheduler import Policy
 from repro_torch.device import resolve_device
 from repro_torch.engine import ScenarioSpec, as_source, make_scenarios
+from repro_torch.engine.mesh import as_scenario_mesh
 from repro_torch.obs import span
 
 __all__ = ["Setup", "make_setup", "sweep_min", "greedy_min",
@@ -34,15 +38,16 @@ SCENARIO_KINDS = ("fresh", "regime", "adversarial", "adaptive")
 
 class Setup:
     """One job stream, its market scenarios (a materialized list or a
-    ``ScenarioSpec``), the device the sweeps run on and the scenario chunk
-    they stream with."""
+    ``ScenarioSpec``), the device the sweeps run on, the scenario chunk
+    they stream with and the mesh they shard over."""
 
     def __init__(self, jobs, scenarios, device="cuda",
-                 scenario_chunk: int | None = None):
+                 scenario_chunk: int | None = None, mesh=None):
         self.jobs = jobs
         self.scenarios = scenarios      # list of SpotMarket | ScenarioSpec
         self.device = device
         self.scenario_chunk = scenario_chunk
+        self.mesh = mesh                # GridMesh | int | None
         self._source = as_source(scenarios)
 
     @property
@@ -54,16 +59,20 @@ class Setup:
 
 def make_setup(n_jobs: int, job_type: int, seed: int = 0,
                scenarios: int = 1, scenario_kind: str = "fresh",
-               device="cuda", scenario_chunk: int | None = None) -> Setup:
+               device="cuda", scenario_chunk: int | None = None,
+               mesh=None) -> Setup:
     """Job stream + S market scenarios (S=1 reproduces the paper setup).
 
     Without ``scenario_chunk`` the scenarios are the materialized
     ``make_scenarios`` list; with it, a ``ScenarioSpec`` the sweeps stream
     ``scenario_chunk`` scenarios per pass (``"adaptive"`` requires it).
+    ``mesh`` (an int shard count from ``--mesh``, a ``GridMesh`` or None)
+    is normalised here, so an oversized request warns once, at set-up.
     Raises before any work when ``device`` is the card and none is
     visible.
     """
     resolve_device(device)
+    mesh = as_scenario_mesh(mesh)
     if scenario_kind == "adaptive" and scenario_chunk is None:
         raise ValueError(
             "--scenario-kind adaptive needs --scenario-chunk: the adversary "
@@ -76,7 +85,8 @@ def make_setup(n_jobs: int, job_type: int, seed: int = 0,
     else:
         scn = make_scenarios(horizon, max(scenarios, 1), seed=seed + 1000,
                              kind=scenario_kind)
-    return Setup(jobs, scn, device, scenario_chunk=scenario_chunk)
+    return Setup(jobs, scn, device, scenario_chunk=scenario_chunk,
+                 mesh=mesh)
 
 
 def sweep_min(setup: Setup, policies: list[Policy], **kwargs):
@@ -87,6 +97,7 @@ def sweep_min(setup: Setup, policies: list[Policy], **kwargs):
     list's per-bid views are built once per bid, not once per sweep."""
     kwargs.setdefault("device", setup.device)
     kwargs.setdefault("scenario_chunk", setup.scenario_chunk)
+    kwargs.setdefault("mesh", setup.mesh)
     pol, alpha, costs, _ = sweep_policies(setup.jobs, policies,
                                           setup._source, **kwargs)
     return pol, alpha, costs
@@ -122,6 +133,10 @@ def argparser(desc: str) -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="where the policy sweeps run (cuda, or cpu for the "
                         "kernels' plain versions)")
+    p.add_argument("--mesh", type=int, default=None,
+                   help="shard the scenario axis over an N-rank mesh of the "
+                        "torch.distributed process group (clamped to its "
+                        "ranks with a warning; 1 without one)")
     return p
 
 

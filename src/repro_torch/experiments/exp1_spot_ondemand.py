@@ -30,13 +30,13 @@ __all__ = ["run", "print_rows", "main"]
 
 def run(n_jobs: int, types: list[int], seed: int = 0, scenarios: int = 1,
         device="cuda", scenario_kind: str = "fresh",
-        scenario_chunk: int | None = None) -> dict:
+        scenario_chunk: int | None = None, mesh=None) -> dict:
     out = {}
     for jt in types:
         with Timer(f"exp1 type {jt}"):
             s = make_setup(n_jobs, jt, seed, scenarios=scenarios,
                            scenario_kind=scenario_kind, device=device,
-                           scenario_chunk=scenario_chunk)
+                           scenario_chunk=scenario_chunk, mesh=mesh)
             pol, alpha, _ = sweep_min(s, spot_od_policies(), early_start=True)
             greedy = greedy_min(s, B_BIDS)
             even_planned = sweep_min(
@@ -65,7 +65,7 @@ def print_rows(res: dict) -> None:
 def main(argv=None):
     args = argparser(__doc__.split("\n\n")[0]).parse_args(argv)
     res = run(args.jobs, args.types, args.seed, args.scenarios, args.device,
-              args.scenario_kind, args.scenario_chunk)
+              args.scenario_kind, args.scenario_chunk, args.mesh)
     print_rows(res)
     return res
 

@@ -29,12 +29,12 @@ __all__ = ["run", "print_rows", "main"]
 def run(n_jobs: int, types: list[int], rs: list[int], seed: int = 0,
         scenarios: int = 1, device="cuda",
         scenario_kind: str = "fresh",
-        scenario_chunk: int | None = None) -> dict:
+        scenario_chunk: int | None = None, mesh=None) -> dict:
     out = {}
     for jt in types:
         s = make_setup(n_jobs, jt, seed, scenarios=scenarios,
                        scenario_kind=scenario_kind, device=device,
-                       scenario_chunk=scenario_chunk)
+                       scenario_chunk=scenario_chunk, mesh=mesh)
         for r in rs:
             with Timer(f"exp2 type {jt} r={r}"):
                 pol, alpha, costs = sweep_min(
@@ -63,7 +63,8 @@ def print_rows(res: dict) -> None:
 def main(argv=None):
     args = argparser(__doc__.split("\n\n")[0]).parse_args(argv)
     res = run(args.jobs, args.types, args.r, args.seed, args.scenarios,
-              args.device, args.scenario_kind, args.scenario_chunk)
+              args.device, args.scenario_kind, args.scenario_chunk,
+              args.mesh)
     print_rows(res)
     return res
 

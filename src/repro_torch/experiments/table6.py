@@ -18,7 +18,10 @@ gives 2 * (1 + 8) + 3 = 21 rows per r. ``--scenario-chunk K`` makes the
 markets a ``ScenarioSpec`` and adds the streamed rows: every comparison
 instance replayed chunk by chunk over the spec (``replay_stream``, a
 fresh ``ScenarioStream`` per r, synthesized on the card; an ``adaptive``
-spec reacts to the first learner at each chunk boundary).
+spec reacts to the first learner at each chunk boundary). ``--mesh N``
+shards every engine pass and the streamed fold over N ranks of a
+``torch.distributed`` process group (clamped, with a warning, to its
+ranks).
 
     PYTHONPATH=src python -m repro_torch.experiments.table6 --jobs 10000 \
         --r 0 1200 --scenarios 2 --learner hedge exp3 ucb1 egreedy ftl \
@@ -67,7 +70,7 @@ def run(n_jobs: int, rs: list[int], seed: int = 0, scenarios: int = 1,
         learners: list[str] | None = None,
         eta_grid: list[float] | None = None, device="cuda",
         job_type: int = 2, scenario_kind: str = "fresh",
-        scenario_chunk: int | None = None) -> dict:
+        scenario_chunk: int | None = None, mesh=None) -> dict:
     """Table 6 rows per r (plus ``"comparison"`` rows with an eta grid or
     several learners, and ``"stream"`` rows with a scenario chunk), and
     ``"timings"``: wall seconds per phase, each the seconds of the span
@@ -78,7 +81,7 @@ def run(n_jobs: int, rs: list[int], seed: int = 0, scenarios: int = 1,
     with span("setup", n_jobs=n_jobs, scenarios=scenarios) as sp:
         setup = make_setup(n_jobs, job_type, seed, scenarios=scenarios,
                            scenario_kind=scenario_kind, device=device,
-                           scenario_chunk=scenario_chunk)
+                           scenario_chunk=scenario_chunk, mesh=mesh)
         jobs, markets = setup.jobs, setup.markets
         arrivals = np.array([j.arrival for j in jobs])
         d = max(j.deadline - j.arrival for j in jobs)
@@ -89,11 +92,12 @@ def run(n_jobs: int, rs: list[int], seed: int = 0, scenarios: int = 1,
             grid = selfowned_policies() if r > 0 else spot_od_policies()
             props = run_tola_scenarios(
                 jobs, grid, markets, r_total=r, seed=seed, early_start=True,
-                learner=learners[0], device=device)
+                learner=learners[0], device=device, mesh=setup.mesh)
             benches = run_tola_scenarios(
                 jobs, benchmark_bid_policies(), markets, r_total=r,
                 windows="even", selfowned="naive", early_start=False,
-                seed=seed, learner=learners[0], device=device)
+                seed=seed, learner=learners[0], device=device,
+                mesh=setup.mesh)
             a_prop = np.array([p.average_unit_cost() for p in props])
             a_bench = np.array([b.average_unit_cost() for b in benches])
             row = {
@@ -132,7 +136,7 @@ def run(n_jobs: int, rs: list[int], seed: int = 0, scenarios: int = 1,
                         r_total=r,
                         learners=comparison_specs(learners, eta_grid),
                         seed=seed, scenario_chunk=scenario_chunk,
-                        device=device)
+                        device=device, mesh=setup.mesh)
                     row["stream"] = slr.summary()
                 row["timings"]["stream"] = sp.seconds
         row["timings"]["wall"] = sp_r.seconds
@@ -204,6 +208,10 @@ def main(argv=None):
                    choices=list(LEARNER_KINDS))
     p.add_argument("--eta-grid", type=float, nargs="*", default=[])
     p.add_argument("--device", default="cuda")
+    p.add_argument("--mesh", type=int, default=None,
+                   help="shard the scenario axis over an N-rank mesh of the "
+                        "torch.distributed process group (clamped to its "
+                        "ranks with a warning; 1 without one)")
     args = p.parse_args(argv)
     if args.scenario_kind == "adaptive" and args.scenario_chunk is None:
         p.error("--scenario-kind adaptive needs --scenario-chunk (the "
@@ -211,7 +219,7 @@ def main(argv=None):
     res = run(args.jobs, args.r, args.seed, scenarios=args.scenarios,
               learners=args.learner, eta_grid=args.eta_grid,
               device=args.device, scenario_kind=args.scenario_kind,
-              scenario_chunk=args.scenario_chunk)
+              scenario_chunk=args.scenario_chunk, mesh=args.mesh)
     print_tables(res)
     return res
 

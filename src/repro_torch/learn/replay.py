@@ -22,7 +22,10 @@ front in numpy, so every backend consumes the SAME randomness and produces
 the same sampled-policy trace up to float ties, and all learners of a sweep
 share the stream (common random numbers). ``replay_stream`` replays a
 scenario stream chunk by chunk (``evaluate_grid_chunks``) and folds the
-regret, with the adaptive adversary's feedback between chunks.
+regret, with the adaptive adversary's feedback between chunks; under a
+mesh the fold is sharded (``_sharded_fold``): each ``"data"`` rank replays
+its own scenario slab, and one all-reduce per chunk sums the packed
+statistics.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ from repro_torch.learn.learners import (
 )
 from repro_torch.learn.regret import LearnResult, StreamLearnResult
 from repro_torch.obs import METRICS, maybe_snapshot, span
+from repro_torch.obs.compiled import program
 
 __all__ = ["replay", "replay_stream", "build_events"]
 
@@ -223,6 +227,7 @@ def replay_stream(
     early_start: bool = True,
     overlap: bool | None = None,
     device="cuda",
+    mesh=None,
 ) -> StreamLearnResult:
     """Regret straight from a scenario stream — no (S, J, P) tensor.
 
@@ -238,6 +243,15 @@ def replay_stream(
     float64 host loop). ``overlap`` double-buffers chunk synthesis (see
     ``evaluate_grid``); it is refused for adaptive sources.
 
+    ``mesh`` (a ``GridMesh`` / shard count / ``None``) shards the stream:
+    each chunk is evaluated sharded (over both dims of a 2-D mesh) and the
+    fold runs sharded (:func:`_sharded_fold`): each ``"data"`` rank replays
+    its scenario slab with the learner kernels and computes the regret
+    statistics in float32 on its device, and the chunk's one collective is
+    an all-reduce of the packed sums over ``"data"``. The statistics agree
+    with the host fold to about 1e-4, not bit for bit. It needs
+    ``backend="torch"``.
+
     When ``scenarios`` is an adaptive ``ScenarioSpec`` / ``ScenarioStream``
     the chunk's realized regret of ``learners[0]`` is fed back through
     ``ScenarioStream.observe`` BEFORE the next chunk is synthesized: the
@@ -245,6 +259,7 @@ def replay_stream(
     spikes on the most harmful period.
     """
     from repro_torch.engine.api import evaluate_grid_chunks
+    from repro_torch.engine.mesh import as_scenario_mesh
     from repro_torch.engine.scenarios import as_source
 
     if not jobs:
@@ -259,6 +274,11 @@ def replay_stream(
         raise ValueError("need at least one learner")
     if backend not in ("numpy", "torch"):
         raise ValueError(f"unknown replay backend {backend!r}")
+    mesh = as_scenario_mesh(mesh)
+    if mesh is not None and backend != "torch":
+        raise ValueError(
+            f"mesh= shards the torch replay fold; replay backend "
+            f"{backend!r} cannot (pass backend='torch')")
 
     source = as_source(scenarios)
     acc = StreamLearnResult(specs=specs, feedback_delay=float(d),
@@ -266,7 +286,12 @@ def replay_stream(
     stream = evaluate_grid_chunks(
         jobs, policies, source, r_total, scenario_chunk=scenario_chunk,
         windows=windows, selfowned=selfowned, early_start=early_start,
-        pool="dedicated", overlap=overlap, device=device)
+        pool="dedicated", overlap=overlap, device=device, mesh=mesh)
+    if mesh is not None:
+        _sharded_fold(stream, source, acc, mesh, specs, arrivals, d, Z,
+                      len(policies), seed, resolve_device(device))
+        acc.obs = maybe_snapshot()
+        return acc
     with span("replay_stream", backend=backend):
         for ci, ch in enumerate(stream):
             with span("fold", chunk=ci, s0=ch.s0, s1=ch.s1):
@@ -283,6 +308,29 @@ def replay_stream(
     acc.obs = maybe_snapshot()
     return acc
 
+def _kernel_launches(C_d, specs, etas, gammas, u_d, ev_kind, ev_j, n_done,
+                     dev):
+    """The Hedge instances in one ``hedge_replay`` launch, the others in
+    one ``learner_replay`` launch, over the device tensors ``C_d`` (S, J,
+    P) and ``u_d`` (S, J); returns ``[(spec indices, is_hedge, outputs)]``
+    with the outputs on the device."""
+    f32 = lambda a: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a, dtype=np.float32)).to(dev)
+    i32 = lambda a: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a, dtype=np.int32)).to(dev)
+    hedge = [k for k, sp in enumerate(specs) if sp.kind == "hedge"]
+    other = [k for k, sp in enumerate(specs) if sp.kind != "hedge"]
+    outs = []
+    if hedge:
+        outs.append((hedge, True, wu.hedge_replay(
+            C_d, f32(etas[hedge]), u_d, i32(n_done))))
+    if other:
+        outs.append((other, False, lk.learner_replay(
+            [specs[k].kind for k in other], C_d, f32(etas[other]),
+            f32(gammas[other]), u_d, i32(ev_kind), i32(ev_j))))
+    return outs
+
+
 def _replay_torch(C, specs, etas, gammas, u, ev_kind, ev_j, n_done, dev):
     """``backend="torch"``: the Hedge instances in one ``hedge_replay``
     launch, the others in one ``learner_replay`` launch; results in spec
@@ -291,30 +339,163 @@ def _replay_torch(C, specs, etas, gammas, u, ev_kind, ev_j, n_done, dev):
     K = len(specs)
     f32 = lambda a: torch.from_numpy(  # noqa: E731
         np.ascontiguousarray(a, dtype=np.float32)).to(dev)
-    i32 = lambda a: torch.from_numpy(  # noqa: E731
-        np.ascontiguousarray(a, dtype=np.int32)).to(dev)
     chosen = np.zeros((S, K, n), dtype=np.int64)
     p_sel = np.zeros((S, K, n))
     e_cost = np.zeros((S, K, n))
     weights = np.zeros((S, K, m))
-    C_d, u_d = f32(C), f32(u)
-    hedge = [k for k, sp in enumerate(specs) if sp.kind == "hedge"]
-    other = [k for k, sp in enumerate(specs) if sp.kind != "hedge"]
-    outs = []
-    if hedge:
-        out = wu.hedge_replay(C_d, f32(etas[hedge]), u_d, i32(n_done))
-        # Hedge's final sampling weights: normalized on the host in float64.
-        logw = out["logw"].cpu().numpy().astype(np.float64)
-        w = np.exp(logw - logw.max(axis=-1, keepdims=True))
-        outs.append((hedge, out, w / w.sum(axis=-1, keepdims=True)))
-    if other:
-        out = lk.learner_replay(
-            [specs[k].kind for k in other], C_d, f32(etas[other]),
-            f32(gammas[other]), u_d, i32(ev_kind), i32(ev_j))
-        outs.append((other, out, out["weights"].cpu().numpy()))
-    for ks, out, w in outs:
+    for ks, is_hedge, out in _kernel_launches(
+            f32(C), specs, etas, gammas, f32(u), ev_kind, ev_j, n_done, dev):
+        if is_hedge:
+            # Hedge's final sampling weights: normalized on the host in
+            # float64.
+            logw = out["logw"].cpu().numpy().astype(np.float64)
+            w = np.exp(logw - logw.max(axis=-1, keepdims=True))
+            w = w / w.sum(axis=-1, keepdims=True)
+        else:
+            w = out["weights"].cpu().numpy()
         chosen[:, ks] = out["chosen"].cpu().numpy()
         p_sel[:, ks] = out["p_chosen"].cpu().numpy()
         e_cost[:, ks] = out["expected_cost"].cpu().numpy()
         weights[:, ks] = w
     return chosen, p_sel, e_cost, weights
+
+
+# --------------------------------------------------------------------------
+# The sharded fold
+# --------------------------------------------------------------------------
+
+def fold_acc_size(K: int, J: int, P: int) -> int:
+    """Length of the packed fold vector (the ``_unpack_fold`` layout)."""
+    return 5 * K + 2 * K * J + K * P + 2
+
+
+def _unpack_fold(flat: np.ndarray, K: int, J: int, P: int) -> dict:
+    """Split the reduced flat vector back into the named per-learner sums
+    (specs order)."""
+    o = 0
+
+    def take(n):
+        nonlocal o
+        v = flat[o:o + n]
+        o += n
+        return v
+
+    out = {
+        "realized": take(K), "expected": take(K), "regret": take(K),
+        "regret_sq": take(K), "best_fixed": float(take(1)[0]),
+        "curve": take(K * J).reshape(K, J),
+        "curve_sq": take(K * J).reshape(K, J),
+        "weights": take(K * P).reshape(K, P),
+        "top_weight": take(K), "n": int(round(float(take(1)[0]))),
+    }
+    assert o == len(flat)
+    return out
+
+
+def _fold_sums(C, chosen, ec, w, Z, valid):
+    """One slab's regret statistics, float32 torch on its device: the
+    packed sums over its real rows (``valid``) in the ``_unpack_fold``
+    layout, and the per-scenario realized regret (S_l, K).
+
+    C (S_l, J, P) unit costs, chosen/ec (S_l, K, J) sampled traces and
+    expected costs, w (S_l, K, P) final weights, Z (J,) workloads: the
+    arithmetic of ``LearnResult``'s statistics, in float32.
+    """
+    Sl, K, J = chosen.shape
+    zsum = Z.sum()
+    per_job = torch.gather(C[:, None].expand(Sl, K, J, C.shape[2]), 3,
+                           chosen[..., None])[..., 0]            # (S_l, K, J)
+    realized = (per_job * Z).sum(dim=2) / zsum                   # (S_l, K)
+    expected = (ec * Z).sum(dim=2) / zsum
+    fixed_cum = (C * Z[:, None]).cumsum(dim=1)                   # (S_l, J, P)
+    best_fixed = fixed_cum[:, -1].min(dim=1).values / zsum       # (S_l,)
+    regret = realized - best_fixed[:, None]                      # (S_l, K)
+    cum_real = (per_job * Z).cumsum(dim=2)                       # (S_l, K, J)
+    p_star = fixed_cum[:, -1].argmin(dim=1)                      # (S_l,)
+    cum_best = torch.gather(fixed_cum, 2,
+                            p_star[:, None, None].expand(Sl, J, 1))[..., 0]
+    curve = (cum_real - cum_best[:, None]) / Z.cumsum(dim=0)
+    top_w = w.max(dim=2).values                                  # (S_l, K)
+    v = valid.to(C.dtype)
+    v1, v2 = v[:, None], v[:, None, None]
+    sums = torch.cat([
+        (realized * v1).sum(0),
+        (expected * v1).sum(0),
+        (regret * v1).sum(0),
+        (regret ** 2 * v1).sum(0),
+        (best_fixed * v).sum()[None],
+        (curve * v2).sum(0).reshape(-1),
+        (curve ** 2 * v2).sum(0).reshape(-1),
+        (w * v2).sum(0).reshape(-1),
+        (top_w * v1).sum(0),
+        v.sum()[None],
+    ])
+    return sums, regret
+
+
+def _sharded_fold(stream, source, acc, mesh, specs, arrivals, d, Z, P,
+                  seed, dev) -> None:
+    """Fold a meshed chunk stream into ``acc`` (the reference's
+    ``_sharded_fold`` and the meshed branch of its ``replay_stream``).
+
+    Every rank holds the chunk's spliced cost tensor; each ``"data"`` rank
+    replays its slab (scenario s keeps uniforms ``seed + s``; padding rows
+    repeat the last scenario and are masked by ``valid``), computes the
+    statistics on its device and packs them, with its rows' regret of
+    learner 0 at their chunk positions (zeros elsewhere), into ONE vector:
+    ONE all-reduce over ``"data"`` per chunk sums the statistics and hands
+    every rank the whole chunk's feedback for the adaptive adversary. The
+    ``"model"`` ranks compute identical sums. The host reads the reduced
+    vector once per chunk and folds it in float64.
+    """
+    from repro_torch.engine.mesh import all_reduce  # engine imports learn
+
+    J = len(arrivals)
+    K = len(specs)
+    ev_kind, ev_j, n_done = build_events(arrivals, d)
+    etas = np.stack([sp.eta.values(arrivals, d, P) for sp in specs])
+    gammas = np.stack([sp.explore.values(arrivals, d, P) for sp in specs])
+    f32 = lambda a: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a, dtype=np.float32)).to(dev)
+    Z_d = f32(Z)
+    size = fold_acc_size(K, J, P)
+    with span("replay_stream", backend="torch", sharded=True):
+        for ci, ch in enumerate(stream):
+            Sc = ch.unit_cost.shape[0]
+            pos = mesh.slab(Sc)
+            lo = mesh.data_rank * len(pos)
+            u = np.stack([np.random.default_rng(seed + ch.s0 + s).random(J)
+                          for s in pos])
+            with span("fold", chunk=ci, s0=ch.s0, s1=ch.s1), \
+                    program("learn.fold:sharded"):
+                C_d = f32(ch.unit_cost[pos])
+                chosen = torch.empty((len(pos), K, J), dtype=torch.int64,
+                                     device=dev)
+                ec = torch.empty((len(pos), K, J), dtype=torch.float32,
+                                 device=dev)
+                w = torch.empty((len(pos), K, P), dtype=torch.float32,
+                                device=dev)
+                for ks, is_hedge, out in _kernel_launches(
+                        C_d, specs, etas, gammas, f32(u), ev_kind, ev_j,
+                        n_done, dev):
+                    idx = torch.as_tensor(ks, device=dev)
+                    chosen[:, idx] = out["chosen"]
+                    ec[:, idx] = out["expected_cost"]
+                    w[:, idx] = torch.softmax(out["logw"], dim=-1) \
+                        if is_hedge else out["weights"]
+                sums, regret = _fold_sums(
+                    C_d, chosen, ec, w, Z_d,
+                    torch.from_numpy(mesh.slab_valid(Sc)).to(dev))
+                feedback = torch.zeros(mesh.pad(Sc), dtype=torch.float32,
+                                       device=dev)
+                feedback[lo:lo + len(pos)] = regret[:, 0]
+                red = all_reduce(mesh, torch.cat([sums, feedback]))
+                red = red.cpu().numpy().astype(np.float64)
+                g = _unpack_fold(red[:size], K, J, P)
+                acc.fold_sums(g["n"], g["realized"], g["expected"],
+                              g["regret"], g["regret_sq"], g["best_fixed"],
+                              g["curve"], g["curve_sq"], g["weights"],
+                              g["top_weight"])
+            _weight_metrics(specs, g["weights"] / max(g["n"], 1))
+            # The chunk-boundary round trip, as on the unsharded path.
+            source.observe(red[size:size + Sc])

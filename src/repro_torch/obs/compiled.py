@@ -28,6 +28,14 @@ records nothing, as ``LAUNCHES`` counts nothing.
 bounded cache of the port (the cross-call plan and view caches and every
 ``functools.lru_cache``), and :class:`CompileWatch` counts the ``nvcc``
 builds ``device.build_kernels`` starts: a warm path builds nothing.
+
+:func:`collective_counts` is the port's form of the reference's standing
+placement metric. The reference counts collective ops in a compiled
+program's HLO text; the port issues every collective through the two
+helpers of ``engine/mesh.py``, each of which records its kind under the
+program key that is running (:func:`program`). So
+``collective_counts("learn.fold:sharded")`` is the count of collectives
+the sharded fold issued, and :func:`program_runs` how often it ran.
 """
 from __future__ import annotations
 
@@ -42,9 +50,14 @@ __all__ = [
     "PEAK_OPS_PER_S",
     "capture",
     "capturing",
+    "collective_counts",
     "current_registry",
     "factory_caches",
+    "note_collective",
+    "program",
+    "program_runs",
     "record_launch",
+    "reset_collectives",
     "work_bound",
 ]
 
@@ -318,3 +331,60 @@ class CompileWatch:
     def __exit__(self, *exc):
         self.compiles = type(self)._count - self._base
         return False
+
+
+# --------------------------------------------------------------------------
+# Collectives per program key
+# --------------------------------------------------------------------------
+
+COLLECTIVE_KINDS = ("all-reduce", "all-gather", "reduce-scatter",
+                    "all-to-all", "collective-permute")
+_PROGRAM: ContextVar["str | None"] = ContextVar(
+    "repro_torch_obs_program", default=None)
+_COLLECTIVES: dict[str, dict[str, int]] = {}
+_RUNS: dict[str, int] = {}
+
+
+@contextmanager
+def program(key: str):
+    """Mark the block as one run of the program ``key``: collectives
+    issued inside it are recorded under ``key``."""
+    _RUNS[key] = _RUNS.get(key, 0) + 1
+    _COLLECTIVES.setdefault(key, dict.fromkeys(COLLECTIVE_KINDS, 0))
+    token = _PROGRAM.set(key)
+    try:
+        yield
+    finally:
+        _PROGRAM.reset(token)
+
+
+def note_collective(kind: str) -> None:
+    """Record one collective of ``kind`` under the running program (the
+    mesh helpers call this once per collective they issue)."""
+    if kind not in COLLECTIVE_KINDS:
+        raise ValueError(f"unknown collective kind {kind!r}")
+    key = _PROGRAM.get()
+    if key is None:
+        raise RuntimeError(
+            f"a {kind} was issued outside any program(key) block: every "
+            f"collective belongs to a program key")
+    _COLLECTIVES[key][kind] += 1
+
+
+def collective_counts(key: str) -> dict:
+    """Per-kind collective counts (plus ``"total"``) that the program
+    ``key`` issued since the last :func:`reset_collectives`; zeros for a
+    key that never ran or never issued one."""
+    out = dict(_COLLECTIVES.get(key, dict.fromkeys(COLLECTIVE_KINDS, 0)))
+    out["total"] = sum(out.values())
+    return out
+
+
+def program_runs(key: str) -> int:
+    """How often the program ``key`` ran since the last reset."""
+    return _RUNS.get(key, 0)
+
+
+def reset_collectives() -> None:
+    _COLLECTIVES.clear()
+    _RUNS.clear()

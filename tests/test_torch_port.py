@@ -42,7 +42,9 @@ def one_torch_thread():
 def _port_files():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     assert len(files) > 15
-    return files + [REPO / "chip_smoke.py"]
+    # the rank processes of the mesh tests import what this module does
+    return files + [REPO / "chip_smoke.py", REPO / "tests" /
+                    "torch_mesh_ranks.py"]
 
 
 def _imported_modules(path):
@@ -112,8 +114,9 @@ def test_cpu_is_only_by_request(small):
     chunked = evaluate_grid(jobs_t, pols_t, market_t, device="cpu",
                             scenario_chunk=1)
     np.testing.assert_array_equal(chunked.unit_cost, res.unit_cost)
-    with pytest.raises(TypeError):
-        evaluate_grid(jobs_t, pols_t, market_t, device="cpu", mesh=1)
+    # a 1x1 mesh (no process group) is the unsharded computation
+    meshed = evaluate_grid(jobs_t, pols_t, market_t, device="cpu", mesh=1)
+    np.testing.assert_array_equal(meshed.unit_cost, res.unit_cost)
 
 
 def test_wrapper_raises_for_a_device_without_kernel():
@@ -214,6 +217,95 @@ def test_only_obs_trace_reads_a_clock(path):
 
 
 # ---------------------------------------------------------------------------
+# Every collective is one of engine/mesh.py's two counted helpers, so
+# obs.compiled.collective_counts sees all that the port can issue
+# ---------------------------------------------------------------------------
+
+_COLLECTIVES = {
+    "all_reduce", "all_reduce_coalesced", "all_gather",
+    "all_gather_into_tensor", "all_gather_coalesced", "all_gather_object",
+    "all_to_all", "all_to_all_single", "broadcast", "broadcast_object_list",
+    "reduce", "reduce_scatter", "reduce_scatter_tensor", "gather",
+    "gather_object", "scatter", "scatter_object_list", "barrier",
+    "monitored_barrier", "send", "recv", "isend", "irecv",
+    "batch_isend_irecv", "send_object_list", "recv_object_list"}
+
+
+def _dist_reach(tree: ast.AST) -> list[int]:
+    """Lines that reach ``torch.distributed``: an import of it or of a
+    module under it, or the attribute ``torch.distributed``."""
+
+    def under(name):
+        return name == "torch.distributed" \
+            or name.startswith("torch.distributed.")
+
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import) \
+                and any(under(a.name) for a in node.names):
+            bad.append(node.lineno)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and (
+                under(node.module or "") or node.module == "torch"
+                and any(a.name == "distributed" for a in node.names)):
+            bad.append(node.lineno)
+        elif isinstance(node, ast.Attribute) and node.attr == "distributed" \
+                and isinstance(node.value, ast.Name) \
+                and node.value.id == "torch":
+            bad.append(node.lineno)
+    return sorted(set(bad))
+
+
+def _collective_calls(tree: ast.Module) -> dict[str, set[str]]:
+    """The collectives each top-level function calls on a name
+    (``dist.all_reduce(...)``); ``"<module>"`` for calls anywhere else
+    (module level, class bodies and methods)."""
+    found: dict[str, set[str]] = {}
+    for top in tree.body:
+        owner = top.name if isinstance(top, ast.FunctionDef) else "<module>"
+        for node in ast.walk(top):
+            if isinstance(node, ast.Call) \
+                    and isinstance(node.func, ast.Attribute) \
+                    and node.func.attr in _COLLECTIVES \
+                    and isinstance(node.func.value, ast.Name):
+                found.setdefault(owner, set()).add(node.func.attr)
+    return found
+
+
+def test_collective_scans_find_every_form():
+    src = ("import torch.distributed as dist\n"
+           "from torch.distributed import all_reduce\n"
+           "from torch import distributed\n"
+           "x = torch.distributed.barrier\n"
+           "import torch.distributed.device_mesh\n"
+           "from torch.distributed._functional_collectives import f\n"
+           "import torch\nfrom torch import nn\ny = torch.cuda\n")
+    assert _dist_reach(ast.parse(src)) == [1, 2, 3, 4, 5, 6]
+    src = ("def f(d):\n    d.all_reduce(1)\n    d.get_rank()\n"
+           "class C:\n    def g(self, d):\n        d.barrier()\n"
+           "def h(t):\n    t.x.gather(0)\n")
+    assert _collective_calls(ast.parse(src)) == {
+        "f": {"all_reduce"}, "<module>": {"barrier"}}
+
+
+@pytest.mark.parametrize(
+    "path", sorted((REPO / "src" / "repro_torch").rglob("*.py")),
+    ids=lambda p: str(p.relative_to(REPO)))
+def test_only_engine_mesh_issues_collectives(path):
+    tree = ast.parse(path.read_text())
+    if path.relative_to(REPO / "src" / "repro_torch").as_posix() \
+            == "engine/mesh.py":
+        # each helper issues its own kind (gloo and NCCL forms) and no
+        # other function of the module issues any
+        assert _collective_calls(tree) == {
+            "all_gather": {"all_gather", "all_gather_into_tensor"},
+            "all_reduce": {"all_reduce"}}
+    else:
+        lines = _dist_reach(tree)
+        assert not lines, \
+            f"torch.distributed outside engine/mesh.py at lines {lines}"
+
+
+# ---------------------------------------------------------------------------
 # Every bounded cache is in obs.compiled's factory list
 # ---------------------------------------------------------------------------
 
@@ -261,19 +353,24 @@ def test_every_bounded_cache_is_registered():
 
 # Names of the reference's __all__ the port leaves out, and why:
 # policy_cost_batch is the reference's jnp cost path (the port's cost
-# kernels are reached through the engine), and record_jit announces a
+# kernels are reached through the engine), record_jit announces a
 # compiled XLA program (the port compiles none; record_launch takes its
-# place). The engine's backend switch, its XLA cache and the mesh names
-# (ROADMAP A9) are not in these three packages.
+# place), and the engine has no backend switch (available_backends,
+# resolve_backend: the port has one backend) and no XLA compilation cache
+# (setup_persistent_cache: its nvcc builds persist in build/).
 OMITTED = {
     "core": set(),
+    "engine": {"available_backends", "resolve_backend",
+               "setup_persistent_cache"},
     "kernels": {"policy_cost_batch"},
     "obs": {"record_jit"},
 }
-# Names the port adds: its own result types, the launch counter and the
-# launch-capture hook.
+# Names the port adds: its own result types, the launch counter, the
+# launch-capture hook, and the engine's scenario batches and sources.
 ADDED = {
     "core": {"JobCost", "TaskCost", "TolaResult"},
+    "engine": {"MarketListBatch", "SCENARIO_KINDS", "ScenarioSource",
+               "SynthBatch"},
     "kernels": {"LAUNCHES"},
     "obs": {"record_launch"},
 }
