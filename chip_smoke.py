@@ -127,7 +127,8 @@ Phases, each failing the run with a non-zero exit:
    scenario, built with the cache off on the card and on the CPU: starts,
    ends, z_t, d_eff and pins equal by ``torch.equal``, the self-owned sums
    equal; (c) ``table6.run`` on the regime and the adversarial families
-   (10000 jobs, S = 2, r in {0, 1200}, hedge), the launch counters set to
+   (2000 jobs, cut from the Table 6 stream for the time limit and the cut
+   printed; S = 2, r in {0, 1200}, hedge), the launch counters set to
    0 before each and read after: both cost kernels launched, every alpha
    finite and in (0, p_od]; the groups its calls took from the plan cache
    are summed;
@@ -213,7 +214,20 @@ Phases, each failing the run with a non-zero exit:
    rank's collective counts and kernel launches (one chain launch per rank
    per chunk), eval and splice seconds and peak memory printed. A rank on
    the CPU, a rank that fails or hangs, or a gloo process group where NCCL
-   was asked for fails the run.
+   was asked for fails the run;
+15. the static contract checker (``repro_torch.analysis``) — (a) the CLI's
+   Layer 1 over ``src/repro_torch`` exits 0 under
+   ``analysis-baseline-torch.json`` (the per-rule table printed); (b) the
+   program verifier over its full inventory on the card
+   (``verify_all(device="cuda")``, every program under
+   ``torch.cuda.set_sync_debug_mode("error")``), the eval, gather and fold
+   programs on a 1x1 NCCL mesh set up as in phase 14 (a): every check of
+   every program passes (each printed); (c) each ``kernels.*`` program
+   raised its launch counter; (d) planted faults fail their checks on the
+   card: ``.item()`` and ``.tolist()`` (syncs), a float64 output (dtype), a
+   written argument (mutation), an all-gather in a zero-collective program
+   (collectives); (e) no ``nvcc`` build over the phase (``CompileWatch``).
+   Its time is printed against its 30 s budget.
 
 Then one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` name and
 power-limit line, and last ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -247,6 +261,7 @@ PLAN_TOL = 1e-5      # absolute, on fixed alphas and unit costs, device vs host
 # Phase 10's families besides Table 6's fresh markets, and its grids: Table
 # 6's round-0 evaluations (label, grid, r, Even benchmark).
 PLAN_FAMILIES = ("regime", "adversarial")
+PLAN_FAMILY_JOBS = 2000  # (c)'s stream: phase 11 (e)'s driver depth
 PLAN_GRIDS = [("proposed r=0", "spot_od", 0, False),
               ("proposed r=1200", "selfowned", 1200, False),
               ("even r=1200", "bench", 1200, True)]
@@ -294,6 +309,9 @@ MESH_EVAL_KEYS = ("engine.eval.chain:sharded", "engine.eval.task:sharded",
                   "engine.eval.chain_ps:sharded",
                   "engine.eval.task_ps:sharded")
 MESH_KEYS = MESH_EVAL_KEYS + ("engine.gather:sharded", "learn.fold:sharded")
+# Phase 15, the static contract checker: its NCCL store and its budget.
+ANALYSIS_DIR = pathlib.Path("build") / "archive" / "phase15"
+ANALYSIS_BUDGET = 30.0   # seconds
 # The device kernel names torch.profiler shows, one entry per captured
 # launch of each key (the Hedge call's trajectory pass).
 PROFILED_AS = {"policy_cost_chain": ("chain_smem_kernel", "chain_kernel"),
@@ -1859,8 +1877,8 @@ def device_plan_phase(torch, np, n_jobs: int):
             fail(f"the device plan differs between the card and the CPU "
                  f"({label}): {bad[:6]}")
 
-    # (c) Table 6 on the other materialized families. Its round-0 plans
-    # are (a)'s groups: the calls' plan-cache groups are summed.
+    # (c) Table 6 on the other materialized families, on a cut stream; the
+    # groups its calls take from the plan cache are summed.
     p_od = markets[0].p_ondemand
     cached, eval_fn = [0], engine.evaluate_grid
 
@@ -1868,14 +1886,17 @@ def device_plan_phase(torch, np, n_jobs: int):
         res = eval_fn(*a, **k)
         cached[0] += res.timings["plan_cached"]
         return res
+    print(f"CUT: Table 6 on the {' and '.join(PLAN_FAMILIES)} families at "
+          f"{PLAN_FAMILY_JOBS} jobs (the Table 6 stream above: {n_jobs}), "
+          f"for the script's time limit")
     for kind in PLAN_FAMILIES:
         LAUNCHES.clear()
         t0 = time.perf_counter()
         before = cached[0]
         engine.evaluate_grid = counted
         try:
-            res = table6.run(n_jobs, [0, 1200], seed=0, scenarios=2,
-                             device="cuda", scenario_kind=kind)
+            res = table6.run(PLAN_FAMILY_JOBS, [0, 1200], seed=0,
+                             scenarios=2, device="cuda", scenario_kind=kind)
         finally:
             engine.evaluate_grid = eval_fn
         torch.cuda.synchronize()
@@ -2968,6 +2989,118 @@ def mesh_phase(torch, np, jobs, tola_call) -> dict:
     return {"a": phase_launches, "b": rank_launches}
 
 
+def analysis_phase(torch, np) -> dict:
+    """Phase 15: the static contract checker. Returns the kernels'
+    launches of (b)."""
+    import contextlib
+    import io
+
+    import torch.distributed as dist
+
+    from repro_torch.analysis.__main__ import main as analysis_main
+    from repro_torch.analysis.programs import (
+        PROGRAM_KEYS, verify_all, verify_program)
+    from repro_torch.engine import GridMesh
+    from repro_torch.engine.mesh import all_gather
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.obs import compiled
+
+    watch = compiled.CompileWatch()
+    with watch:
+        # -- (a) Layer 1 through the CLI ------------------------------------
+        root = pathlib.Path(__file__).resolve().parent
+        out = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = analysis_main(["--root", str(root)])
+        print(f"(a) python -m repro_torch.analysis: exit {rc} in "
+              f"{time.perf_counter() - t:.3f}s")
+        for line in out.getvalue().splitlines():
+            print(f"    {line}")
+        if rc != 0:
+            fail(f"phase 15 (a): the source rules found violations (exit "
+                 f"{rc})")
+
+        # -- (b), (c) the program verifier on a 1x1 NCCL mesh ---------------
+        ANALYSIS_DIR.mkdir(parents=True, exist_ok=True)
+        store = (ANALYSIS_DIR / "nccl_store").resolve()
+        store.unlink(missing_ok=True)
+        dist.init_process_group("nccl", init_method=f"file://{store}",
+                                world_size=1, rank=0)
+        try:
+            mesh = GridMesh.create(1)
+            if mesh.mesh is None or dist.get_backend() != "nccl":
+                fail(f"phase 15 (b): the 1x1 mesh is not on an NCCL group "
+                     f"({dist.get_backend()})")
+            LAUNCHES.clear()
+            t = time.perf_counter()
+            checks = verify_all(mesh=mesh, device="cuda")
+            t_verify = time.perf_counter() - t
+            launches = dict(LAUNCHES)
+
+            # (d) planted faults, each on CUDA tensors
+            x = torch.arange(8, dtype=torch.float32, device="cuda") - 3.0
+            planted = [
+                ("syncs", "demo.item", lambda a: a * a.sum().item(), {}),
+                ("syncs", "demo.tolist", lambda a: a + len(a.tolist()), {}),
+                ("dtype", "demo.float64", lambda a: a.double() * 2.0, {}),
+                ("mutation", "demo.write", lambda a: a.mul_(2.0), {}),
+                ("collectives", "demo.gather",
+                 lambda a: all_gather(mesh, a) + 1.0,
+                 {"collectives": {"total": 0}}),
+            ]
+            faults = []
+            for check, key, fn, kw in planted:
+                res = verify_program(fn, (x.clone(),), key=key,
+                                     device="cuda", **kw)
+                got = [c for c in res if c.check == check]
+                faults.append((check, key, got))
+        finally:
+            dist.destroy_process_group()
+
+    # One line per program: every check's verdict, with the details that
+    # say more than "ok" (allowances, accumulators, counts, launches).
+    width = max(len(k) for k in PROGRAM_KEYS)
+    for key in PROGRAM_KEYS:
+        mine = [c for c in checks if c.program == key]
+        bad = any(not c.ok for c in mine)
+        print(f"(b) [{'FAIL' if bad else 'ok '}] {key:<{width}} " + "; ".join(
+            f"{c.check} {'ok' if c.ok else 'FAIL'}" + (
+                f" ({c.detail})" if not c.ok or "allowances" in c.detail
+                or "accumulator" in c.detail or c.check == "launches"
+                or "'total': 0" not in c.detail and c.check == "collectives"
+                else "") for c in mine))
+    failed = [c for c in checks if not c.ok]
+    programs = {c.program for c in checks}
+    print(f"(b) {len(programs)} programs verified on the card in "
+          f"{t_verify:.3f}s, {len(checks)} checks, {len(failed)} failed; "
+          f"launches {launches}")
+    if failed or programs != set(PROGRAM_KEYS):
+        fail(f"phase 15 (b): {len(failed)} failed check(s), programs "
+             f"{sorted(set(PROGRAM_KEYS) ^ programs)} missing or extra: "
+             + "; ".join(f"{c.program}/{c.check}: {c.detail}"
+                         for c in failed))
+    want = {(c.program, c.check) for c in checks}
+    for key in PROGRAM_KEYS:
+        need = {"build", "syncs", "dtype", "mutation", "collectives"}
+        if key.startswith("kernels."):
+            need.add("launches")
+        if not all((key, n) in want for n in need):
+            fail(f"phase 15 (b)/(c): {key} lacks one of the checks {need}")
+    for check, key, got in faults:
+        ok = len(got) == 1 and not got[0].ok and key in got[0].detail
+        print(f"(d) planted {key}: {check} "
+              f"{'fails as it must' if ok else 'DID NOT FAIL'}"
+              + (f" ({got[0].detail})" if got else ""))
+        if not ok:
+            fail(f"phase 15 (d): the planted fault {key} passed its "
+                 f"{check} check")
+    print(f"(e) nvcc builds over the phase: {watch.compiles}")
+    if watch.compiles:
+        fail(f"phase 15 (e): {watch.compiles} kernel librar(ies) built")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--jobs", type=int, default=10000,
@@ -3581,6 +3714,18 @@ def main() -> int:
         k["mesh_rank0_launches"] = meshed["b"].get(k["name"], 0)
     print(f"[phase mesh: {time.perf_counter() - t0:.3f}s; launches (a) "
           f"{meshed['a']}, rank 0 of (b) {meshed['b']}]")
+
+    # -- 15. the static contract checker -----------------------------------
+    t0 = time.perf_counter()
+    checked = analysis_phase(torch, np)
+    for k in kernels:
+        k["analysis_launches"] = checked.get(k["name"], 0)
+    t_phase = time.perf_counter() - t0
+    print(f"[phase static checker: {t_phase:.3f}s (budget "
+          f"{ANALYSIS_BUDGET:.0f}s); launches {checked}]")
+    if t_phase > ANALYSIS_BUDGET:
+        print(f"WARNING: phase 15 took {t_phase:.3f}s, over its "
+              f"{ANALYSIS_BUDGET:.0f}s budget")
 
     for k in kernels:    # the same two numbers under their other names
         k["max_abs_diff"], k["kernel_ms"] = k["max_abs_err"], k["ms"]

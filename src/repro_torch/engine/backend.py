@@ -37,7 +37,7 @@ from repro_torch.kernels import policy_cost as pc
 from repro_torch.obs import span
 from repro_torch.obs.compiled import program
 
-__all__ = ["run", "splice"]
+__all__ = ["run", "splice", "eval_sharded", "gather_sharded"]
 
 
 def _f32(a, device):
@@ -59,10 +59,18 @@ def _rows(a, mesh):
     return a if mesh is None else mesh.rows(a)
 
 
-def _chain(gplan, batch, groups_per_bid, mesh):
+def _arrival(gplan, device):
+    """The jobs' arrivals as the chain launch reads them: a float32 tensor
+    on ``device`` for a device plan (uploaded here, before any program
+    opens), the host array for a host plan."""
+    return _f32(gplan.arrival, device) if gplan.device else gplan.arrival
+
+
+def _chain(gplan, batch, groups_per_bid, mesh, arrival_j):
     """ONE ``policy_cost_chain`` launch over every bid's groups
     ``groups_per_bid`` and the chunk's scenarios (this rank's slab under
-    ``mesh``): the result dict of (B, S_rows, R_max) tensors."""
+    ``mesh``): the result dict of (B, S_rows, R_max) tensors.
+    ``arrival_j`` is :func:`_arrival`'s."""
     dev = batch.device
     J, L = gplan.n_jobs, gplan.L
     B = len(groups_per_bid)
@@ -74,9 +82,8 @@ def _chain(gplan, batch, groups_per_bid, mesh):
     if gplan.device:
         zeros = lambda shape: torch.zeros(  # noqa: E731
             shape, dtype=torch.float32, device=dev)
-        arrival_j = _f32(gplan.arrival, dev)
     else:
-        zeros, arrival_j = np.zeros, gplan.arrival
+        zeros = np.zeros
     arrival = zeros((B, R_max))
     ends = zeros((B, R_max, L))
     z_t, d_eff, pins = zeros(pshape), zeros(pshape), zeros(pshape)
@@ -136,7 +143,8 @@ def run(gplan, batch, early_start: bool, out, mesh=None) -> float:
     groups_per_bid = [gplan.groups_for_bid(b) for b in gplan.bids]
 
     if early_start:
-        res = _chain(gplan, batch, groups_per_bid, None)
+        res = _chain(gplan, batch, groups_per_bid, None,
+                     _arrival(gplan, batch.device))
         for key in pc.OUT_KEYS:
             vals = _host(res[key])                       # (B, S, R_max)
             for bi, groups in enumerate(groups_per_bid):
@@ -168,22 +176,38 @@ def _run_sharded(gplan, batch, early_start: bool, out, mesh) -> float:
     S = batch.n_scenarios
     groups_per_bid = [gplan.groups_for_bid(b) for b in gplan.bids]
     local = [_block(mesh, gs, mesh.model_rank) for gs in groups_per_bid]
+    packed = eval_sharded(gplan, batch, early_start, local, mesh,
+                          _arrival(gplan, batch.device) if early_start
+                          else None)
+    with span("splice", scenarios=S, shards=mesh.n_shards) as sp:
+        splice(gather_sharded(mesh, packed), mesh, S, gplan.n_jobs, gplan.L,
+               groups_per_bid, early_start, out)
+    return sp.seconds
+
+
+def eval_sharded(gplan, batch, early_start: bool, local, mesh, arrival_j):
+    """One rank's launches of a chunk (program ``engine.eval.chain:sharded``
+    or ``engine.eval.task:sharded``, ``_ps`` with per-scenario plans):
+    its groups ``local`` (per bid) over its scenario slab, the four output
+    keys of every bid packed into one flat float32 tensor on the device.
+    Issues no collective and reads nothing back to the host."""
     sfx = "_ps" if gplan.per_scenario else ""
     if early_start:
         with program(f"engine.eval.chain{sfx}:sharded"):
-            res = _chain(gplan, batch, local, mesh)
-            packed = torch.stack([res[k] for k in pc.OUT_KEYS]).reshape(-1)
-    else:
-        with program(f"engine.eval.task{sfx}:sharded"):
-            packed = torch.cat([
-                torch.stack([res[k] for k in pc.OUT_KEYS]).reshape(-1)
-                for res in (_task(gplan, batch, bid, gs, mesh)
-                            for bid, gs in zip(gplan.bids, local))])
-    with program("engine.gather:sharded"), \
-            span("splice", scenarios=S, shards=mesh.n_shards) as sp:
-        splice(all_gather(mesh, packed), mesh, S, gplan.n_jobs, gplan.L,
-               groups_per_bid, early_start, out)
-    return sp.seconds
+            res = _chain(gplan, batch, local, mesh, arrival_j)
+            return torch.stack([res[k] for k in pc.OUT_KEYS]).reshape(-1)
+    with program(f"engine.eval.task{sfx}:sharded"):
+        return torch.cat([
+            torch.stack([res[k] for k in pc.OUT_KEYS]).reshape(-1)
+            for res in (_task(gplan, batch, bid, gs, mesh)
+                        for bid, gs in zip(gplan.bids, local))])
+
+
+def gather_sharded(mesh, packed):
+    """Every rank's packed block, in rank order (program
+    ``engine.gather:sharded``: ONE all-gather)."""
+    with program("engine.gather:sharded"):
+        return all_gather(mesh, packed)
 
 
 def splice(gathered, mesh, S: int, J: int, L: int, groups_per_bid,

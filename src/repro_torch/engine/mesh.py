@@ -132,6 +132,10 @@ class GridMesh:
     mesh: Any                 # torch.distributed.device_mesh.DeviceMesh
     data_shards: int = 1
     model_shards: int = 1
+    # (data, model) of every rank, read once from the DeviceMesh when the
+    # mesh is built: a launch asks for its position without a tensor op.
+    rank_table: tuple = dataclasses.field(default=(), compare=False,
+                                          repr=False)
 
     @classmethod
     def create(cls, n_devices: int | None = None,
@@ -208,8 +212,10 @@ class GridMesh:
                 "process group")
         _check_backend(dist)
         shape = dict(zip(names, mesh.mesh.shape))
-        return cls(mesh=mesh, data_shards=int(shape["data"]),
+        grid = cls(mesh=mesh, data_shards=int(shape["data"]),
                    model_shards=int(shape.get("model", 1)))
+        return dataclasses.replace(grid, rank_table=tuple(
+            grid.coords(r) for r in range(grid.n_shards)))
 
     # -- partition --------------------------------------------------------
     @property
@@ -224,6 +230,8 @@ class GridMesh:
         """(data, model) position of process-group rank ``rank``."""
         if self.mesh is None:
             return 0, 0
+        if self.rank_table:
+            return self.rank_table[rank]
         names = tuple(self.mesh.mesh_dim_names)
         pos = (self.mesh.mesh == rank).nonzero()[0].tolist()
         at = dict(zip(names, pos))

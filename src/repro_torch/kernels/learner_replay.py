@@ -190,7 +190,8 @@ def learner_replay_plain(kinds, C, etas, gammas, u, ev_kind, ev_j):
     S, J, P = C.shape
     K = etas.shape[0]
     dt, dev = C.dtype, C.device
-    codes = torch.tensor(_codes(kinds, K), device=dev)
+    code_list = _codes(kinds, K)
+    codes = torch.tensor(code_list, device=dev)
     nj = lanes(P)
     W, B = WARP * nj, S * K
     real = torch.arange(W, device=dev) < P                     # (W,)
@@ -198,7 +199,7 @@ def learner_replay_plain(kinds, C, etas, gammas, u, ev_kind, ev_j):
     row_kind = codes.repeat(S)[:, None]                         # (B, 1)
     is_exp3, is_ucb1 = row_kind == 0, row_kind == 1
     is_egreedy, is_ftl = row_kind == 2, row_kind == 3
-    has = {c: bool((codes == c).any()) for c in range(4)}
+    has = {c: c in code_list for c in range(4)}
     srow = torch.arange(B, device=dev) // K
     Cp = torch.nn.functional.pad(C, (0, W - P))                 # (S, J, W)
     rows = lambda a: a.to(dt)[None].expand(S, K, J).reshape(B, J)  # noqa: E731

@@ -308,26 +308,42 @@ def replay_stream(
     acc.obs = maybe_snapshot()
     return acc
 
-def _kernel_launches(C_d, specs, etas, gammas, u_d, ev_kind, ev_j, n_done,
-                     dev):
-    """The Hedge instances in one ``hedge_replay`` launch, the others in
-    one ``learner_replay`` launch, over the device tensors ``C_d`` (S, J,
-    P) and ``u_d`` (S, J); returns ``[(spec indices, is_hedge, outputs)]``
-    with the outputs on the device."""
+def stage_learners(specs, etas, gammas, ev_kind, ev_j, n_done, dev) -> dict:
+    """The learners' launch inputs on ``dev``, uploaded once before any
+    launch: the Hedge and the other instances' spec indices (a list and a
+    device index tensor each), their rates, the event stream and
+    ``n_done``."""
     f32 = lambda a: torch.from_numpy(  # noqa: E731
         np.ascontiguousarray(a, dtype=np.float32)).to(dev)
     i32 = lambda a: torch.from_numpy(  # noqa: E731
         np.ascontiguousarray(a, dtype=np.int32)).to(dev)
     hedge = [k for k, sp in enumerate(specs) if sp.kind == "hedge"]
     other = [k for k, sp in enumerate(specs) if sp.kind != "hedge"]
-    outs = []
+    st = {"K": len(specs), "legs": []}
     if hedge:
-        outs.append((hedge, True, wu.hedge_replay(
-            C_d, f32(etas[hedge]), u_d, i32(n_done))))
+        st["legs"].append((hedge, torch.as_tensor(hedge, device=dev), True,
+                           {"etas": f32(etas[hedge]), "n_done": i32(n_done)}))
     if other:
-        outs.append((other, False, lk.learner_replay(
-            [specs[k].kind for k in other], C_d, f32(etas[other]),
-            f32(gammas[other]), u_d, i32(ev_kind), i32(ev_j))))
+        st["legs"].append((other, torch.as_tensor(other, device=dev), False,
+                           {"kinds": [specs[k].kind for k in other],
+                            "etas": f32(etas[other]),
+                            "gammas": f32(gammas[other]),
+                            "ev_kind": i32(ev_kind), "ev_j": i32(ev_j)}))
+    return st
+
+
+def kernel_launches(C_d, u_d, st):
+    """The Hedge instances in one ``hedge_replay`` launch, the others in
+    one ``learner_replay`` launch, over the device tensors ``C_d`` (S, J,
+    P) and ``u_d`` (S, J) and :func:`stage_learners`' inputs ``st``;
+    returns ``[(spec indices, their index tensor, is_hedge, outputs)]``
+    with the outputs on the device."""
+    outs = []
+    for ks, idx, is_hedge, a in st["legs"]:
+        out = wu.hedge_replay(C_d, a["etas"], u_d, a["n_done"]) if is_hedge \
+            else lk.learner_replay(a["kinds"], C_d, a["etas"], a["gammas"],
+                                   u_d, a["ev_kind"], a["ev_j"])
+        outs.append((ks, idx, is_hedge, out))
     return outs
 
 
@@ -343,8 +359,9 @@ def _replay_torch(C, specs, etas, gammas, u, ev_kind, ev_j, n_done, dev):
     p_sel = np.zeros((S, K, n))
     e_cost = np.zeros((S, K, n))
     weights = np.zeros((S, K, m))
-    for ks, is_hedge, out in _kernel_launches(
-            f32(C), specs, etas, gammas, f32(u), ev_kind, ev_j, n_done, dev):
+    for ks, _, is_hedge, out in kernel_launches(
+            f32(C), f32(u), stage_learners(specs, etas, gammas, ev_kind,
+                                           ev_j, n_done, dev)):
         if is_hedge:
             # Hedge's final sampling weights: normalized on the host in
             # float64.
@@ -433,6 +450,35 @@ def _fold_sums(C, chosen, ec, w, Z, valid):
     return sums, regret
 
 
+def fold_chunk(mesh, red, C_d, u_d, Z_d, valid, lo: int, st):
+    """One chunk of the sharded fold (program ``learn.fold:sharded``): the
+    slab's learners (:func:`kernel_launches`), its statistics
+    (:func:`_fold_sums`) packed into ``red[:size]`` and its regret of
+    learner 0 at its chunk positions ``red[size + lo:]``, then ONE
+    all-reduce over ``"data"`` sums ``red`` in place. ``red`` is the
+    chunk's accumulator: zeros of ``fold_acc_size + mesh.pad(S)`` on the
+    device, the one argument the program writes. Reads nothing back to
+    the host."""
+    from repro_torch.engine.mesh import all_reduce  # engine imports learn
+
+    with program("learn.fold:sharded"):
+        Sl, J, P = C_d.shape
+        K, dev = st["K"], C_d.device
+        chosen = torch.empty((Sl, K, J), dtype=torch.int64, device=dev)
+        ec = torch.empty((Sl, K, J), dtype=torch.float32, device=dev)
+        w = torch.empty((Sl, K, P), dtype=torch.float32, device=dev)
+        for _, idx, is_hedge, out in kernel_launches(C_d, u_d, st):
+            chosen[:, idx] = out["chosen"]
+            ec[:, idx] = out["expected_cost"]
+            w[:, idx] = torch.softmax(out["logw"], dim=-1) \
+                if is_hedge else out["weights"]
+        sums, regret = _fold_sums(C_d, chosen, ec, w, Z_d, valid)
+        size = sums.shape[0]
+        red[:size] = sums
+        red[size + lo:size + lo + Sl] = regret[:, 0]
+        return all_reduce(mesh, red)
+
+
 def _sharded_fold(stream, source, acc, mesh, specs, arrivals, d, Z, P,
                   seed, dev) -> None:
     """Fold a meshed chunk stream into ``acc`` (the reference's
@@ -443,13 +489,11 @@ def _sharded_fold(stream, source, acc, mesh, specs, arrivals, d, Z, P,
     repeat the last scenario and are masked by ``valid``), computes the
     statistics on its device and packs them, with its rows' regret of
     learner 0 at their chunk positions (zeros elsewhere), into ONE vector:
-    ONE all-reduce over ``"data"`` per chunk sums the statistics and hands
-    every rank the whole chunk's feedback for the adaptive adversary. The
-    ``"model"`` ranks compute identical sums. The host reads the reduced
-    vector once per chunk and folds it in float64.
+    ONE all-reduce over ``"data"`` per chunk (:func:`fold_chunk`) sums the
+    statistics and hands every rank the whole chunk's feedback for the
+    adaptive adversary. The ``"model"`` ranks compute identical sums. The
+    host reads the reduced vector once per chunk and folds it in float64.
     """
-    from repro_torch.engine.mesh import all_reduce  # engine imports learn
-
     J = len(arrivals)
     K = len(specs)
     ev_kind, ev_j, n_done = build_events(arrivals, d)
@@ -458,6 +502,7 @@ def _sharded_fold(stream, source, acc, mesh, specs, arrivals, d, Z, P,
     f32 = lambda a: torch.from_numpy(  # noqa: E731
         np.ascontiguousarray(a, dtype=np.float32)).to(dev)
     Z_d = f32(Z)
+    st = stage_learners(specs, etas, gammas, ev_kind, ev_j, n_done, dev)
     size = fold_acc_size(K, J, P)
     with span("replay_stream", backend="torch", sharded=True):
         for ci, ch in enumerate(stream):
@@ -466,30 +511,12 @@ def _sharded_fold(stream, source, acc, mesh, specs, arrivals, d, Z, P,
             lo = mesh.data_rank * len(pos)
             u = np.stack([np.random.default_rng(seed + ch.s0 + s).random(J)
                           for s in pos])
-            with span("fold", chunk=ci, s0=ch.s0, s1=ch.s1), \
-                    program("learn.fold:sharded"):
-                C_d = f32(ch.unit_cost[pos])
-                chosen = torch.empty((len(pos), K, J), dtype=torch.int64,
-                                     device=dev)
-                ec = torch.empty((len(pos), K, J), dtype=torch.float32,
-                                 device=dev)
-                w = torch.empty((len(pos), K, P), dtype=torch.float32,
-                                device=dev)
-                for ks, is_hedge, out in _kernel_launches(
-                        C_d, specs, etas, gammas, f32(u), ev_kind, ev_j,
-                        n_done, dev):
-                    idx = torch.as_tensor(ks, device=dev)
-                    chosen[:, idx] = out["chosen"]
-                    ec[:, idx] = out["expected_cost"]
-                    w[:, idx] = torch.softmax(out["logw"], dim=-1) \
-                        if is_hedge else out["weights"]
-                sums, regret = _fold_sums(
-                    C_d, chosen, ec, w, Z_d,
-                    torch.from_numpy(mesh.slab_valid(Sc)).to(dev))
-                feedback = torch.zeros(mesh.pad(Sc), dtype=torch.float32,
-                                       device=dev)
-                feedback[lo:lo + len(pos)] = regret[:, 0]
-                red = all_reduce(mesh, torch.cat([sums, feedback]))
+            with span("fold", chunk=ci, s0=ch.s0, s1=ch.s1):
+                red = torch.zeros(size + mesh.pad(Sc), dtype=torch.float32,
+                                  device=dev)
+                fold_chunk(mesh, red, f32(ch.unit_cost[pos]), f32(u), Z_d,
+                           torch.from_numpy(mesh.slab_valid(Sc)).to(dev),
+                           lo, st)
                 red = red.cpu().numpy().astype(np.float64)
                 g = _unpack_fold(red[:size], K, J, P)
                 acc.fold_sums(g["n"], g["realized"], g["expected"],

@@ -36,6 +36,8 @@ helpers of ``engine/mesh.py``, each of which records its kind under the
 program key that is running (:func:`program`). So
 ``collective_counts("learn.fold:sharded")`` is the count of collectives
 the sharded fold issued, and :func:`program_runs` how often it ran.
+:func:`placement_violations` is the standing form of that contract: the
+failed checks of the program verifier (``repro_torch.analysis``).
 """
 from __future__ import annotations
 
@@ -54,6 +56,7 @@ __all__ = [
     "current_registry",
     "factory_caches",
     "note_collective",
+    "placement_violations",
     "program",
     "program_runs",
     "record_launch",
@@ -388,3 +391,18 @@ def program_runs(key: str) -> int:
 def reset_collectives() -> None:
     _COLLECTIVES.clear()
     _RUNS.clear()
+
+
+def placement_violations(mesh=None, keys=None, device="cuda"):
+    """Failed §9-placement (and related) checks over the canonical programs.
+
+    Delegates to the Layer-2 verifier, :func:`repro_torch.analysis.programs.
+    verify_all` — the single implementation of the placement contract —
+    and returns only the failed ``CheckResult``s (an empty list: the
+    contract holds). It runs every program on ``device`` (the card by
+    default) over ``mesh`` (the 1x1 mesh when None).
+    """
+    from repro_torch.analysis.programs import verify_all
+
+    return [c for c in verify_all(mesh=mesh, keys=keys, device=device)
+            if not c.ok]

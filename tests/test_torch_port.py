@@ -359,6 +359,7 @@ def test_every_bounded_cache_is_registered():
 # resolve_backend: the port has one backend) and no XLA compilation cache
 # (setup_persistent_cache: its nvcc builds persist in build/).
 OMITTED = {
+    "analysis": set(),
     "core": set(),
     "engine": {"available_backends", "resolve_backend",
                "setup_persistent_cache"},
@@ -368,6 +369,7 @@ OMITTED = {
 # Names the port adds: its own result types, the launch counter, the
 # launch-capture hook, and the engine's scenario batches and sources.
 ADDED = {
+    "analysis": set(),
     "core": {"JobCost", "TaskCost", "TolaResult"},
     "engine": {"MarketListBatch", "SCENARIO_KINDS", "ScenarioSource",
                "SynthBatch"},
