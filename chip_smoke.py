@@ -67,29 +67,44 @@ Phases, each failing the run with a non-zero exit:
    the CPU;
 5. the LM substrate's serving path at full width —
    ``repro_torch.launch.serve.serve_requests`` on tinyllama-1.1b (22
-   layers, the flash attention kernel in every prefill: 44 launches, each
-   on the tensor-core route) and on mamba2-2.7b (64 layers, the SSD scan
-   kernel: 128 launches), the port's own init from a fixed seed, 8 requests
-   of 1024 tokens in batches of 4, 16 new tokens each; counters set to 0
-   just before each and read just after; wall time, tokens/s and the first
-   completion; then the first group once more under torch.profiler for the
-   device's busy share and the share of the kernel's device entries;
-6. the two kernels against their plain versions on the inputs of their last
-   serve launch (error, kernel, plain and library times, bound; for flash
-   attention also the CUDA-core kernel's time on the same inputs; for the
-   SSD scan its device time, each of its four passes' device time (a
-   warning when their sum leaves the device time by over 5 %), its shared
-   memory per block and its bounds: the row's, f32-accurate products on
-   the tensor cores at the least cost for their operands (three bf16
-   products where x is bfloat16, three TF32 elsewhere), the kernel's own
-   scheme, three TF32 products each, and f32 on the CUDA cores), and at
-   the six flash and four SSD shapes of the reference's kernel tests in
-   float32 (flash: the CUDA-core kernel) and bfloat16 (flash: the
-   tensor-core kernel), plus SSD cases at mamba2's widths with 32 chunks and at five shapes off the
-   serve path (odd P and N, 128 columns, a 4096-row chunk, 70000 heads);
-7. the smoke configs of both architectures on the card (kernels) against
-   the same weights on the CPU (plain versions): prefill and decode logits,
-   and the greedy tokens of a float32 serve.
+   layers, the flash attention kernel in every prefill: 44 launches),
+   mamba2-2.7b (64 layers, the SSD scan kernel: 128 launches), llama3-8b
+   (64 flash launches), granite-3-8b (80), qwen2.5-32b at full width with
+   its depth cut to ``QWEN_LAYERS`` (the cut printed; 2 per layer),
+   hymba-1.5b (window 1024 and 128 meta tokens as the flash kernel's
+   prefix: 64 flash launches, and 64 SSD scans) and seamless-m4t-medium
+   (the reference's zero-frame audio stub; 12 encoder, 12 causal and 12
+   cross flash launches per prefill: 72), each from the port's own init
+   from a fixed seed (one copy of the weights on the card: the serves take
+   the model's tensors), 8 requests of 1024 tokens in batches of 4, 16 new
+   tokens each; counters set to 0 just before each and read just after,
+   every bfloat16 flash launch on the tensor-core route; wall time,
+   tokens/s, the first completion and the peak memory (reset before each
+   model; qwen's must stay within ``SERVE_MEM_SHARE`` of the card); then,
+   for seamless, one prefill on seeded frames; then the first group once
+   more under torch.profiler for the device's busy share and the share of
+   the kernels' device entries;
+6. the two kernels against their plain versions on the inputs of their
+   last launch in each serve, for each mask and length (seamless's
+   encoder, causal and cross launches from its seeded-frames prefill):
+   error, kernel, plain and library times (SDPA wherever it computes the
+   same mask: causal, non-causal, or hymba's window and prefix as an
+   explicit boolean mask), bound; for flash attention also the CUDA-core
+   kernel's time on the same inputs; for the SSD scan its device time,
+   each of its four passes' device time (a warning when their sum leaves
+   the device time by over 5 %), its shared memory per block and its
+   bounds: the row's, f32-accurate products on the tensor cores at the
+   least cost for their operands (three bf16 products where x is bfloat16,
+   three TF32 elsewhere), the kernel's own scheme, three TF32 products
+   each, and f32 on the CUDA cores), and at the six flash and four SSD
+   shapes of the reference's kernel tests in float32 (flash: the CUDA-core
+   kernel) and bfloat16 (flash: the tensor-core kernel), plus SSD cases at
+   mamba2's widths with 32 chunks and at five shapes off the serve path
+   (odd P and N, 128 columns, a 4096-row chunk, 70000 heads);
+7. the smoke configs of every served architecture on the card (kernels)
+   against the same weights on the CPU (plain versions): prefill and
+   decode logits (seamless on seeded frames), and the greedy tokens of a
+   float32 serve.
 8. paper Tables 2-5 — ``repro_torch.experiments.exp1_spot_ondemand``,
    ``exp2_self_owned`` and ``exp3_policy12`` at 1500 jobs (the reference
    benchmarks' default stream; the cut from the paper's ~10000 is
@@ -360,11 +375,28 @@ SSD_ODD = [(1, 77, 2, 20, 2, 18, 32), (1, 130, 2, 33, 1, 20, 64),
 # the seed of the P 1024 cost tensor.
 EDGE_JOBS, EDGE_SEED = 600, 13
 SSD_PASSES = ("ssd_chunk_state", "ssd_cb", "ssd_state_pass", "ssd_chunk_scan")
-# (arch, kernel on its prefill path, launches: layers x prefill rounds, the
-# device kernel names it launches)
-SERVE = [("tinyllama_1_1b", "flash_attention", 22 * 2,
-          ("flash_fwd_tc", "flash_fwd_kernel")),
-         ("mamba2_2_7b", "ssd_scan", 64 * 2, SSD_PASSES)]
+# qwen2.5-32b's depth at full width: its 64 layers of float32 masters (about
+# 131 GB) do not fit the card's 80 GB; the deepest cut whose serve peak, in
+# this script after the earlier phases, stays within SERVE_MEM_SHARE of the
+# card's memory (34 layers peaked at 0.9060 of an H100 80GB; PERF.md §4).
+QWEN_LAYERS = 33
+SERVE_MEM_SHARE = 0.9
+# (arch, launches of each kernel on its prefill path: layers x prefill
+# rounds (seamless: 12 encoder, 12 self and 12 cross layers), depth cut)
+SERVE = [("tinyllama_1_1b", {"flash_attention": 22 * 2}, None),
+         ("mamba2_2_7b", {"ssd_scan": 64 * 2}, None),
+         ("llama3_8b", {"flash_attention": 32 * 2}, None),
+         ("granite_3_8b", {"flash_attention": 40 * 2}, None),
+         ("qwen2_5_32b", {"flash_attention": QWEN_LAYERS * 2}, QWEN_LAYERS),
+         ("hymba_1_5b", {"flash_attention": 32 * 2, "ssd_scan": 32 * 2},
+          None),
+         ("seamless_m4t_medium", {"flash_attention": 36 * 2}, None)]
+# The device kernels each wrapper launches, and the TPU kernel it replaces.
+SERVE_KERNEL_NAMES = {"flash_attention": ("flash_fwd_tc", "flash_fwd_kernel"),
+                      "ssd_scan": SSD_PASSES}
+SERVE_REPLACES = {"flash_attention": "src/repro/kernels/flash_attention.py:101",
+                  "ssd_scan": "src/repro/kernels/ssd_scan.py:78"}
+SERVE_FRAMES_SEED = 3   # seamless's seeded frames (its serve stubs zeros)
 SERVE_REQUESTS, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 4, 1024, 16
 # Chain cases off Table 6's path: a synthetic horizon at the shared-memory
 # route's last slot count and one beyond it (the global route), with
@@ -661,11 +693,11 @@ def smi_clocks() -> dict:
 
 
 def device_breakdown(torch, prof, wall_s: float, top: int = 8,
-                     kernel: tuple[str, tuple[str, ...]] | None = None):
+                     kernels: dict[str, tuple[str, ...]] | None = None):
     """Print the device's busy share over ``wall_s`` and its largest
-    entries, from a torch.profiler run; with ``kernel`` = (label, names),
-    also the device time, launches and busy share of the entries of those
-    kernel names together. Returns the device entries."""
+    entries, from a torch.profiler run; with ``kernels`` = {label: names},
+    also the device time, launches and busy share of each label's kernel
+    names together. Returns the device entries."""
     rows = sorted(
         (e for e in prof.key_averages()
          if e.device_type == torch.autograd.DeviceType.CUDA
@@ -678,8 +710,7 @@ def device_breakdown(torch, prof, wall_s: float, top: int = 8,
     for e in rows[:top]:
         print(f"  device {e.self_device_time_total / 1e3:10.3f} ms "
               f"{e.count:6d} calls  {e.key[:70]}")
-    if kernel:
-        label, names = kernel
+    for label, names in (kernels or {}).items():
         hits = [e for e in rows if kernel_named(e.key, names)]
         k_ms = sum(e.self_device_time_total for e in hits) / 1e3
         print(f"  {label} ({', '.join(names)}): device {k_ms:.3f} ms over "
@@ -766,9 +797,9 @@ def allclose(got, ref, tol: float) -> tuple[float, bool]:
 
 
 def serve_phases(torch, np) -> tuple[dict, dict]:
-    """Serve tinyllama-1.1b and mamba2-2.7b at full width; returns the
-    launch counts of each phase and the inputs of each LM kernel's last
-    launch."""
+    """Serve every architecture of ``SERVE`` at full width (qwen2.5-32b at
+    its depth cut); returns each architecture's launch counts and the inputs
+    of the last launch of each (architecture, kernel, mask and lengths)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
@@ -780,88 +811,164 @@ def serve_phases(torch, np) -> tuple[dict, dict]:
     from repro_torch.models import build
 
     captured: dict = {}
+    label = [None]     # the run whose launches are kept, None: none
+
+    def flash_key(a, k):
+        q, kk = a[0], a[1]
+        return (label[0], "flash_attention", k["causal"], k["window"],
+                k["prefix"], q.shape[1], kk.shape[1])
+
+    keys = {"flash_attention": flash_key,
+            "ssd_scan": lambda a, k: (label[0], "ssd_scan")}
     originals = {"flash_attention": (fa, "flash_attention_strided"),
                  "ssd_scan": (ss, "ssd_scan")}
     for name, (mod, attr) in originals.items():
         fn = getattr(mod, attr)
 
-        def wrapper(*a, _fn=fn, _name=name, **k):
-            captured[_name] = (a, k)     # inputs of the last launch
+        def wrapper(*a, _fn=fn, _key=keys[name], **k):
+            if label[0]:
+                captured[_key(a, k)] = (a, k)    # the last launch's inputs
             return _fn(*a, **k)
         setattr(mod, attr, wrapper)
         originals[name] = (mod, attr, fn)
+    total = torch.cuda.get_device_properties(0).total_memory
     counts = {}
-    for arch, kernel, expected, device_names in SERVE:
+    for arch, expected, depth in SERVE:
         cfg = get_config(arch)
+        if depth:
+            print(f"[{cfg.name}: depth cut from {cfg.n_layers} to {depth} "
+                  f"layers at full width, to keep the float32 masters and "
+                  f"the serve's peak within {SERVE_MEM_SHARE:.0%} of the "
+                  f"card's {total / 2**30:.3f} GiB]")
+            cfg = dataclasses.replace(cfg, n_layers=depth)
         prompts = np.random.default_rng(0).integers(
             0, cfg.vocab, (SERVE_REQUESTS, SERVE_PROMPT), dtype=np.int32)
+        torch.cuda.reset_peak_memory_stats()
+        # One copy of the weights: the model's; the serves take its tensors.
+        t0 = time.perf_counter()
+        model = build(cfg, "cuda")
+        model.init_weights(torch.Generator("cuda").manual_seed(0))
+        state = model.state_dict()
+        n_params = sum(t.numel() for t in state.values())
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
         LAUNCHES.clear()
+        label[0] = arch
         t0 = time.perf_counter()
         out, stats = serve_requests(cfg, prompts, SERVE_BATCH, SERVE_NEW,
-                                    seed=0, device="cuda")
+                                    params=state, device="cuda")
         torch.cuda.synchronize()
         t_phase = time.perf_counter() - t0
-        counts[kernel] = launches = dict(LAUNCHES)
+        label[0] = None
+        counts[arch] = launches = dict(LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
         print(f"[phase serve {cfg.name}: {cfg.n_layers} layers, d_model "
-              f"{cfg.d_model}, {SERVE_REQUESTS} requests x {SERVE_PROMPT} "
-              f"tokens, batch {SERVE_BATCH}, {SERVE_NEW} new: serve loop "
+              f"{cfg.d_model}, {n_params / 1e9:.3f}e9 parameters, "
+              f"{SERVE_REQUESTS} requests x {SERVE_PROMPT} tokens, batch "
+              f"{SERVE_BATCH}, {SERVE_NEW} new: serve loop "
               f"{stats['wall_s']:.3f}s, {stats['tokens_per_s']:.1f} tok/s; "
-              f"{t_phase:.3f}s with init; launches {launches}]")
+              f"{t_phase:.3f}s with the call, init {t_init:.3f}s; launches "
+              f"{launches}; peak memory {peak / 2**30:.3f} GiB of "
+              f"{total / 2**30:.3f}]")
         print(f"  first completion: {out[0].tolist()}")
-        if launches.get(kernel, 0) != expected:
-            fail(f"serve {arch}: {kernel} launched {launches.get(kernel, 0)} "
-                 f"times, expected {expected}")
-        if kernel == "flash_attention" \
-                and launches.get("flash_attention_tc", 0) != expected:
+        for kernel, n in expected.items():
+            if launches.get(kernel, 0) != n:
+                fail(f"serve {arch}: {kernel} launched "
+                     f"{launches.get(kernel, 0)} times, expected {n}")
+        if "flash_attention" in expected and launches.get(
+                "flash_attention_tc", 0) != expected["flash_attention"]:
             fail(f"serve {arch}: {launches.get('flash_attention_tc', 0)} of "
-                 f"{expected} flash launches took the tensor-core route")
+                 f"{expected['flash_attention']} flash launches took the "
+                 "tensor-core route")
         if out.shape != (SERVE_REQUESTS, SERVE_NEW) or out.min() < 0 \
                 or out.max() >= cfg.vocab or not stats["tokens_per_s"] > 0:
             fail(f"serve {arch}: bad output {out.shape} [{out.min()}, "
                  f"{out.max()}] or stats {stats}")
-        # The first group again under the profiler, with the same weights
-        # initialised outside the profiled window (which then holds the
-        # serve loop and a device-to-device weight copy). One group keeps
-        # the trace, and the time to read it, short.
-        model = build(cfg, "cuda")
-        model.init_weights(torch.Generator("cuda").manual_seed(0))
-        state = model.state_dict()
-        del model
+        if cfg.kind == "encdec":
+            # The serve's stub frames are zeros: the encoder's and the cross
+            # launches saw zeros. One prefill on seeded frames for their
+            # checks.
+            gen = torch.Generator("cuda").manual_seed(SERVE_FRAMES_SEED)
+            frames = torch.randn(SERVE_BATCH, SERVE_PROMPT // 4, cfg.d_model,
+                                 device="cuda", generator=gen)
+            label[0] = f"{arch} (seeded frames)"
+            model.prefill({"tokens": torch.as_tensor(
+                prompts[:SERVE_BATCH], device="cuda"), "frames": frames},
+                max_len=SERVE_PROMPT + SERVE_NEW)
+            label[0] = None
+        # The first group again under the profiler, from the same weights
+        # (the serve's tensors: no copy in the profiled window, which then
+        # holds the serve loop alone). Device activity only, and one group:
+        # the busy share needs no host events, and reading a trace of the
+        # host's ops took 22-54 s a model.
         t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             out_p, stats_p = serve_requests(cfg, prompts[:SERVE_BATCH],
                                             SERVE_BATCH, SERVE_NEW,
                                             params=state, device="cuda")
             torch.cuda.synchronize()
         t1 = time.perf_counter()
-        device_breakdown(torch, prof, stats_p["wall_s"],
-                         kernel=(kernel, device_names))
+        rows = device_breakdown(torch, prof, stats_p["wall_s"], kernels={
+            k: SERVE_KERNEL_NAMES[k] for k in expected})
+        busy = sum(e.self_device_time_total for e in rows) / 1e3
         print(f"  first group under torch.profiler (not counted): serve loop "
-              f"{stats_p['wall_s']:.3f}s; profiled run and trace collection "
-              f"{t1 - t0:.3f}s, reading the trace "
+              f"{stats_p['wall_s']:.3f}s, idle share "
+              f"{1 - busy / (stats_p['wall_s'] * 1e3):.6f}; profiled run and "
+              f"trace collection {t1 - t0:.3f}s, reading the trace "
               f"{time.perf_counter() - t1:.3f}s")
         if not np.array_equal(out_p, out[:SERVE_BATCH]):
             fail(f"serve {arch}: the profiled run generated other tokens")
-        del state
+        peak = torch.cuda.max_memory_allocated()
+        print(f"  peak memory over the model's serves {peak / 2**30:.3f} GiB, "
+              f"{peak / total:.4f} of the card")
+        if depth:
+            kv_layer = 2 * 2 * SERVE_BATCH * (SERVE_PROMPT + SERVE_NEW) \
+                * cfg.n_kv_heads * cfg.dh
+            one_more = peak + kv_layer + 4 * sum(
+                t.numel() for k, t in state.items()
+                if k.startswith("layers.0."))
+            print(f"  one layer more: about {one_more / 2**30:.3f} GiB "
+                  f"({one_more / total:.4f} of the card)")
+            if peak > SERVE_MEM_SHARE * total:
+                fail(f"serve {arch}: peak {peak / total:.4f} of the card at "
+                     f"{depth} layers, over {SERVE_MEM_SHARE}")
+        del model, state, out_p, prof
         torch.cuda.empty_cache()
     for mod, attr, fn in originals.values():
         setattr(mod, attr, fn)
     return counts, captured
 
 
-def lm_kernel_entries(torch, counts, captured) -> list[dict]:
-    """Each LM kernel against its plain version on the inputs of its last
-    serve launch, timed beside its plain version, its library call and its
-    bound."""
+def sdpa_yardstick(torch, q, k, v, kw):
+    """One SDPA call that computes what the flash launch computes (the same
+    mask), or None: causal without a window, non-causal (the encoder and
+    cross attention), and a window with a prefix as an explicit boolean
+    mask. Timed beside the kernel, never used on the path."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    Sq, Sk = q.shape[1], k.shape[1]
+    if not kw["window"]:
+        if kw["causal"] and Sq != Sk:
+            return None
+        return lambda: sdpa(qt, kt, vt, is_causal=kw["causal"],
+                            enable_gqa=True)
+    i = torch.arange(Sq, device=q.device)[:, None]
+    j = torch.arange(Sk, device=q.device)[None, :]
+    ok = (i - j < kw["window"]) | (j < kw["prefix"])
+    if kw["causal"]:
+        ok &= j <= i
+    return lambda: sdpa(qt, kt, vt, attn_mask=ok, enable_gqa=True)
+
+
+def flash_entry(torch, inputs, label: str, launches: int) -> dict:
+    """A flash launch's inputs against the plain version, on both kernels,
+    timed beside the plain version, SDPA and the bound."""
     # The module (the package attribute of its name is the function).
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
     from repro_torch.kernels import ops
-    from repro_torch.kernels import ssd_scan as ss
     from repro_torch.obs.compiled import work_bound
 
-    entries = []
-    (q, k, v, _), kw = captured["flash_attention"]
+    (q, k, v, _), kw = inputs
     dtype = str(q.dtype).split(".")[-1]
     got = ops.flash_attention(q, k, v, **kw)
     plain = flash_plain_bshd(q, k, v, **kw)
@@ -871,49 +978,54 @@ def lm_kernel_entries(torch, counts, captured) -> list[dict]:
     fa.launch_cuda_core(q, k, v, out_cc, **kw)
     err_cc, ok_cc = allclose(out_cc, plain, LM_TOL[dtype]["flash"])
     B, Sq, H, dh = q.shape
-    Sk = k.shape[1]
     b_ms, b_by = work_bound(fa.flash_work(q, k, v, got, kw["causal"],
                                           kw["window"], kw["prefix"]))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    lib = (lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)) \
-        if kw["causal"] and not kw["window"] else None
+    lib = sdpa_yardstick(torch, q, k, v, kw)
     # ms, cuda_core_ms and library_ms: one call at a time, the wrapper's
     # preparation included; *device_ms: device time alone.
     run = lambda: ops.flash_attention(q, k, v, **kw)  # noqa: E731
     run_cc = lambda: fa.launch_cuda_core(q, k, v, out_cc, **kw)  # noqa: E731
-    entries.append({
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:101",
-        "launches": counts["flash_attention"].get("flash_attention", 0),
-        "launches_tc": counts["flash_attention"].get("flash_attention_tc", 0),
-        "max_abs_err": err,
-        "ms": cuda_ms(torch, run),
-        "cuda_core_ms": cuda_ms(torch, run_cc),
-        "cuda_core_max_abs_err": err_cc,
-        "plain_ms": cuda_ms(torch, lambda: flash_plain_bshd(q, k, v, **kw)),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": cuda_ms(torch, lib) if lib else None,
-        "device_ms": device_ms(torch, run),
-        "cuda_core_device_ms": device_ms(torch, run_cc),
-        "library_device_ms": device_ms(torch, lib) if lib else None,
-        "shape": {"B": B, "Sq": Sq, "Sk": Sk, "H": H, "K": k.shape[2],
-                  "dh": dh, "dtype": dtype, **kw}})
-    print(f"flash_attention vs plain at the serve shape: max abs err "
+    e = {"serve": label, "launches": launches, "max_abs_err": err,
+         "ms": cuda_ms(torch, run),
+         "cuda_core_ms": cuda_ms(torch, run_cc),
+         "cuda_core_max_abs_err": err_cc,
+         "plain_ms": cuda_ms(torch, lambda: flash_plain_bshd(q, k, v, **kw)),
+         "bound_ms": b_ms, "bound_by": b_by,
+         "library_ms": cuda_ms(torch, lib) if lib else None,
+         "device_ms": device_ms(torch, run),
+         "cuda_core_device_ms": device_ms(torch, run_cc),
+         "library_device_ms": device_ms(torch, lib) if lib else None,
+         "library_max_abs_err": float((lib().transpose(1, 2).float()
+                                       - plain.float()).abs().max())
+         if lib else None,
+         "shape": {"B": B, "Sq": Sq, "Sk": k.shape[1], "H": H,
+                   "K": k.shape[2], "dh": dh, "dtype": dtype, **kw}}
+    mask = ("causal" if kw["causal"] else "non-causal") + (
+        f", window {kw['window']}, prefix {kw['prefix']}"
+        if kw["window"] else "")
+    print(f"flash_attention, {label} ({B}, {Sq}/{k.shape[1]}, {H}/"
+          f"{k.shape[2]}, {dh}) {dtype} {mask}: max abs err vs plain "
           f"{err:.3e} (tensor-core route), {err_cc:.3e} (CUDA-core kernel) "
           f"(tol {LM_TOL[dtype]['flash']} abs + rel) "
-          f"{'OK' if ok and ok_cc else 'FAIL'}")
-    if not (ok and ok_cc):
-        fail("flash_attention disagrees with its plain version")
-    e = entries[-1]
-    print("flash_attention at the serve shape, ms per call (device only): "
+          f"{'OK' if ok and ok_cc else 'FAIL'}; ms per call (device only): "
           f"tensor cores {e['ms']:.4f} ({e['device_ms']:.4f}), CUDA cores "
           f"{e['cuda_core_ms']:.4f} ({e['cuda_core_device_ms']:.4f}), SDPA "
-          f"{e['library_ms']} ({e['library_device_ms']}), bound "
-          f"{e['bound_ms']:.4f} ({e['bound_by']})")
+          f"{e['library_ms']} ({e['library_device_ms']}), plain "
+          f"{e['plain_ms']:.4f}, bound {b_ms:.4f} ({b_by}); {launches} "
+          "launches")
+    if not (ok and ok_cc):
+        fail(f"flash_attention disagrees with its plain version at {label}")
+    if not got.abs().max() > 0:
+        fail(f"flash_attention at {label}: all-zero output checks nothing")
+    return e
 
-    (x, dt, A, Bm, Cm, *rest), kw = captured["ssd_scan"]
+
+def ssd_entry(torch, inputs, label: str, launches: int) -> dict:
+    """An SSD launch's inputs against the plain version, timed beside it,
+    its passes and its bounds."""
+    from repro_torch.kernels import ssd_scan as ss
+
+    (x, dt, A, Bm, Cm, *rest), kw = inputs
     chunk = rest[0] if rest else kw.get("chunk", 128)
     dtype = str(x.dtype).split(".")[-1]
     y, st = ss.ssd_scan(x, dt, A, Bm, Cm, chunk)
@@ -937,38 +1049,30 @@ def lm_kernel_entries(torch, counts, captured) -> list[dict]:
     passes = pass_device_ms(torch, run, SSD_PASSES)
     pass_sum = sum(passes.values())
     smem = ss.smem_bytes(x.dtype, P)
-    entries.append({
-        "name": "ssd_scan", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
-        "replaces": "src/repro/kernels/ssd_scan.py:78",
-        "launches": counts["ssd_scan"].get("ssd_scan", 0),
-        "max_abs_err": max(e_y, e_s),
-        "ms": cuda_ms(torch, run),
-        "plain_ms": cuda_ms(torch, lambda: ss.ssd_scan_plain(
-            x, dt, A, Bm, Cm, chunk)),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "bound_rate": "products with the bf16 x at bf16 / 3 (f32 operand "
-                      "split in three bf16 parts), the rest at TF32 / 3",
-        "bound_kernel_scheme_ms": bounds["kernel"][0],
-        "bound_tf32_3_ms": bounds["tf32_3"][0],
-        "bound_f32_cuda_core_ms": bounds["f32"][0],
-        "bound_f32_cuda_core_by": bounds["f32"][1],
-        "ops": {"x": x_ops, "other": other_ops},
-        "device_ms": dev_ms, "pass_device_ms": passes,
-        "pass_sum_over_device_ms": pass_sum / dev_ms,
-        "smem_bytes": smem,
-        "shape": {"B": Bb, "S": S, "H": H, "P": P, "G": G, "N": N,
-                  "chunk": chunk, "dtype": dtype},
-        "y_err": e_y, "state_err": e_s, "y_err_float32_x": e_32})
-    e = entries[-1]
-    print(f"ssd_scan at the serve shape, ms per call {e['ms']:.4f}, device "
-          f"{dev_ms:.4f} (passes: " + ", ".join(
-              f"{k} {v:.4f}" for k, v in passes.items())
-          + f", sum {pass_sum:.4f}); {e['launches']} serve calls, each the "
-          "four passes of the one kernel (no route); dynamic shared memory "
-          f"per block {smem}")
-    print(f"ssd_scan bounds at the serve shape: {x_ops / 1e9:.3f} GFLOP with "
-          f"x, {other_ops / 1e9:.3f} GFLOP without, {n_bytes / 1e6:.1f} MB: "
+    e = {"serve": label, "launches": launches, "max_abs_err": max(e_y, e_s),
+         "ms": cuda_ms(torch, run),
+         "plain_ms": cuda_ms(torch, lambda: ss.ssd_scan_plain(
+             x, dt, A, Bm, Cm, chunk)),
+         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+         "bound_kernel_scheme_ms": bounds["kernel"][0],
+         "bound_tf32_3_ms": bounds["tf32_3"][0],
+         "bound_f32_cuda_core_ms": bounds["f32"][0],
+         "bound_f32_cuda_core_by": bounds["f32"][1],
+         "ops": {"x": x_ops, "other": other_ops},
+         "device_ms": dev_ms, "pass_device_ms": passes,
+         "pass_sum_over_device_ms": pass_sum / dev_ms,
+         "smem_bytes": smem,
+         "shape": {"B": Bb, "S": S, "H": H, "P": P, "G": G, "N": N,
+                   "chunk": chunk, "dtype": dtype},
+         "y_err": e_y, "state_err": e_s, "y_err_float32_x": e_32}
+    print(f"ssd_scan, {label} ({Bb}, {S}, {H}, {P}, {G}, {N}, chunk {chunk})"
+          f": ms per call {e['ms']:.4f}, device {dev_ms:.4f} (passes: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in passes.items())
+          + f", sum {pass_sum:.4f}), plain {e['plain_ms']:.4f}; {launches} "
+          "calls, each the four passes of the one kernel (no route); "
+          f"dynamic shared memory per block {smem}")
+    print(f"ssd_scan bounds, {label}: {x_ops / 1e9:.3f} GFLOP with x, "
+          f"{other_ops / 1e9:.3f} GFLOP without, {n_bytes / 1e6:.1f} MB: "
           f"{b_ms:.4f} ({b_by}; x products at bf16/3, the rest at TF32/3: "
           f"the row's), {bounds['kernel'][0]:.4f} (the kernel's scheme: x "
           f"products at TF32/2), {bounds['tf32_3'][0]:.4f} (all at TF32/3), "
@@ -979,12 +1083,51 @@ def lm_kernel_entries(torch, counts, captured) -> list[dict]:
               f"{pass_sum:.4f} ms against {dev_ms:.4f} ms of device time by "
               "events: the per-pass times are not to be trusted in this run")
     ok = ok_y and ok_s and ok_32
-    print(f"ssd_scan vs plain at the serve shape: y ({dtype}) max abs err "
-          f"{e_y:.3e} (tol {LM_TOL[dtype]['ssd']} abs + rel), final state "
-          f"{e_s:.3e} (tol {STATE_TOL}), y with x in float32 {e_32:.3e} "
-          f"(tol {LM_TOL['float32']['ssd']}) {'OK' if ok else 'FAIL'}")
+    print(f"ssd_scan vs plain, {label}: y ({dtype}) max abs err {e_y:.3e} "
+          f"(tol {LM_TOL[dtype]['ssd']} abs + rel), final state {e_s:.3e} "
+          f"(tol {STATE_TOL}), y with x in float32 {e_32:.3e} (tol "
+          f"{LM_TOL['float32']['ssd']}) {'OK' if ok else 'FAIL'}")
     if not ok:
-        fail("ssd_scan disagrees with its plain version")
+        fail(f"ssd_scan disagrees with its plain version at {label}")
+    return e
+
+
+def lm_kernel_entries(torch, counts, captured) -> list[dict]:
+    """Each LM kernel against its plain version on the inputs of its last
+    launch in each serve (each mask and length of it: seamless's encoder and
+    cross launches from its seeded-frames prefill), timed beside its plain
+    version, its library call and its bound. The entry's own numbers,
+    ``launches`` among them, are its first serve's (tinyllama's flash,
+    mamba2's SSD); ``serves`` holds every one with its own serve's count,
+    and ``launches_all_serves`` sums the serves'."""
+    from repro_torch.configs import get_config
+
+    checks = {"flash_attention": flash_entry, "ssd_scan": ssd_entry}
+    serves = {name: [] for name in checks}
+    for (label, name, *_), inputs in captured.items():
+        arch = label.split(" (")[0]
+        if label == arch and get_config(arch).kind == "encdec":
+            continue     # the stub's zero frames: held on seeded frames
+        serves[name].append(checks[name](
+            torch, inputs, label, counts[arch].get(name, 0)))
+    entries = []
+    for name, first in (("flash_attention", "tinyllama_1_1b"),
+                        ("ssd_scan", "mamba2_2_7b")):
+        rows = serves[name]
+        head = dict(next(r for r in rows if r["serve"] == first))
+        head.update({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": SERVE_REPLACES[name],
+            "launches": counts[first].get(name, 0),
+            "launches_all_serves": sum(c.get(name, 0)
+                                       for c in counts.values()),
+            "serves": rows})
+        if name == "flash_attention":
+            head["launches_tc"] = counts[first].get("flash_attention_tc", 0)
+            head["launches_tc_all_serves"] = sum(
+                c.get("flash_attention_tc", 0) for c in counts.values())
+        entries.append(head)
     return entries
 
 
@@ -1053,7 +1196,8 @@ def lm_kernel_sweep(torch) -> None:
 
 def lm_model_check(torch, np) -> None:
     """The smoke configs served on the card (kernels) against the same
-    weights on the CPU (plain versions)."""
+    weights on the CPU (plain versions); the encoder-decoder's prefill on
+    seeded frames."""
     from repro_torch.configs import smoke_config
     from repro_torch.launch.serve import serve_requests
     from repro_torch.models import build
@@ -1067,14 +1211,45 @@ def lm_model_check(torch, np) -> None:
             state = cpu.state_dict()
             gpu = build(cfg, "cuda")
             gpu.load_state_dict(state)
-            toks = torch.from_numpy(np.random.default_rng(1).integers(
-                0, cfg.vocab, (2, 40), dtype=np.int32))
-            logits = []
-            for model, dev in ((cpu, "cpu"), (gpu, "cuda")):
-                lg, cache = model.prefill({"tokens": toks.to(dev)},
-                                          max_len=48)
-                lg2, _ = model.decode(cache, toks[:, 3:4].to(dev), 40)
-                logits.append((lg.cpu(), lg2.cpu()))
+            rng = np.random.default_rng(1)
+            batch = {"tokens": torch.from_numpy(rng.integers(
+                0, cfg.vocab, (2, 40), dtype=np.int32))}
+            if cfg.kind == "encdec":
+                batch["frames"] = torch.from_numpy(rng.normal(
+                    size=(2, 10, cfg.d_model)).astype(np.float32))
+            # Prefill on both; then both decode from the CPU's cache: a
+            # bfloat16 cache of a float32 model rounds keys 1e-6 apart to
+            # neighbouring bfloat16 values (ROADMAP queue C), so the caches
+            # are held to one bfloat16 ulp and the decode to its own bar.
+            lg_c, cache_c = cpu.prefill(batch, max_len=48)
+            lg_g, cache_g = gpu.prefill(
+                {k: t.to("cuda") for k, t in batch.items()}, max_len=48)
+            for key, ref in cache_c.items():
+                got = cache_g[key].cpu()
+                if ref.dtype == torch.int32:
+                    err, ok = float((got - ref).abs().max()), \
+                        torch.equal(got, ref)
+                elif dtype == "bfloat16":
+                    err = rms(got.float() - ref.float()) / max(rms(ref),
+                                                               1e-30)
+                    ok = err <= 2e-2
+                else:
+                    d = (got.float() - ref.float()).abs()
+                    rel = 2.0 ** -7 if ref.dtype == torch.bfloat16 else 1e-4
+                    err = float(d.max())
+                    ok = bool((d <= 1e-4 + rel * ref.float().abs()).all())
+                if not ok:
+                    fail(f"{cfg.name} {dtype} prefill cache {key}: card off "
+                         f"the CPU by {err:.3e}")
+            nxt = batch["tokens"][:, 3:4]
+            pos = 40 + cfg.n_meta_tokens
+            lg2_g, _ = gpu.decode({k: t.to("cuda", copy=True) for k, t in
+                                   cache_c.items()}, nxt.to("cuda"), pos)
+            lg2_c, _ = cpu.decode(cache_c, nxt, pos)
+            print(f"  {cfg.name} {dtype} prefill cache ({', '.join(cache_c)})"
+                  ", card vs CPU: OK (float32: 1e-4, bfloat16-stored values "
+                  "one bfloat16 ulp; bfloat16: relative RMS 2e-2)")
+            logits = [(lg_c, lg2_c), (lg_g.cpu(), lg2_g.cpu())]
             for step, (a, b) in zip(("prefill", "decode"), zip(*logits)):
                 if dtype == "float32":
                     err, ok = allclose(b, a, 1e-4)
@@ -2583,7 +2758,7 @@ def obs_phase(torch, np, jobs, smi: str, phase3: dict) -> dict:
     cfg = get_config(arch)
     prompts = np.random.default_rng(0).integers(
         0, cfg.vocab, (SERVE_REQUESTS, SERVE_PROMPT), dtype=np.int32)
-    expected = next(n for a, _, n, _ in SERVE if a == arch)
+    expected = next(n for a, n, _ in SERVE if a == arch)["flash_attention"]
     with obs.observe(programs=True) as o:
         _, stats = serve_requests(cfg, prompts, SERVE_BATCH, SERVE_NEW,
                                   seed=0, device="cuda")

@@ -1,6 +1,7 @@
 """Architecture registry of the port: the reference's ``ARCH_NAMES``, with
 ``get_config`` / ``smoke_config`` for the architectures ported so far
-(``tinyllama_1_1b``, ``mamba2_2_7b``). The others raise
+(``PORTED``: the dense decoders, mamba2-2.7b, hymba-1.5b and
+seamless-m4t-medium). The others (the moe and vlm families) raise
 ``NotImplementedError`` until their family is ported (ROADMAP A11)."""
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ ARCH_NAMES = (
     "hymba_1_5b",
     "mamba2_2_7b",
 )
-PORTED = ("tinyllama_1_1b", "mamba2_2_7b")
+PORTED = ("tinyllama_1_1b", "mamba2_2_7b", "llama3_8b", "granite_3_8b",
+          "qwen2_5_32b", "hymba_1_5b", "seamless_m4t_medium")
 
 
 def _module(name: str):

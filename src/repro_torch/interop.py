@@ -68,8 +68,12 @@ def policies_from_tuples(
 def params_from_reference(cfg, tree) -> dict[str, torch.Tensor]:
     """The state dict of the port's model for ``cfg`` (``models.build``)
     from the reference's parameter tree: nested dicts of numpy arrays, the
-    per-layer leaves under ``"layers"`` stacked on a leading L axis. Leaf
-    ``layers/attn/wq`` row ``l`` becomes ``layers.<l>.attn.wq``."""
+    per-layer leaves stacked on a leading axis under ``"layers"`` (and the
+    encoder-decoder's ``"enc_layers"`` and ``"dec_layers"``). Leaf
+    ``layers/attn/wq`` row ``l`` becomes ``layers.<l>.attn.wq``; other
+    leaves (``embed``, the hybrid's ``meta``) keep their path."""
+    stacks = {"layers": cfg.n_layers, "enc_layers": cfg.n_enc_layers,
+              "dec_layers": cfg.n_layers}
     out = {}
 
     def walk(node, path):
@@ -78,14 +82,15 @@ def params_from_reference(cfg, tree) -> dict[str, torch.Tensor]:
                 walk(sub, path + (key,))
             return
         arr = torch.from_numpy(np.array(node, dtype=np.float32))
-        if path[0] != "layers":
+        if path[0] not in stacks:
             out[".".join(path)] = arr
             return
-        if arr.shape[0] != cfg.n_layers:
+        n = stacks[path[0]]
+        if arr.shape[0] != n:
             raise ValueError(f"{'/'.join(path)} has {arr.shape[0]} layers, "
-                             f"the config {cfg.n_layers}")
-        for i in range(cfg.n_layers):
-            out[".".join(("layers", str(i)) + path[1:])] = arr[i]
+                             f"the config {n}")
+        for i in range(n):
+            out[".".join((path[0], str(i)) + path[1:])] = arr[i]
 
     walk(tree, ())
     return out

@@ -5,8 +5,9 @@
 
 Requests are served in groups of ``batch`` (the last group zero-padded): one
 prefill of the group's prompts, then ``max_new - 1`` lockstep greedy decode
-steps from position ``S + n_meta``. The generated tokens stay on the device
-until the group ends.
+steps from position ``S + n_meta``. The encoder-decoder's audio frontend is
+the reference's stub: zero frames (batch, max(S // 4, 1), d_model) for each
+group. The generated tokens stay on the device until the group ends.
 """
 
 from __future__ import annotations
@@ -28,15 +29,20 @@ __all__ = ["serve_requests", "main"]
 def serve_requests(cfg, prompts: np.ndarray, batch: int, max_new: int,
                    params=None, seed: int = 0, device="cuda"):
     """prompts: (n_requests, prompt_len) int32. ``params``: a state dict of
-    the model (``interop.params_from_reference``), else weights from the
-    port's own init with a ``torch.Generator`` seeded by ``seed`` on the
-    device. Returns ((n, max_new) int32 tokens, stats)."""
+    the model (``interop.params_from_reference``), whose float32 tensors
+    on ``device`` the model takes as they are (no copy; any other is cast
+    to a float32 master), else weights from the port's own init with a
+    ``torch.Generator`` seeded by ``seed`` on the device. Returns
+    ((n, max_new) int32 tokens, stats)."""
     dev = resolve_device(device)
-    model = build(cfg, dev)
     if params is None:
+        model = build(cfg, dev)
         model.init_weights(torch.Generator(dev).manual_seed(seed))
     else:
-        model.load_state_dict(params)
+        model = build(cfg, "meta")
+        model.load_state_dict(
+            {k: v.to(dev, torch.float32) for k, v in params.items()},
+            assign=True)
     n, S = prompts.shape
     max_len = S + max_new + (cfg.n_meta_tokens or 0)
     prefill_fn = step_lib.make_prefill_step(model, max_len)
@@ -51,8 +57,12 @@ def serve_requests(cfg, prompts: np.ndarray, batch: int, max_new: int,
             toks = np.concatenate(
                 [prompts[ids], np.zeros((batch - len(ids), S), np.int32)],
                 axis=0)
-            token, cache = prefill_fn({"tokens": torch.as_tensor(
-                toks, device=dev)})
+            pbatch = {"tokens": torch.as_tensor(toks, device=dev)}
+            if cfg.kind == "encdec":  # stub audio frontend
+                pbatch["frames"] = torch.zeros(
+                    (batch, max(S // 4, 1), cfg.d_model), dtype=torch.float32,
+                    device=dev)
+            token, cache = prefill_fn(pbatch)
             pos0 = S + (cfg.n_meta_tokens or 0)
             tokens = [token]
             for t in range(max_new - 1):

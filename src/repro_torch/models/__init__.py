@@ -1,5 +1,5 @@
-"""The LM substrate's model zoo, ported so far for the dense decoder and the
-Mamba-2 stack (``api.build``)."""
+"""The LM substrate's model zoo, ported so far for the dense decoder, the
+Mamba-2 stack, the Hymba hybrid and the encoder-decoder (``api.build``)."""
 
 from repro_torch.models.api import build
 from repro_torch.models.config import ModelConfig

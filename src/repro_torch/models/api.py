@@ -1,6 +1,9 @@
 """Model zoo entry point: ``build(cfg, device)`` returns the family's
 ``nn.Module``, which exposes ``init_weights``, ``forward``, ``prefill``,
-``decode`` and ``init_cache`` with the same signatures in every family."""
+``decode`` and ``init_cache`` with the same signatures in every family
+(the encoder-decoder's ``init_cache`` also takes the encoder's length).
+Ported: the dense decoder, Mamba-2, the Hymba hybrid and the
+encoder-decoder; moe and vlm wait (ROADMAP A11)."""
 
 from __future__ import annotations
 
@@ -9,12 +12,15 @@ from torch import nn
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.decoder import Decoder
+from repro_torch.models.encdec import EncDec
+from repro_torch.models.hybrid import Hybrid
 from repro_torch.models.ssm import Mamba
 
 __all__ = ["build"]
 
-_FAMILIES = {"decoder": Decoder, "ssm": Mamba}
-_WAITING = ("encdec", "moe", "hybrid", "vlm")
+_FAMILIES = {"decoder": Decoder, "ssm": Mamba, "hybrid": Hybrid,
+             "encdec": EncDec}
+_WAITING = ("moe", "vlm")
 
 
 def build(cfg: ModelConfig, device="cuda") -> nn.Module:

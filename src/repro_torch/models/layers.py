@@ -1,5 +1,6 @@
 """Building blocks of the port's model zoo: the part of the reference's
-``models/layers.py`` that the dense decoder and the Mamba-2 stack use.
+``models/layers.py`` that the dense decoder, the Mamba-2 stack, the Hymba
+hybrid and the encoder-decoder use.
 
 Conventions, as the reference: weights are float32 masters cast to the
 activation dtype at each use; norms and rotary angles are computed in
@@ -14,8 +15,9 @@ blockwise; the kernel replaces both paths. Decode attention, ``ssd_step``
 and the convolutions stay plain torch, as the reference leaves them to XLA.
 
 Decode updates the KV cache in place (the reference returns a new one), and
-writes the new key and value in the cache's dtype: the decoder's cache is
-bfloat16 even for a float32 model, where the reference refuses the write.
+writes the new key and value in the cache's dtype: the decoder's and the
+encoder-decoder's caches are bfloat16 even for a float32 model, where the
+reference refuses the write.
 """
 
 from __future__ import annotations
@@ -82,10 +84,13 @@ def apply_rope(x, cos, sin):
 # attention
 # --------------------------------------------------------------------------
 
-def _qkv(x, p):
+def _qkv(x, p, src=None):
+    """q from ``x``, k and v from ``src`` (default ``x``), plus their biases
+    where the layer has them."""
+    src = x if src is None else src
     q = torch.einsum("bsd,dhk->bshk", x, p.wq.to(x.dtype))
-    k = torch.einsum("bsd,dhk->bshk", x, p.wk.to(x.dtype))
-    v = torch.einsum("bsd,dhk->bshk", x, p.wv.to(x.dtype))
+    k = torch.einsum("bsd,dhk->bshk", src, p.wk.to(x.dtype))
+    v = torch.einsum("bsd,dhk->bshk", src, p.wv.to(x.dtype))
     if p.bq is not None:
         q = q + p.bq.to(x.dtype)
         k = k + p.bk.to(x.dtype)
@@ -93,44 +98,70 @@ def _qkv(x, p):
     return q, k, v
 
 
-def attention(x, p, cfg: ModelConfig, return_kv: bool = False):
-    """Causal self-attention prefill with GQA + rotary over positions
-    0..S-1. x: (B, S, D). ``return_kv`` also returns the (k, v) tensors for
-    the cache."""
-    q, k, v = _qkv(x, p)
-    positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    cos, sin = rotary(positions, cfg.dh, cfg.rope_theta)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
-    out = ops.flash_attention(q, k, v, causal=True)
+def attention(x, p, cfg: ModelConfig, causal: bool = True,
+              window: int | None = None, kv_source=None,
+              return_kv: bool = False, prefix_len: int = 0):
+    """Multi-head attention prefill with GQA + rotary over positions
+    0..S-1, the sequence indices the flash kernel masks by. x: (B, S, D).
+
+    ``window`` (default ``cfg.window``) keeps keys less than ``window``
+    behind the query, and ``prefix_len`` keys stay visible outside it
+    (Hymba's meta tokens). ``kv_source``: cross-attention memory (B, Sk, D):
+    no rotary, not causal, no window. ``return_kv`` also returns the (k, v)
+    tensors for the cache."""
+    win = cfg.window if window is None else window
+    q, k, v = _qkv(x, p, kv_source)
+    if kv_source is None:
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        cos, sin = rotary(positions, cfg.dh, cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    else:
+        causal, win = False, 0
+    out = ops.flash_attention(q, k, v, causal=causal, window=win,
+                              prefix=prefix_len)
     y = torch.einsum("bshk,hkd->bsd", out, p.wo.to(x.dtype))
     if return_kv:
         return y, (k, v)
     return y
 
 
-def attention_decode(x, p, cache_k, cache_v, pos: int, cfg: ModelConfig):
+def attention_decode(x, p, cache_k, cache_v, pos: int, cfg: ModelConfig,
+                     cross: bool = False, slot: int | None = None,
+                     valid=None):
     """One-token decode against a cache, updated in place.
 
     x: (B, 1, D); cache_k/v: (B, S_max, K, dh); pos: the current index.
+    The new key and value go into ``slot`` (default ``pos``) and the query
+    sees the ``valid`` slots (default 0..pos): the hybrid passes its
+    ``[meta | ring]`` slot and mask. ``cross=True``: the cache holds the
+    encoder's keys and values, is not written, and every key is valid.
     Returns y (B, 1, D)."""
     B = x.shape[0]
     H, K, dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
     S_max = cache_k.shape[1]
-    q, k_new, v_new = _qkv(x, p)
-    cos, sin = rotary(torch.full((B, 1), pos, device=x.device), dh,
-                      cfg.rope_theta)
-    q = apply_rope(q, cos, sin)
-    k_new = apply_rope(k_new, cos, sin)
-    cache_k[:, pos] = k_new[:, 0]
-    cache_v[:, pos] = v_new[:, 0]
+    if cross:
+        q = torch.einsum("bsd,dhk->bshk", x, p.wq.to(x.dtype))
+        if p.bq is not None:
+            q = q + p.bq.to(x.dtype)
+        valid = torch.ones(S_max, dtype=torch.bool, device=x.device)
+    else:
+        q, k_new, v_new = _qkv(x, p)
+        cos, sin = rotary(torch.full((B, 1), pos, device=x.device), dh,
+                          cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k_new = apply_rope(k_new, cos, sin)
+        slot = pos if slot is None else slot
+        cache_k[:, slot] = k_new[:, 0]
+        cache_v[:, slot] = v_new[:, 0]
+        if valid is None:
+            valid = torch.arange(S_max, device=x.device) <= pos
 
     g = H // K
     ct = torch.promote_types(x.dtype, cache_k.dtype)
     qg = q.reshape(B, 1, K, g, dh).to(ct)
     scores = torch.einsum("bskgh,btkh->bkgst", qg, cache_k.to(ct)) \
         / math.sqrt(dh)
-    valid = torch.arange(S_max, device=x.device) <= pos
     scores = torch.where(valid, scores, NEG_INF)
     probs = torch.softmax(scores.float(), dim=-1).to(x.dtype)
     ct = torch.promote_types(probs.dtype, cache_v.dtype)

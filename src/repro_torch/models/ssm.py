@@ -6,7 +6,9 @@ SSD chunked scan (the ssd_scan kernel on the card); gated output norm;
 out_proj. Decode carries (ssd_state, conv_state), O(1) per token. The conv
 state is the tail of the pre-conv xBC, stored in ``cfg.dtype``; the SSD
 state is float32. Parameter names follow the reference's tree
-(``layers.<l>.in_proj`` is its ``layers/in_proj[l]``).
+(``layers.<l>.in_proj`` is its ``layers/in_proj[l]``). The mixer,
+``_mix``, is a function of the config and the layer's parameters, as the
+reference's: the hybrid (``models/hybrid.py``) calls it with its own dims.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from repro_torch.models import layers as ll
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.decoder import _param
 
-__all__ = ["Mamba"]
+__all__ = ["Mamba", "Mixer"]
 
 G = 1  # SSD groups (mamba2 default ngroups=1)
 
@@ -33,12 +35,14 @@ def _dims(cfg: ModelConfig):
     return di, H, N, P, conv_ch
 
 
-class Block(nn.Module):
+class Mixer(nn.Module):
+    """The SSD mixer's parameters: the reference's per-layer tree of
+    mamba2 (under ``layers``) and of the hybrid (under ``layers/ssm``)."""
+
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
         D = cfg.d_model
         di, H, N, P, conv_ch = _dims(cfg)
-        self.ln = _param(D, device=device, fill=1.0)
         self.in_proj = _param(D, 2 * di + 2 * G * N + H, device=device)
         self.conv_w = _param(cfg.ssm_conv, conv_ch, device=device)
         self.conv_b = _param(conv_ch, device=device, fill=0.0)
@@ -48,6 +52,59 @@ class Block(nn.Module):
         self.dt_bias = _param(H, device=device, fill=0.0)
         self.out_norm = _param(di, device=device, fill=1.0)
         self.out_proj = _param(di, D, device=device)
+
+    def init_weights(self, gen):
+        ll.dense_init_(self.in_proj.data, gen)
+        self.conv_w.data.normal_(0.0, 0.1, generator=gen)
+        ll.dense_init_(self.out_proj.data, gen)
+
+
+class Block(Mixer):
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__(cfg, device)
+        self.ln = _param(cfg.d_model, device=device, fill=1.0)
+
+
+def _mix(x, lp, cfg: ModelConfig, conv_state=None, ssd_state=None,
+         step=False):
+    """The SSD mixer of ``cfg``'s dims with the parameters ``lp``. Prefill
+    (step=False) takes (B, S, D); decode takes (B, 1, D) plus the carried
+    states. Returns (out, conv, ssd)."""
+    di, H, N, P, _ = _dims(cfg)
+    zxbcdt = torch.einsum("bsd,de->bse", x, lp.in_proj.to(x.dtype))
+    z = zxbcdt[..., :di]
+    xbc = zxbcdt[..., di:2 * di + 2 * G * N]
+    dt_raw = zxbcdt[..., -H:]
+    A = -torch.exp(lp.A_log.float())
+    dt = F.softplus(dt_raw.float() + lp.dt_bias.float())
+
+    if not step:
+        xbc_conv = F.silu(ll.causal_conv1d(
+            xbc, lp.conv_w.to(x.dtype), lp.conv_b.to(x.dtype)))
+        Bt, S = x.shape[0], x.shape[1]
+        xh = xbc_conv[..., :di].reshape(Bt, S, H, P)
+        B_ = xbc_conv[..., di:di + G * N].reshape(Bt, S, G, N)
+        C_ = xbc_conv[..., di + G * N:].reshape(Bt, S, G, N)
+        y, final = ll.ssd(xh, dt, A, B_.float(), C_.float(), cfg.ssm_chunk)
+        y = y.to(x.dtype) + lp.D_skip.to(x.dtype)[None, None, :, None] * xh
+        y = y.reshape(Bt, S, di)
+        new_conv = xbc[:, -(cfg.ssm_conv - 1):, :]
+    else:
+        xbc_t, new_conv = ll.conv1d_step(
+            conv_state, xbc[:, 0, :].to(conv_state.dtype),
+            lp.conv_w.to(conv_state.dtype), lp.conv_b.to(conv_state.dtype))
+        xbc_t = F.silu(xbc_t.to(x.dtype))
+        xh = xbc_t[..., :di].reshape(-1, H, P)
+        B_ = xbc_t[..., di:di + G * N].reshape(-1, G, N)
+        C_ = xbc_t[..., di + G * N:].reshape(-1, G, N)
+        yt, final = ll.ssd_step(ssd_state, xh.float(), dt[:, 0], A,
+                                B_.float(), C_.float())
+        y = yt.to(x.dtype) + lp.D_skip.to(x.dtype)[None, :, None] * xh
+        y = y.reshape(-1, 1, di)
+
+    y = ll.rms_norm(y * F.silu(z), lp.out_norm)
+    out = torch.einsum("bse,ed->bsd", y, lp.out_proj.to(x.dtype))
+    return out, new_conv, final
 
 
 class Mamba(nn.Module):
@@ -71,51 +128,8 @@ class Mamba(nn.Module):
     def init_weights(self, gen: torch.Generator) -> None:
         ll.dense_init_(self.embed.data, gen, in_axis=1)
         for blk in self.layers:
-            ll.dense_init_(blk.in_proj.data, gen)
-            blk.conv_w.data.normal_(0.0, 0.1, generator=gen)
-            ll.dense_init_(blk.out_proj.data, gen)
+            blk.init_weights(gen)
         ll.dense_init_(self.lm_head.data, gen)
-
-    def _mix(self, x, lp, conv_state=None, ssd_state=None, step=False):
-        """The SSD mixer. Prefill (step=False) takes (B, S, D); decode takes
-        (B, 1, D) plus the carried states. Returns (out, conv, ssd)."""
-        cfg = self.cfg
-        di, H, N, P, _ = _dims(cfg)
-        zxbcdt = torch.einsum("bsd,de->bse", x, lp.in_proj.to(x.dtype))
-        z = zxbcdt[..., :di]
-        xbc = zxbcdt[..., di:2 * di + 2 * G * N]
-        dt_raw = zxbcdt[..., -H:]
-        A = -torch.exp(lp.A_log.float())
-        dt = F.softplus(dt_raw.float() + lp.dt_bias.float())
-
-        if not step:
-            xbc_conv = F.silu(ll.causal_conv1d(
-                xbc, lp.conv_w.to(x.dtype), lp.conv_b.to(x.dtype)))
-            Bt, S = x.shape[0], x.shape[1]
-            xh = xbc_conv[..., :di].reshape(Bt, S, H, P)
-            B_ = xbc_conv[..., di:di + G * N].reshape(Bt, S, G, N)
-            C_ = xbc_conv[..., di + G * N:].reshape(Bt, S, G, N)
-            y, final = ll.ssd(xh, dt, A, B_.float(), C_.float(),
-                              cfg.ssm_chunk)
-            y = y.to(x.dtype) + lp.D_skip.to(x.dtype)[None, None, :, None] * xh
-            y = y.reshape(Bt, S, di)
-            new_conv = xbc[:, -(cfg.ssm_conv - 1):, :]
-        else:
-            xbc_t, new_conv = ll.conv1d_step(
-                conv_state, xbc[:, 0, :].to(conv_state.dtype),
-                lp.conv_w.to(conv_state.dtype), lp.conv_b.to(conv_state.dtype))
-            xbc_t = F.silu(xbc_t.to(x.dtype))
-            xh = xbc_t[..., :di].reshape(-1, H, P)
-            B_ = xbc_t[..., di:di + G * N].reshape(-1, G, N)
-            C_ = xbc_t[..., di + G * N:].reshape(-1, G, N)
-            yt, final = ll.ssd_step(ssd_state, xh.float(), dt[:, 0], A,
-                                    B_.float(), C_.float())
-            y = yt.to(x.dtype) + lp.D_skip.to(x.dtype)[None, :, None] * xh
-            y = y.reshape(-1, 1, di)
-
-        y = ll.rms_norm(y * F.silu(z), lp.out_norm)
-        out = torch.einsum("bse,ed->bsd", y, lp.out_proj.to(x.dtype))
-        return out, new_conv, final
 
     def _embed(self, tokens):
         return self.embed[tokens].to(getattr(torch, self.cfg.dtype))
@@ -128,7 +142,7 @@ class Mamba(nn.Module):
         """Training/prefill forward -> (logits (B, S, V), aux_loss)."""
         x = self._embed(batch["tokens"])
         for blk in self.layers:
-            x = x + self._mix(ll.rms_norm(x, blk.ln), blk)[0]
+            x = x + _mix(ll.rms_norm(x, blk.ln), blk, self.cfg)[0]
         return self._logits(x), torch.zeros((), device=x.device)
 
     def init_cache(self, batch: int, max_len: int):
@@ -150,7 +164,7 @@ class Mamba(nn.Module):
         x = self._embed(batch["tokens"])
         cache = self.init_cache(x.shape[0], x.shape[1])
         for i, blk in enumerate(self.layers):
-            y, conv_st, ssd_st = self._mix(ll.rms_norm(x, blk.ln), blk)
+            y, conv_st, ssd_st = _mix(ll.rms_norm(x, blk.ln), blk, self.cfg)
             cache["conv"][i] = conv_st
             cache["ssd"][i] = ssd_st
             x = x + y
@@ -161,8 +175,9 @@ class Mamba(nn.Module):
         """One decode step. token: (B, 1) int; the states update in place."""
         x = self._embed(token)
         for i, blk in enumerate(self.layers):
-            y, new_conv, new_ssd = self._mix(
-                ll.rms_norm(x, blk.ln), blk, conv_state=cache["conv"][i],
+            y, new_conv, new_ssd = _mix(
+                ll.rms_norm(x, blk.ln), blk, self.cfg,
+                conv_state=cache["conv"][i],
                 ssd_state=cache["ssd"][i], step=True)
             cache["conv"][i] = new_conv
             cache["ssd"][i] = new_ssd

@@ -65,7 +65,8 @@ def test_tinyllama_serve_tensors_take_the_tensor_cores(monkeypatch):
     with pytest.raises(_Captured):
         layers.attention(x, p, cfg)
     q, k, v = seen["q"], seen["k"], seen["v"]
-    assert (H, K, dh) == (32, 4, 64) and seen["kw"] == {"causal": True}
+    assert (H, K, dh) == (32, 4, 64) and seen["kw"] == {
+        "causal": True, "window": 0, "prefix": 0}
     assert q.shape == (4, 1024, 32, 64) and k.shape == v.shape == \
         (4, 1024, 4, 64) and q.dtype == BF16
     assert fa.tensor_core_route(q, k, v, torch.empty(q.shape, dtype=BF16))

@@ -1,6 +1,7 @@
 """The port's serving slice against the reference's LM substrate: the smoke
-configs of tinyllama-1.1b (dense decoder) and mamba2-2.7b (SSD stack), the
-reference's weights carried across by ``interop.params_from_reference``,
+configs of every ported architecture (the dense decoders, the SSD stack,
+the Hymba hybrid, the encoder-decoder), the reference's weights carried
+across by ``interop.params_from_reference``,
 inputs made with numpy from a seed. Bars: 1e-4 in float32, and the
 reference's own 2e-2 in bfloat16 (``tests/test_arch_smoke.py``); the port's
 prefill attention scores are float32 where the reference's dense path keeps
@@ -84,22 +85,56 @@ def _close(got, ref, dtype, bf16_values=False):
     assert rms(got - ref) <= TOL[dtype] * rms(ref)
 
 
+def _batch(cfg, toks):
+    """A prefill batch of numpy arrays: the tokens, and for the
+    encoder-decoder seeded non-zero frames (the serve's stub frames are
+    zeros, which would leave the encoder and cross attention unchecked)."""
+    batch = {"tokens": toks}
+    if cfg.kind == "encdec":
+        batch["frames"] = np.random.default_rng(5).normal(
+            size=(toks.shape[0], 8, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+def _f32_cache(cfg) -> bool:
+    """Whether the float32 model decodes from a float32-cast cache: the
+    reference cannot write a float32 key into the decoder's and the
+    encoder-decoder's bfloat16 caches (the hybrid casts the key itself)."""
+    return cfg.kind in ("decoder", "encdec") and cfg.dtype == "float32"
+
+
+def _decode_pos(cfg, toks) -> int:
+    """The first decode position: the prompt and the hybrid's meta tokens."""
+    return toks.shape[1] + cfg.n_meta_tokens
+
+
 def _run_ref(rcfg, params, toks, nxt):
     ref = ref_build(rcfg)
-    lg, cache = ref.prefill(params, {"tokens": jnp.asarray(toks)}, max_len=30)
-    if rcfg.kind == "decoder" and rcfg.dtype == "float32":
+    batch = {k: jnp.asarray(v) for k, v in _batch(rcfg, toks).items()}
+    lg, cache = ref.prefill(params, batch, max_len=30)
+    if _f32_cache(rcfg):
         cache = jax.tree.map(lambda a: a.astype(jnp.float32), cache)
-    lg2, cache2 = ref.decode(params, cache, jnp.asarray(nxt), toks.shape[1])
+    lg2, cache2 = ref.decode(params, cache, jnp.asarray(nxt),
+                             _decode_pos(rcfg, toks))
     return lg, lg2, cache2
 
 
 def _run_port(cfg, state, toks, nxt):
     model = _port(cfg, state)
-    lg, cache = model.prefill({"tokens": torch.from_numpy(toks)}, max_len=30)
-    if cfg.kind == "decoder" and cfg.dtype == "float32":
+    batch = {k: torch.from_numpy(v) for k, v in _batch(cfg, toks).items()}
+    lg, cache = model.prefill(batch, max_len=30)
+    if _f32_cache(cfg):
         cache = {k: v.float() for k, v in cache.items()}
-    lg2, cache2 = model.decode(cache, torch.from_numpy(nxt), toks.shape[1])
+    lg2, cache2 = model.decode(cache, torch.from_numpy(nxt),
+                               _decode_pos(cfg, toks))
     return lg, lg2, cache2
+
+
+def _bf16_valued(cfg, key) -> bool:
+    """Cache entries rounded to bfloat16 on both sides: keys, values and the
+    hybrid's conv state (every family but the SSD stack)."""
+    return cfg.kind != "ssm" and key in ("k", "v", "cross_k", "cross_v",
+                                         "conv")
 
 
 @pytest.mark.parametrize("dtype", sorted(TOL))
@@ -107,8 +142,8 @@ def _run_port(cfg, state, toks, nxt):
 def test_prefill_and_decode_match_reference(arch, dtype):
     """Prefill logits, one teacher-forced decode step and the caches after
     it. The reference cannot write a float32 key into its bfloat16 decoder
-    cache, so the float32 decoder decodes, on both sides, from its prefill
-    cache cast to float32.
+    and encoder-decoder caches, so those float32 models decode, on both
+    sides, from their prefill cache cast to float32.
 
     In bfloat16 an elementwise 2e-2 bar does not hold between the two
     implementations: the reference's own bfloat16 logits leave its float32
@@ -128,7 +163,7 @@ def test_prefill_and_decode_match_reference(arch, dtype):
     assert sorted(got[2]) == sorted(want[2])
     for key in want[2]:
         _close(got[2][key], want[2][key], dtype,
-               bf16_values=cfg.kind == "decoder")
+               bf16_values=_bf16_valued(cfg, key))
 
 
 @pytest.mark.parametrize("arch", PORTED)
@@ -136,9 +171,11 @@ def test_forward_matches_reference(arch):
     rcfg, ref, params, cfg, state = _models(arch, "float32")
     toks = np.random.default_rng(3).integers(0, cfg.vocab, (2, 20),
                                              dtype=np.int32)
-    lg, _ = ref.forward(params, {"tokens": jnp.asarray(toks)})
+    batch = _batch(cfg, toks)
+    lg, _ = ref.forward(params, {k: jnp.asarray(v) for k, v in batch.items()})
     with torch.no_grad():
-        lg_t, aux = _port(cfg, state)({"tokens": torch.from_numpy(toks)})
+        lg_t, aux = _port(cfg, state)({k: torch.from_numpy(v)
+                                       for k, v in batch.items()})
     _close(lg_t, lg, "float32")
     assert float(aux) == 0.0
 
@@ -149,11 +186,12 @@ def test_prefill_matches_forward(arch):
     port in bfloat16 at its bar: prefill's last logits equal forward's."""
     cfg = smoke_config(arch)
     model = _port(cfg, _models(arch, "bfloat16")[4])
-    toks = torch.from_numpy(np.random.default_rng(4).integers(
-        0, cfg.vocab, (2, 32), dtype=np.int32))
+    toks = np.random.default_rng(4).integers(0, cfg.vocab, (2, 32),
+                                             dtype=np.int32)
+    batch = {k: torch.from_numpy(v) for k, v in _batch(cfg, toks).items()}
     with torch.no_grad():
-        logits_f, _ = model({"tokens": toks})
-    logits_p, _ = model.prefill({"tokens": toks}, max_len=40)
+        logits_f, _ = model(batch)
+    logits_p, _ = model.prefill(batch, max_len=40)
     np.testing.assert_allclose(logits_p[:, -1].float().numpy(),
                                logits_f[:, -1].float().numpy(), atol=2e-2,
                                rtol=2e-2)
@@ -232,6 +270,12 @@ def _flat(tree, path=()):
     return {path: tree}
 
 
+def _stacks(cfg) -> dict:
+    """The reference's per-layer stacks and their layer counts."""
+    return {"layers": cfg.n_layers, "enc_layers": cfg.n_enc_layers,
+            "dec_layers": cfg.n_layers}
+
+
 @pytest.mark.parametrize("arch", PORTED)
 def test_full_width_parameters_match_reference(arch):
     """The published configs: the port's parameters (on the meta device, no
@@ -241,9 +285,9 @@ def test_full_width_parameters_match_reference(arch):
     shapes = jax.eval_shape(ref_build(rcfg).init, jax.random.PRNGKey(0))
     want = {}
     for path, leaf in _flat(shapes).items():
-        if path[0] == "layers":
-            for i in range(cfg.n_layers):
-                want[".".join(("layers", str(i)) + path[1:])] = leaf.shape[1:]
+        if path[0] in _stacks(cfg):
+            for i in range(_stacks(cfg)[path[0]]):
+                want[".".join((path[0], str(i)) + path[1:])] = leaf.shape[1:]
         else:
             want[".".join(path)] = leaf.shape
     got = {k: tuple(v.shape) for k, v in build(cfg, "meta").state_dict().items()}
@@ -269,7 +313,7 @@ def test_unported_architectures_and_features_raise():
     with pytest.raises(ValueError, match="unknown arch"):
         smoke_config("gpt2")
     for kind, extra in (("moe", dict(n_experts=4, top_k=2, d_expert=8)),
-                        ("hybrid", dict(d_state=4))):
+                        ("vlm", dict(frontend="vision", frontend_len=4))):
         cfg = dataclasses.replace(smoke_config("tinyllama_1_1b"), kind=kind,
                                   **extra)
         with pytest.raises(NotImplementedError, match="A11"):

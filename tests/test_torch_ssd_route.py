@@ -8,8 +8,6 @@ passes with TF32 rounding (kept in this file, not in the package) shows that
 split TF32 products (3xTF32) hold ``ssd_scan_plain`` within
 ``chip_smoke.py``'s bars where a single TF32 pass does not."""
 
-import types
-
 import numpy as np
 import pytest
 
@@ -64,8 +62,7 @@ def test_mamba2_serve_plan_spreads_chunks_and_shares_cb(monkeypatch):
     x_in = torch.empty((4, 1024, cfg.d_model), dtype=torch.bfloat16,
                        device="meta")
     with pytest.raises(_Captured):
-        ssm.Mamba._mix(types.SimpleNamespace(cfg=cfg),
-                       x_in, ssm.Block(cfg, "meta"))
+        ssm._mix(x_in, ssm.Block(cfg, "meta"), cfg)
     x, dt, A, B, C, chunk = seen["args"]
     Bb, S, H, P = x.shape
     G, N = B.shape[2:]
