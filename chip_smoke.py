@@ -74,19 +74,24 @@ Phases, each failing the run with a non-zero exit:
    hymba-1.5b (window 1024 and 128 meta tokens as the flash kernel's
    prefix: 64 flash launches, and 64 SSD scans) and seamless-m4t-medium
    (the reference's zero-frame audio stub; 12 encoder, 12 causal and 12
-   cross flash launches per prefill: 72), each from the port's own init
+   cross flash launches per prefill: 72), deepseek-moe-16b (28 layers of
+   64 routed experts top-6 and 2 shared: 56 flash launches), olmoe-1b-7b
+   (16 layers, 64 experts top-8: 32) and phi-3-vision-4.2b (the
+   reference's zero-patch vision stub, 576 patches before the 1024 tokens,
+   dh 96: 64), each from the port's own init
    from a fixed seed (one copy of the weights on the card: the serves take
    the model's tensors), 8 requests of 1024 tokens in batches of 4, 16 new
    tokens each; counters set to 0 just before each and read just after,
    every bfloat16 flash launch on the tensor-core route; wall time,
    tokens/s, the first completion and the peak memory (reset before each
-   model; qwen's must stay within ``SERVE_MEM_SHARE`` of the card); then,
-   for seamless, one prefill on seeded frames; then the first group once
-   more under torch.profiler for the device's busy share and the share of
-   the kernels' device entries;
+   model; each must stay within ``SERVE_MEM_SHARE`` of the card); then,
+   for seamless, one prefill on seeded frames, for phi-3-vision one on
+   seeded patches; then the first group once more under torch.profiler for
+   the device's busy share and the share of the kernels' device entries;
 6. the two kernels against their plain versions on the inputs of their
    last launch in each serve, for each mask and length (seamless's
-   encoder, causal and cross launches from its seeded-frames prefill):
+   encoder, causal and cross launches from its seeded-frames prefill;
+   phi-3-vision's from its serve and from its seeded-patches prefill):
    error, kernel, plain and library times (SDPA wherever it computes the
    same mask: causal, non-causal, or hymba's window and prefix as an
    explicit boolean mask), bound; for flash attention also the CUDA-core
@@ -98,13 +103,17 @@ Phases, each failing the run with a non-zero exit:
    three TF32 elsewhere), the kernel's own scheme, three TF32 products
    each, and f32 on the CUDA cores), and at the six flash and four SSD
    shapes of the reference's kernel tests in float32 (flash: the CUDA-core
-   kernel) and bfloat16 (flash: the tensor-core kernel), plus SSD cases at
-   mamba2's widths with 32 chunks and at five shapes off the serve path
-   (odd P and N, 128 columns, a 4096-row chunk, 70000 heads);
+   kernel) and bfloat16 (flash: the tensor-core kernel), plus flash at
+   dh 96 (ragged, windowed, non-causal) and SSD cases at mamba2's widths
+   with 32 chunks and at five shapes off the serve path (odd P and N, 128
+   columns, a 4096-row chunk, 70000 heads); then layer 0's ``moe_ffn`` of
+   both MoE smoke configs on the card against the CPU, on activations
+   where capacity drops entries: the kept entries first, then the output;
 7. the smoke configs of every served architecture on the card (kernels)
    against the same weights on the CPU (plain versions): prefill and
-   decode logits (seamless on seeded frames), and the greedy tokens of a
-   float32 serve.
+   decode logits (seamless on seeded frames, phi-3-vision on seeded
+   patches, decoding after them), and the greedy tokens of a float32
+   serve.
 8. paper Tables 2-5 — ``repro_torch.experiments.exp1_spot_ondemand``,
    ``exp2_self_owned`` and ``exp3_policy12`` at 1500 jobs (the reference
    benchmarks' default stream; the cut from the paper's ~10000 is
@@ -253,6 +262,7 @@ non-zero before printing any result.
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import functools
 import importlib
@@ -390,14 +400,31 @@ SERVE = [("tinyllama_1_1b", {"flash_attention": 22 * 2}, None),
          ("qwen2_5_32b", {"flash_attention": QWEN_LAYERS * 2}, QWEN_LAYERS),
          ("hymba_1_5b", {"flash_attention": 32 * 2, "ssd_scan": 32 * 2},
           None),
-         ("seamless_m4t_medium", {"flash_attention": 36 * 2}, None)]
+         ("seamless_m4t_medium", {"flash_attention": 36 * 2}, None),
+         ("deepseek_moe_16b", {"flash_attention": 28 * 2}, None),
+         ("olmoe_1b_7b", {"flash_attention": 16 * 2}, None),
+         ("phi_3_vision_4_2b", {"flash_attention": 32 * 2}, None)]
 # The device kernels each wrapper launches, and the TPU kernel it replaces.
 SERVE_KERNEL_NAMES = {"flash_attention": ("flash_fwd_tc", "flash_fwd_kernel"),
                       "ssd_scan": SSD_PASSES}
 SERVE_REPLACES = {"flash_attention": "src/repro/kernels/flash_attention.py:101",
                   "ssd_scan": "src/repro/kernels/ssd_scan.py:78"}
 SERVE_FRAMES_SEED = 3   # seamless's seeded frames (its serve stubs zeros)
+# phi-3-vision's seeded patches (its serve stubs zeros), at the scale of the
+# reference's tests (tests/test_arch_smoke.py).
+SERVE_PATCHES_SEED, SERVE_PATCHES_SCALE = 4, 0.02
+# Flash attention at dh 96 off phi-3-vision's causal serve shape: ragged
+# causal, a window with a prefix, non-causal with Sk > Sq (BH, BK, Sq, Sk,
+# dh, causal, window, prefix).
+FLASH_DH96 = [(4, 2, 200, 300, 96, True, 0, 0),
+              (2, 2, 512, 512, 96, True, 128, 16),
+              (2, 1, 130, 257, 96, False, 0, 0)]
+# Phase 6's moe_ffn check: (batch, seq) of its seeded activations, every
+# other token pushed towards expert 0 so that capacity drops entries.
+MOE_CHECK_SHAPE = (4, 256)
+MOE_ARCHS = ("deepseek_moe_16b", "olmoe_1b_7b")
 SERVE_REQUESTS, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 4, 1024, 16
+SERVE_TRACE = pathlib.Path("build") / "archive" / "serve_trace.json"
 # Chain cases off Table 6's path: a synthetic horizon at the shared-memory
 # route's last slot count and one beyond it (the global route), with
 # (B, S, R, L) and the seed of their data.
@@ -692,17 +719,42 @@ def smi_clocks() -> dict:
     return {"sm_mhz": sm, "max_sm_mhz": sm_max}
 
 
+DeviceRow = collections.namedtuple(
+    "DeviceRow", ("key", "self_device_time_total", "count"))
+TRACE_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def trace_device_rows(prof, path: pathlib.Path) -> list:
+    """The device entries of a device-only torch.profiler run, summed by
+    name (microseconds, as ``key_averages``) from its Chrome trace, which
+    the profiler's C++ side writes: ``key_averages`` first builds a Python
+    object per event, 5-14 s a serve on an H100. The trace file
+    is removed after reading."""
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    totals: dict = {}
+    for ev in json.loads(path.read_text())["traceEvents"]:
+        if ev.get("ph") == "X" and ev.get("cat") in TRACE_DEVICE_CATS:
+            t = totals.setdefault(ev["name"], [0.0, 0])
+            t[0] += float(ev["dur"])
+            t[1] += 1
+    path.unlink()
+    return [DeviceRow(k, us, n) for k, (us, n) in totals.items()]
+
+
 def device_breakdown(torch, prof, wall_s: float, top: int = 8,
-                     kernels: dict[str, tuple[str, ...]] | None = None):
+                     kernels: dict[str, tuple[str, ...]] | None = None,
+                     rows=None):
     """Print the device's busy share over ``wall_s`` and its largest
-    entries, from a torch.profiler run; with ``kernels`` = {label: names},
-    also the device time, launches and busy share of each label's kernel
-    names together. Returns the device entries."""
-    rows = sorted(
-        (e for e in prof.key_averages()
-         if e.device_type == torch.autograd.DeviceType.CUDA
-         and not getattr(e, "is_user_annotation", False)),
-        key=lambda e: -e.self_device_time_total)
+    entries, from a torch.profiler run (or from its ``rows``,
+    ``trace_device_rows``); with ``kernels`` = {label: names}, also the
+    device time, launches and busy share of each label's kernel names
+    together. Returns the device entries."""
+    if rows is None:
+        rows = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)]
+    rows = sorted(rows, key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
     print(f"[device busy {busy_ms:.3f} ms of {wall_s * 1e3:.0f} ms wall: busy "
           f"share {busy_ms / (wall_s * 1e3):.6f}, idle share "
@@ -798,7 +850,7 @@ def allclose(got, ref, tol: float) -> tuple[float, bool]:
 
 def serve_phases(torch, np) -> tuple[dict, dict]:
     """Serve every architecture of ``SERVE`` at full width (qwen2.5-32b at
-    its depth cut); returns each architecture's launch counts and the inputs
+    its depth cut), each within ``SERVE_MEM_SHARE`` of the card; returns each architecture's launch counts and the inputs
     of the last launch of each (architecture, kernel, mask and lengths)."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -896,6 +948,18 @@ def serve_phases(torch, np) -> tuple[dict, dict]:
                 prompts[:SERVE_BATCH], device="cuda"), "frames": frames},
                 max_len=SERVE_PROMPT + SERVE_NEW)
             label[0] = None
+        if cfg.kind == "vlm":
+            # Likewise the vision stub's zero patches: one prefill on
+            # seeded ones, for vision_proj and a non-trivial prefix.
+            gen = torch.Generator("cuda").manual_seed(SERVE_PATCHES_SEED)
+            patches = SERVE_PATCHES_SCALE * torch.randn(
+                SERVE_BATCH, cfg.frontend_len, cfg.d_model, device="cuda",
+                generator=gen)
+            label[0] = f"{arch} (seeded patches)"
+            model.prefill({"tokens": torch.as_tensor(
+                prompts[:SERVE_BATCH], device="cuda"), "vision": patches},
+                max_len=SERVE_PROMPT + SERVE_NEW)
+            label[0] = None
         # The first group again under the profiler, from the same weights
         # (the serve's tensors: no copy in the profiled window, which then
         # holds the serve loop alone). Device activity only, and one group:
@@ -909,7 +973,10 @@ def serve_phases(torch, np) -> tuple[dict, dict]:
             torch.cuda.synchronize()
         t1 = time.perf_counter()
         rows = device_breakdown(torch, prof, stats_p["wall_s"], kernels={
-            k: SERVE_KERNEL_NAMES[k] for k in expected})
+            k: SERVE_KERNEL_NAMES[k] for k in expected},
+            rows=trace_device_rows(prof, SERVE_TRACE))
+        if not rows:
+            fail(f"serve {arch}: the profiler's trace holds no device event")
         busy = sum(e.self_device_time_total for e in rows) / 1e3
         print(f"  first group under torch.profiler (not counted): serve loop "
               f"{stats_p['wall_s']:.3f}s, idle share "
@@ -929,9 +996,9 @@ def serve_phases(torch, np) -> tuple[dict, dict]:
                 if k.startswith("layers.0."))
             print(f"  one layer more: about {one_more / 2**30:.3f} GiB "
                   f"({one_more / total:.4f} of the card)")
-            if peak > SERVE_MEM_SHARE * total:
-                fail(f"serve {arch}: peak {peak / total:.4f} of the card at "
-                     f"{depth} layers, over {SERVE_MEM_SHARE}")
+        if peak > SERVE_MEM_SHARE * total:
+            fail(f"serve {arch}: peak {peak / total:.4f} of the card at "
+                 f"{cfg.n_layers} layers, over {SERVE_MEM_SHARE}")
         del model, state, out_p, prof
         torch.cuda.empty_cache()
     for mod, attr, fn in originals.values():
@@ -1148,7 +1215,8 @@ def lm_kernel_sweep(torch) -> None:
     for dtype, tdt in (("float32", torch.float32),
                        ("bfloat16", torch.bfloat16)):
         tol = LM_TOL[dtype]
-        for BH, BK, Sq, Sk, dh, causal, window, prefix in FLASH_SHAPES:
+        for BH, BK, Sq, Sk, dh, causal, window, prefix in \
+                FLASH_SHAPES + FLASH_DH96:
             q, k, v = (rand(*s).to(tdt) for s in
                        ((BH, Sq, dh), (BK, Sk, dh), (BK, Sk, dh)))
             kw = dict(causal=causal, window=window, prefix=prefix)
@@ -1156,8 +1224,8 @@ def lm_kernel_sweep(torch) -> None:
             err, ok = allclose(fa.flash_attention_fwd(q, k, v, **kw),
                                fa.attention_plain(q, k, v, **kw),
                                tol["flash"])
-            # bfloat16 (dh 64 and 128) takes the tensor cores, float32 the
-            # CUDA-core kernel.
+            # bfloat16 (dh 64, 96 and 128) takes the tensor cores, float32
+            # the CUDA-core kernel.
             tc = LAUNCHES["flash_attention_tc"] - n_tc
             worst[("flash", dtype)] = max(worst.get(("flash", dtype), 0), err)
             if not ok:
@@ -1186,7 +1254,8 @@ def lm_kernel_sweep(torch) -> None:
                      f"{e_y:.3e}, state {e_s:.3e}")
     print("LM kernels vs plain at the reference's test shapes (flash: "
           "bfloat16 on the tensor-core route, float32 on the CUDA-core "
-          f"kernel; SSD also at {SSD_LONG}, 32 chunks, and {SSD_ODD}): "
+          f"kernel, also at dh 96: {FLASH_DH96}; SSD also at {SSD_LONG}, 32 "
+          f"chunks, and {SSD_ODD}): "
           + ", ".join(
         f"{name} {dtype} max abs err {e:.3e}"
         for (name, dtype), e in sorted(worst.items()))
@@ -1194,10 +1263,88 @@ def lm_kernel_sweep(torch) -> None:
           f"{smem_limit} bytes")
 
 
+def moe_ffn_check(torch, np) -> None:
+    """Layer 0's ``moe_ffn`` of each MoE smoke config on the card (the same
+    weights and activations) against the CPU, float32 and bfloat16, on
+    seeded activations whose every other token is pushed towards expert 0,
+    which then drops entries past its capacity. First the kept (token,
+    expert) entries of both: the experts are replaced by ones that write
+    their index's unit vector (and the shared experts by zero), so a
+    token's output is non-zero at dim e where its entry for expert e was
+    kept; tokens whose entries differ (a router knife edge) are counted and
+    printed, and left out of the output's comparison (float32: 1e-4 abs +
+    rel; bfloat16: relative RMS 2e-2; aux 1e-5)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import build
+    from repro_torch.models import layers as ll
+
+    def unit_experts(buf, p):
+        n_exp, d = buf.shape[1], buf.shape[3]
+        return torch.eye(n_exp, d, device=buf.device)[None, :, None, :] \
+            .expand(buf.shape).to(buf.dtype)
+
+    rms = lambda a: float(a.float().square().mean().sqrt())  # noqa: E731
+    B, S = MOE_CHECK_SHAPE
+    for arch in MOE_ARCHS:
+        for dtype in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(smoke_config(arch), dtype=dtype)
+            cpu = build(cfg, "cpu")
+            cpu.init_weights(torch.Generator().manual_seed(0))
+            gpu = build(cfg, "cuda")
+            gpu.load_state_dict(cpu.state_dict())
+            x = torch.from_numpy(np.random.default_rng(5).normal(
+                size=(B, S, cfg.d_model)).astype(np.float32))
+            x[:, ::2] += 3.0 * cpu.layers[0].ffn.router.detach()[:, 0]
+            x = x.to(getattr(torch, dtype))
+            layers = {"cpu": cpu.layers[0].ffn, "cuda": gpu.layers[0].ffn}
+            kept, out = {}, {}
+            swiglu, expert_swiglu = ll.swiglu, ll._expert_swiglu
+            try:
+                ll._expert_swiglu = unit_experts
+                ll.swiglu = lambda h, p: torch.zeros_like(h)
+                with torch.no_grad():
+                    for dev, ffn in layers.items():
+                        y, _ = ll.moe_ffn(x.to(dev), ffn, cfg)
+                        kept[dev] = (y[..., :cfg.n_experts] != 0).cpu()
+            finally:
+                ll.swiglu, ll._expert_swiglu = swiglu, expert_swiglu
+            with torch.no_grad():
+                for dev, ffn in layers.items():
+                    y, aux = ll.moe_ffn(x.to(dev), ffn, cfg)
+                    out[dev] = (y.cpu(), float(aux))
+            n_entries = B * S * cfg.top_k
+            dropped = n_entries - int(kept["cpu"].sum())
+            same = (kept["cpu"] == kept["cuda"]).all(-1)
+            differ = torch.nonzero(~same).tolist()
+            (y_c, aux_c), (y_g, aux_g) = out["cpu"], out["cuda"]
+            if dtype == "float32":
+                err, ok = allclose(y_g[same], y_c[same], 1e-4)
+                bar = "1e-4 abs + rel"
+            else:
+                err = rms(y_g[same].float() - y_c[same].float()) \
+                    / rms(y_c[same])
+                ok, bar = err <= 2e-2, "relative RMS 2e-2"
+            ok_aux = abs(aux_g - aux_c) <= 1e-5 * max(1.0, abs(aux_c))
+            print(f"  moe_ffn {cfg.name} {dtype} ({B}, {S}, {cfg.d_model}), "
+                  f"{cfg.n_experts} experts top-{cfg.top_k}: {dropped} of "
+                  f"{n_entries} entries dropped on the CPU; kept entries "
+                  f"differ at {len(differ)} tokens {differ[:8]}; output card "
+                  f"vs CPU {err:.3e} ({bar}), aux {aux_g:.7f} vs {aux_c:.7f}"
+                  f" {'OK' if ok and ok_aux else 'FAIL'}")
+            if not 0 < dropped < n_entries:
+                fail(f"moe_ffn {cfg.name}: {dropped} of {n_entries} entries "
+                     "dropped checks no capacity drop")
+            if len(differ) > B * S // 100:
+                fail(f"moe_ffn {cfg.name} {dtype}: kept entries differ at "
+                     f"{len(differ)} of {B * S} tokens")
+            if not (ok and ok_aux):
+                fail(f"moe_ffn {cfg.name} {dtype}: card off the CPU")
+
+
 def lm_model_check(torch, np) -> None:
     """The smoke configs served on the card (kernels) against the same
     weights on the CPU (plain versions); the encoder-decoder's prefill on
-    seeded frames."""
+    seeded frames, the vlm's on seeded patches (decoding after them)."""
     from repro_torch.configs import smoke_config
     from repro_torch.launch.serve import serve_requests
     from repro_torch.models import build
@@ -1217,13 +1364,19 @@ def lm_model_check(torch, np) -> None:
             if cfg.kind == "encdec":
                 batch["frames"] = torch.from_numpy(rng.normal(
                     size=(2, 10, cfg.d_model)).astype(np.float32))
+            patches = cfg.frontend_len if cfg.kind == "vlm" else 0
+            if patches:
+                batch["vision"] = SERVE_PATCHES_SCALE * torch.from_numpy(
+                    rng.normal(size=(2, patches, cfg.d_model)).astype(
+                        np.float32))
             # Prefill on both; then both decode from the CPU's cache: a
             # bfloat16 cache of a float32 model rounds keys 1e-6 apart to
             # neighbouring bfloat16 values (ROADMAP queue C), so the caches
             # are held to one bfloat16 ulp and the decode to its own bar.
-            lg_c, cache_c = cpu.prefill(batch, max_len=48)
+            lg_c, cache_c = cpu.prefill(batch, max_len=48 + patches)
             lg_g, cache_g = gpu.prefill(
-                {k: t.to("cuda") for k, t in batch.items()}, max_len=48)
+                {k: t.to("cuda") for k, t in batch.items()},
+                max_len=48 + patches)
             for key, ref in cache_c.items():
                 got = cache_g[key].cpu()
                 if ref.dtype == torch.int32:
@@ -1242,7 +1395,7 @@ def lm_model_check(torch, np) -> None:
                     fail(f"{cfg.name} {dtype} prefill cache {key}: card off "
                          f"the CPU by {err:.3e}")
             nxt = batch["tokens"][:, 3:4]
-            pos = 40 + cfg.n_meta_tokens
+            pos = 40 + cfg.n_meta_tokens + patches
             lg2_g, _ = gpu.decode({k: t.to("cuda", copy=True) for k, t in
                                    cache_c.items()}, nxt.to("cuda"), pos)
             lg2_c, _ = cpu.decode(cache_c, nxt, pos)
@@ -3817,6 +3970,7 @@ def main() -> int:
     counts, lm_inputs = serve_phases(torch, np)
     kernels += lm_kernel_entries(torch, counts, lm_inputs)
     lm_kernel_sweep(torch)
+    moe_ffn_check(torch, np)
     lm_model_check(torch, np)
     print(f"[phase LM substrate: {time.perf_counter() - t0:.3f}s]")
 

@@ -1,8 +1,7 @@
 """Architecture registry of the port: the reference's ``ARCH_NAMES``, with
-``get_config`` / ``smoke_config`` for the architectures ported so far
-(``PORTED``: the dense decoders, mamba2-2.7b, hymba-1.5b and
-seamless-m4t-medium). The others (the moe and vlm families) raise
-``NotImplementedError`` until their family is ported (ROADMAP A11)."""
+``get_config`` / ``smoke_config`` for every one of them (``PORTED``: the
+dense decoders, deepseek-moe-16b and olmoe-1b-7b, phi-3-vision-4.2b,
+mamba2-2.7b, hymba-1.5b and seamless-m4t-medium)."""
 
 from __future__ import annotations
 
@@ -25,16 +24,14 @@ ARCH_NAMES = (
     "mamba2_2_7b",
 )
 PORTED = ("tinyllama_1_1b", "mamba2_2_7b", "llama3_8b", "granite_3_8b",
-          "qwen2_5_32b", "hymba_1_5b", "seamless_m4t_medium")
+          "qwen2_5_32b", "hymba_1_5b", "seamless_m4t_medium",
+          "deepseek_moe_16b", "olmoe_1b_7b", "phi_3_vision_4_2b")
 
 
 def _module(name: str):
     name = name.replace("-", "_").replace(".", "_")
     if name not in ARCH_NAMES:
         raise ValueError(f"unknown arch {name!r}; known: {ARCH_NAMES}")
-    if name not in PORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet (ROADMAP A11); ported: {PORTED}")
     return importlib.import_module(f"repro_torch.configs.{name}")
 
 

@@ -70,8 +70,10 @@ def params_from_reference(cfg, tree) -> dict[str, torch.Tensor]:
     from the reference's parameter tree: nested dicts of numpy arrays, the
     per-layer leaves stacked on a leading axis under ``"layers"`` (and the
     encoder-decoder's ``"enc_layers"`` and ``"dec_layers"``). Leaf
-    ``layers/attn/wq`` row ``l`` becomes ``layers.<l>.attn.wq``; other
-    leaves (``embed``, the hybrid's ``meta``) keep their path."""
+    ``layers/attn/wq`` row ``l`` becomes ``layers.<l>.attn.wq`` (and
+    ``layers/ffn/experts/w_gate`` ``layers.<l>.ffn.experts.w_gate``);
+    other leaves (``embed``, the hybrid's ``meta``, the vlm's
+    ``vision_proj``) keep their path."""
     stacks = {"layers": cfg.n_layers, "enc_layers": cfg.n_enc_layers,
               "dec_layers": cfg.n_layers}
     out = {}

@@ -32,9 +32,9 @@
 // 17 us; 38 MB of q/k/v/o at 3.35 TB/s is 11 us). This kernel runs at the
 // CUDA cores' f32 rate and is far from that bound.
 //
-// flash_fwd_tc (flash_attention_tc_launch), bfloat16 with dh 64 or 128 and
-// 16-byte aligned pointers and strides: both products on the tensor cores,
-// see the note above it.
+// flash_fwd_tc (flash_attention_tc_launch), bfloat16 with dh 64, 96 or 128
+// and 16-byte aligned pointers and strides: both products on the tensor
+// cores, see the note above it.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -293,7 +293,13 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
 // - 128-byte swizzle in the tensor maps and in the wgmma descriptors alike:
 //   a TMA box is 64 rows x 64 bf16 columns (128 bytes, the swizzle's span),
 //   8 KB, 1024-byte aligned; at dh 128 a tile is two such boxes (columns 0-63
-//   and 64-127). K-major descriptors step 32 bytes per k-step inside a box
+//   and 64-127).
+// - dh 96 runs dh 128's tile: the tensor maps' innermost dim is 96, so the
+//   second box's columns 96-127 lie outside the tensor and TMA fills them
+//   with zeros (the transaction still counts the whole box). Q K^T takes
+//   the 6 k-steps of the real columns; P V runs at n128 and its columns
+//   96-127 come out zero; the epilogue stores 96 columns. The P V product
+//   does 4/3 of its minimal work, the kernel 7/6 of both products'. K-major descriptors step 32 bytes per k-step inside a box
 //   and 8 KB from box to box; the MN-major V descriptor steps 2 KB (16 keys)
 //   per k-step, its leading byte offset (8 KB) reaching the second box.
 // - Tensor maps are 4-D (dh, heads, seq, batch) with the tensor's own byte
@@ -580,7 +586,9 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[DH / 2],
     wgmma_rs_n128(d, a, db, 1);
 }
 
-template <int DH>
+// DS: the head dim (64, 96 or 128); DH: the tile's columns, DS rounded up to
+// whole 64-column boxes.
+template <int DS, int DH = (DS + kBoxCols - 1) / kBoxCols * kBoxCols>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_tc(const __grid_constant__ CUtensorMap qmap,
              const __grid_constant__ CUtensorMap kmap,
@@ -666,7 +674,7 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap qmap,
     fence_regs(s);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk) {
+    for (int kk = 0; kk < DS / 16; ++kk) {
       const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
       wgmma_ss_n64(s, desc_sw128(q_s + off, 16, 1024),
                    desc_sw128(k_s + off, 16, 1024), kk > 0);
@@ -711,7 +719,7 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap qmap,
     const int row = row0 + 8 * r;
     if (row >= Sq) continue;
 #pragma unroll
-    for (int j = 0; j < DH / 8; ++j) {
+    for (int j = 0; j < DS / 8; ++j) {
       const __nv_bfloat162 v2 = __floats2bfloat162_rn(
           acc[4 * j + 2 * r] / den, acc[4 * j + 2 * r + 1] / den);
       *reinterpret_cast<__nv_bfloat162*>(ob + row * o_ss + 8 * j + 2 * t4) = v2;
@@ -761,24 +769,25 @@ int encode(EncodeTiled fn, CUtensorMap* map, const void* ptr,
              : -2;
 }
 
-template <int DH>
+template <int DS>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
            int K, int Sq, int Sk, const long long* layouts,
            const long long* o_strides, int causal, int window, int prefix,
            float scale, cudaStream_t stream) {
+  constexpr int NB = (DS + kBoxCols - 1) / kBoxCols;   // boxes per tile
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return -1;
   CUtensorMap maps[3];
   const void* ptrs[3] = {q, k, v};
   for (int i = 0; i < 3; ++i) {
     const long long* lay = layouts + 12 * i;
-    if (lay[0] != DH || lay[7] != kBoxCols || lay[8] != 1 || lay[9] != kBQ ||
-        lay[10] != 1 || lay[11] != DH / kBoxCols)
+    if (lay[0] != DS || lay[7] != kBoxCols || lay[8] != 1 || lay[9] != kBQ ||
+        lay[10] != 1 || lay[11] != NB)
       return (int)cudaErrorInvalidValue;
     const int rc = encode(fn, &maps[i], ptrs[i], lay);
     if (rc != 0) return rc;
   }
-  const int smem = kAlign + (1 + 2 * kStages) * (DH / kBoxCols) * kBoxBytes;
+  const int smem = kAlign + (1 + 2 * kStages) * NB * kBoxBytes;
   // The shared-memory limit is set once for each device.
   static unsigned long long configured = 0;    // bit d: device d
   int dev = 0;
@@ -786,12 +795,12 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
   if (err != cudaSuccess) return (int)err;
   if (dev >= 64 || !(configured >> dev & 1ull)) {
     err = cudaFuncSetAttribute(
-        flash_fwd_tc<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        flash_fwd_tc<DS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     if (dev < 64) configured |= 1ull << dev;
   }
   const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
-  flash_fwd_tc<DH><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_tc<DS><<<grid, kThreads, smem, stream>>>(
       maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), H, K, Sq, Sk,
       o_strides[0], o_strides[1], o_strides[2], causal, window, prefix,
       scale * kLog2e);
@@ -800,9 +809,10 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
 
 }  // namespace tc
 
-// bfloat16 q, k, v and o, dh 64 or 128. layouts: 3 x 12 values, the tensor
-// maps of q, k and v: dims (dh, heads, seq, batch), byte strides of heads,
-// seq and batch, the box (64, 1, 64, 1) and the boxes per tile (dh / 64).
+// bfloat16 q, k, v and o, dh 64, 96 or 128. layouts: 3 x 12 values, the
+// tensor maps of q, k and v: dims (dh, heads, seq, batch), byte strides of
+// heads, seq and batch, the box (64, 1, 64, 1) and the boxes per tile
+// (dh / 64 rounded up).
 // o_strides: the element strides (batch, seq, head) of o. Returns 0 on
 // success, the CUDA error of the launch, -1 when the driver has no
 // cuTensorMapEncodeTiled and -2 when it refuses a tensor map.
@@ -818,6 +828,9 @@ extern "C" int flash_attention_tc_launch(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dh == 64)
     return tc::launch<64>(q, k, v, o, B, H, K, Sq, Sk, layouts, o_strides,
+                          causal, window, prefix, scale, s);
+  if (dh == 96)
+    return tc::launch<96>(q, k, v, o, B, H, K, Sq, Sk, layouts, o_strides,
                           causal, window, prefix, scale, s);
   if (dh == 128)
     return tc::launch<128>(q, k, v, o, B, H, K, Sq, Sk, layouts, o_strides,

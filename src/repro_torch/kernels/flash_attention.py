@@ -10,11 +10,12 @@ operands through strides, so the (B, S, H, dh) layout of the models
 the TPU kernel's mask semantics (a finite -1e30 fill, the running max from
 -inf, l clamped at 1e-30) and its whole-tile skips.
 
-Two kernels, one rule (``tensor_core_route``): a bfloat16 call with dh 64
-or 128 whose base pointers are 16-byte aligned and whose batch, sequence
+Two kernels, one rule (``tensor_core_route``): a bfloat16 call with dh 64,
+96 or 128 whose base pointers are 16-byte aligned and whose batch, sequence
 and head strides are multiples of 16 bytes (TMA's conditions) takes the
 tensor-core kernel (``flash_attention_tc_launch``: wgmma products over a
-TMA-fed K/V ring); every other CUDA call takes the CUDA-core kernel
+TMA-fed K/V ring; dh 96 runs dh 128's tile, its last 32 columns
+zero-filled by TMA); every other CUDA call takes the CUDA-core kernel
 (``flash_attention_launch``: float32 math, any dh up to 128, float32 or
 bfloat16). The rule reads only dtype, shape, pointers and strides; a launch
 that fails raises and never reruns on the other kernel. ``LAUNCHES``
@@ -45,7 +46,7 @@ __all__ = ["flash_attention_fwd", "flash_attention_strided",
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-TC_HEAD_DIMS = (64, 128)
+TC_HEAD_DIMS = (64, 96, 128)
 TMA_BOX_COLS = 64   # bf16 columns per TMA box: 128 bytes, the swizzle's span
 TMA_BOX_ROWS = 64   # query rows of a block, keys of a tile
 
@@ -77,9 +78,9 @@ def attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
 
 def tensor_core_route(q, k, v, out) -> bool:
     """Whether a CUDA call on q/out (B, Sq, H, dh) and k/v (B, Sk, K, dh)
-    takes the tensor-core kernel: bfloat16, dh 64 or 128, every base pointer
-    16-byte aligned and every batch, sequence and head stride a multiple of
-    16 bytes. Every other call takes the CUDA-core kernel."""
+    takes the tensor-core kernel: bfloat16, dh 64, 96 or 128, every base
+    pointer 16-byte aligned and every batch, sequence and head stride a
+    multiple of 16 bytes. Every other call takes the CUDA-core kernel."""
     if q.dtype != torch.bfloat16 or q.shape[-1] not in TC_HEAD_DIMS:
         return False
     return all(t.data_ptr() % 16 == 0
@@ -91,7 +92,8 @@ def tma_layout(t) -> dict:
     """The tensor map of a (B, S, heads, dh) operand of the tensor-core
     kernel: dims innermost first (dh, heads, S, B), the byte strides of
     heads, S and B, the box (64 columns, 1 head, 64 rows, 1 batch) and the
-    first column of each box of a tile (two boxes at dh 128)."""
+    first column of each box of a tile (two boxes at dh 96 and 128; at 96
+    the second box's last 32 columns lie outside the tensor)."""
     v = _tma_values(tuple(t.shape), t.stride(), t.element_size())
     return {"dims": v[0:4], "strides": v[4:7], "box": v[7:11],
             "box_cols": tuple(range(0, v[0], TMA_BOX_COLS))}
@@ -99,11 +101,11 @@ def tma_layout(t) -> dict:
 
 def _tma_values(shape, stride, es) -> tuple:
     """``tma_layout`` as the kernel takes it: dims, byte strides, box and
-    the number of boxes per tile, 12 integers."""
+    the number of boxes per tile (dh / 64 rounded up), 12 integers."""
     B, S, n_heads, dh = shape
     return (dh, n_heads, S, B, stride[2] * es, stride[1] * es,
             stride[0] * es, TMA_BOX_COLS, 1, TMA_BOX_ROWS, 1,
-            dh // TMA_BOX_COLS)
+            -(-dh // TMA_BOX_COLS))
 
 
 @functools.lru_cache(maxsize=64)

@@ -7,7 +7,11 @@ Requests are served in groups of ``batch`` (the last group zero-padded): one
 prefill of the group's prompts, then ``max_new - 1`` lockstep greedy decode
 steps from position ``S + n_meta``. The encoder-decoder's audio frontend is
 the reference's stub: zero frames (batch, max(S // 4, 1), d_model) for each
-group. The generated tokens stay on the device until the group ends.
+group; the vlm's vision frontend is its stub too, zero patch embeddings
+(batch, frontend_len, d_model). The vlm decodes from ``S`` as the
+reference does, although its cache holds the patches before the text
+(ROADMAP queue C). The generated tokens stay on the device until the group
+ends.
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ import argparse
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config, smoke_config
+from repro_torch.configs import ARCH_NAMES, get_config, smoke_config
 from repro_torch.device import resolve_device
 from repro_torch.launch import steps as step_lib
 from repro_torch.models import build
@@ -62,6 +66,10 @@ def serve_requests(cfg, prompts: np.ndarray, batch: int, max_new: int,
                 pbatch["frames"] = torch.zeros(
                     (batch, max(S // 4, 1), cfg.d_model), dtype=torch.float32,
                     device=dev)
+            if cfg.kind == "vlm":     # stub vision frontend
+                pbatch["vision"] = torch.zeros(
+                    (batch, cfg.frontend_len, cfg.d_model),
+                    dtype=torch.float32, device=dev)
             token, cache = prefill_fn(pbatch)
             pos0 = S + (cfg.n_meta_tokens or 0)
             tokens = [token]
@@ -76,7 +84,7 @@ def serve_requests(cfg, prompts: np.ndarray, batch: int, max_new: int,
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--arch", default="tinyllama_1_1b")
+    p.add_argument("--arch", default="tinyllama_1_1b", choices=ARCH_NAMES)
     p.add_argument("--smoke", action="store_true")
     p.add_argument("--requests", type=int, default=8)
     p.add_argument("--batch", type=int, default=4)

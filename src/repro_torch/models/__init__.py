@@ -1,4 +1,4 @@
-"""The LM substrate's model zoo, ported so far for the dense decoder, the
+"""The LM substrate's model zoo: the decoders (dense, MoE, vision), the
 Mamba-2 stack, the Hymba hybrid and the encoder-decoder (``api.build``)."""
 
 from repro_torch.models.api import build

@@ -2,8 +2,9 @@
 ``nn.Module``, which exposes ``init_weights``, ``forward``, ``prefill``,
 ``decode`` and ``init_cache`` with the same signatures in every family
 (the encoder-decoder's ``init_cache`` also takes the encoder's length).
-Ported: the dense decoder, Mamba-2, the Hymba hybrid and the
-encoder-decoder; moe and vlm wait (ROADMAP A11)."""
+Every kind of the reference is ported: the decoder (dense, moe and vlm
+share it, as in the reference), Mamba-2, the Hymba hybrid and the
+encoder-decoder."""
 
 from __future__ import annotations
 
@@ -18,18 +19,14 @@ from repro_torch.models.ssm import Mamba
 
 __all__ = ["build"]
 
-_FAMILIES = {"decoder": Decoder, "ssm": Mamba, "hybrid": Hybrid,
-             "encdec": EncDec}
-_WAITING = ("moe", "vlm")
+_FAMILIES = {"decoder": Decoder, "moe": Decoder, "vlm": Decoder,
+             "ssm": Mamba, "hybrid": Hybrid, "encdec": EncDec}
 
 
 def build(cfg: ModelConfig, device="cuda") -> nn.Module:
     """The model of ``cfg`` on ``device`` (default the GPU), weights not yet
     initialised."""
     dev = resolve_device(device)
-    if cfg.kind in _WAITING:
-        raise NotImplementedError(
-            f"model kind {cfg.kind!r} is not ported yet (ROADMAP A11)")
     if cfg.kind not in _FAMILIES:
         raise ValueError(f"unknown model kind {cfg.kind!r}")
     return _FAMILIES[cfg.kind](cfg, dev)

@@ -10,8 +10,8 @@ families that do not use them. ``kind`` selects the stack:
   hybrid   — Hymba-style parallel attention + SSM heads per layer
   vlm      — decoder LM consuming a stub patch-embedding prefix
 
-A copy of the reference's dataclass. The port builds the ``decoder``,
-``ssm``, ``hybrid`` and ``encdec`` kinds so far (``models/api.py``).
+A copy of the reference's dataclass. The port builds every kind
+(``models/api.py``).
 """
 
 from __future__ import annotations

@@ -1,5 +1,7 @@
-"""Dense decoder-only LM (GQA + rotary + SwiGLU): the ``kind == "decoder"``
-part of the reference's ``models/decoder.py``.
+"""Decoder-only LM (GQA + rotary + SwiGLU): the reference's
+``models/decoder.py`` for its three kinds, the dense ``decoder``, ``moe``
+(a routed-expert FFN with optional shared experts, ``layers.moe_ffn``) and
+``vlm`` (a projection of stub patch embeddings prepended to the text).
 
 Parameters are ``nn.Module`` attributes named after the reference's tree
 (``layers.<l>.attn.wq`` is the reference's ``layers/attn/wq[l]``), so
@@ -57,25 +59,58 @@ class SwiGLU(nn.Module):
             ll.dense_init_(w.data, gen)
 
 
+class Experts(nn.Module):
+    """E experts' SwiGLU weights, stacked: (E, D, dE), (E, D, dE),
+    (E, dE, D)."""
+
+    def __init__(self, E: int, D: int, dE: int, device):
+        super().__init__()
+        self.w_gate = _param(E, D, dE, device=device)
+        self.w_up = _param(E, D, dE, device=device)
+        self.w_down = _param(E, dE, D, device=device)
+
+    def init_weights(self, gen):
+        for w in (self.w_gate, self.w_up, self.w_down):
+            ll.dense_init_(w.data, gen, in_axis=1)
+
+
+class MoE(nn.Module):
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        D, E, dE = cfg.d_model, cfg.n_experts, cfg.d_expert
+        self.router = _param(D, E, device=device)
+        self.experts = Experts(E, D, dE, device)
+        self.shared = SwiGLU(D, cfg.n_shared_experts * dE, device) \
+            if cfg.n_shared_experts else None
+
+    def init_weights(self, gen):
+        ll.dense_init_(self.router.data, gen)
+        self.experts.init_weights(gen)
+        if self.shared is not None:
+            self.shared.init_weights(gen)
+
+
 class Block(nn.Module):
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
         self.ln1 = _param(cfg.d_model, device=device, fill=1.0)
         self.ln2 = _param(cfg.d_model, device=device, fill=1.0)
         self.attn = Attention(cfg, device)
-        self.ffn = SwiGLU(cfg.d_model, cfg.d_ff, device)
+        self.ffn = MoE(cfg, device) if cfg.kind == "moe" \
+            else SwiGLU(cfg.d_model, cfg.d_ff, device)
 
 
 class Decoder(nn.Module):
-    """The dense decoder of ``cfg`` with uninitialised weights on ``device``
-    (``init_weights`` fills them; ``load_state_dict`` loads them)."""
+    """The decoder of ``cfg`` (dense, moe or vlm) with uninitialised weights
+    on ``device`` (``init_weights`` fills them; ``load_state_dict`` loads
+    them)."""
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
-        if cfg.kind != "decoder" or cfg.window > 0:
+        if cfg.window > 0:
             raise NotImplementedError(
-                "the port's decoder is the dense full-attention one; "
-                f"kind={cfg.kind!r}, window={cfg.window} wait (ROADMAP A11)")
+                "the port's decoder attends to every earlier position; "
+                f"window={cfg.window} waits (ROADMAP A11)")
         self.cfg = cfg
         D, V = cfg.d_model, cfg.vocab
         self.embed = _param(V, D, device=device)
@@ -84,6 +119,10 @@ class Decoder(nn.Module):
         self.final_norm = _param(D, device=device, fill=1.0)
         self.lm_head = None if cfg.tie_embeddings else _param(D, V,
                                                               device=device)
+        # The stub vision frontend: a projection of precomputed patch
+        # embeddings (the reference leaves the CLIP tower out).
+        self.vision_proj = _param(D, D, device=device) \
+            if cfg.kind == "vlm" else None
 
     @torch.no_grad()
     def init_weights(self, gen: torch.Generator) -> None:
@@ -93,9 +132,18 @@ class Decoder(nn.Module):
             blk.ffn.init_weights(gen)
         if self.lm_head is not None:
             ll.dense_init_(self.lm_head.data, gen)
+        if self.vision_proj is not None:
+            ll.dense_init_(self.vision_proj.data, gen)
 
-    def _embed(self, tokens):
-        return self.embed[tokens].to(getattr(torch, self.cfg.dtype))
+    def _embed(self, tokens, vision=None):
+        """Token embeddings; a vlm prepends the projected patches."""
+        dt = getattr(torch, self.cfg.dtype)
+        x = self.embed[tokens].to(dt)
+        if self.vision_proj is not None and vision is not None:
+            v = torch.einsum("bpd,de->bpe", vision.to(dt),
+                             self.vision_proj.to(dt))
+            x = torch.cat([v, x], dim=1)
+        return x
 
     def _logits(self, x):
         x = ll.rms_norm(x, self.final_norm)
@@ -103,15 +151,23 @@ class Decoder(nn.Module):
         return torch.einsum("bsd,dv->bsv", x, head.to(x.dtype))
 
     def _ffn(self, x, blk):
-        return x + ll.swiglu(ll.rms_norm(x, blk.ln2), blk.ffn)
+        """The block's FFN on the residual: (x + f, the MoE's aux or 0)."""
+        h = ll.rms_norm(x, blk.ln2)
+        if self.cfg.kind == "moe":
+            f, aux = ll.moe_ffn(h, blk.ffn, self.cfg)
+            return x + f, aux
+        return x + ll.swiglu(h, blk.ffn), 0.0
 
     def forward(self, batch: dict):
-        """Training/prefill forward -> (logits (B, S, V), aux_loss)."""
-        x = self._embed(batch["tokens"])
+        """Training/prefill forward -> (logits (B, S, V), aux_loss): a vlm's
+        logits cover the patch positions too."""
+        x = self._embed(batch["tokens"], batch.get("vision"))
+        aux = torch.zeros((), device=x.device)
         for blk in self.layers:
             x = x + ll.attention(ll.rms_norm(x, blk.ln1), blk.attn, self.cfg)
-            x = self._ffn(x, blk)
-        return self._logits(x), torch.zeros((), device=x.device)
+            x, a = self._ffn(x, blk)
+            aux = aux + a
+        return self._logits(x), aux
 
     def init_cache(self, batch: int, max_len: int):
         shape = (self.cfg.n_layers, batch, max_len, self.cfg.n_kv_heads,
@@ -123,17 +179,17 @@ class Decoder(nn.Module):
     @torch.inference_mode()
     def prefill(self, batch: dict, max_len: int | None = None):
         """Run the prompt; returns last-position logits (B, 1, V) and a
-        filled bfloat16 cache."""
+        filled bfloat16 cache, which covers a vlm's patches and text."""
         tokens = batch["tokens"]
-        S = tokens.shape[1]
-        x = self._embed(tokens)
+        x = self._embed(tokens, batch.get("vision"))
+        S = x.shape[1]
         cache = self.init_cache(tokens.shape[0], max(max_len or S, S))
         for i, blk in enumerate(self.layers):
             y, (k, v) = ll.attention(ll.rms_norm(x, blk.ln1), blk.attn,
                                      self.cfg, return_kv=True)
             cache["k"][i, :, :S] = k
             cache["v"][i, :, :S] = v
-            x = self._ffn(x + y, blk)
+            x = self._ffn(x + y, blk)[0]
         return self._logits(x[:, -1:, :]), cache
 
     @torch.inference_mode()
@@ -144,5 +200,5 @@ class Decoder(nn.Module):
             y = ll.attention_decode(ll.rms_norm(x, blk.ln1), blk.attn,
                                     cache["k"][i], cache["v"][i], pos,
                                     self.cfg)
-            x = self._ffn(x + y, blk)
+            x = self._ffn(x + y, blk)[0]
         return self._logits(x), cache

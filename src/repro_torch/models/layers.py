@@ -1,6 +1,6 @@
 """Building blocks of the port's model zoo: the part of the reference's
-``models/layers.py`` that the dense decoder, the Mamba-2 stack, the Hymba
-hybrid and the encoder-decoder use.
+``models/layers.py`` that the decoders (dense, MoE and vision), the Mamba-2
+stack, the Hymba hybrid and the encoder-decoder use.
 
 Conventions, as the reference: weights are float32 masters cast to the
 activation dtype at each use; norms and rotary angles are computed in
@@ -11,8 +11,9 @@ Prefill self-attention goes through ``kernels/ops.flash_attention`` at
 every sequence length: the flash kernel on the card, its plain version
 (float32 scores) on the CPU. The reference computes short sequences with a
 dense softmax whose scores are in the activation dtype and long ones
-blockwise; the kernel replaces both paths. Decode attention, ``ssd_step``
-and the convolutions stay plain torch, as the reference leaves them to XLA.
+blockwise; the kernel replaces both paths. Decode attention, ``ssd_step``,
+the convolutions and the MoE's routing and expert products stay plain
+torch, as the reference leaves them to XLA.
 
 Decode updates the KV cache in place (the reference returns a new one), and
 writes the new key and value in the cache's dtype: the decoder's and the
@@ -32,7 +33,7 @@ from repro_torch.models.config import ModelConfig
 
 __all__ = [
     "dense_init_", "rms_norm", "rotary", "apply_rope",
-    "attention", "attention_decode", "swiglu",
+    "attention", "attention_decode", "swiglu", "moe_ffn",
     "ssd", "ssd_step", "causal_conv1d", "conv1d_step",
 ]
 
@@ -178,6 +179,74 @@ def swiglu(x, p):
     h = torch.einsum("bsd,df->bsf", x, p.w_gate.to(x.dtype))
     u = torch.einsum("bsd,df->bsf", x, p.w_up.to(x.dtype))
     return torch.einsum("bsf,fd->bsd", F.silu(h) * u, p.w_down.to(x.dtype))
+
+
+def _expert_swiglu(buf, p):
+    """buf: (G, E, C, D) routed-token buffers; each expert's SwiGLU over its
+    C rows, as batched products."""
+    h = torch.einsum("gecd,edf->gecf", buf, p.w_gate.to(buf.dtype))
+    u = torch.einsum("gecd,edf->gecf", buf, p.w_up.to(buf.dtype))
+    return torch.einsum("gecf,efd->gecd", F.silu(h) * u,
+                        p.w_down.to(buf.dtype))
+
+
+def moe_ffn(x, p, cfg: ModelConfig):
+    """Fine-grained routed MoE with capacity dropping, as the reference's
+    ``moe_ffn`` computes it without shardings; returns (y, aux).
+
+    The tokens are split into ``G = max(1, min(moe_groups, B*S))`` groups,
+    each dispatched on its own. Router logits and softmax in float32; each
+    token's top ``k`` experts (ties to the lower index, as ``lax.top_k``)
+    with their renormalised gates. An entry's slot is its rank among the
+    group's entries of the same expert in token-major order, which is its
+    place in the reference's stable sort by expert; entries at slot
+    ``cap = ceil(Tg k / E capacity_factor)`` or later are dropped. Kept
+    entries are copied into a (G, E, cap, D) buffer (each slot is written
+    once), the experts run on it, and each token sums its k gated outputs
+    in ascending expert order, the order of the reference's scatter-add,
+    with no atomics: the same bits on every run. Shared experts are a dense
+    SwiGLU beside them; ``aux`` is the Switch-style load-balance value."""
+    B, S, D = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    T = B * S
+    G = max(1, min(cfg.moe_groups, T))
+    Tg = T // G
+    xt = x.reshape(G, Tg, D)
+
+    logits = torch.einsum("gtd,de->gte", xt.float(), p.router.float())
+    probs = torch.softmax(logits, dim=-1)
+    gate, eidx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, eidx = gate[..., :k], eidx[..., :k]                 # (G, Tg, k)
+    gate = (gate / gate.sum(-1, keepdim=True)).to(x.dtype)
+
+    cap = math.ceil(Tg * k / E * cfg.capacity_factor)
+    flat_e = eidx.reshape(G, 1, Tg * k)
+    # (G, E, Tg*k), entries innermost: the running count is a scan along
+    # the contiguous dim (along an outer dim the card scans each expert's
+    # column in one thread).
+    chose = (flat_e == torch.arange(E, device=x.device)[None, :, None]).int()
+    slot = (chose.cumsum(-1).gather(1, flat_e) - 1).reshape(G, Tg, k)
+    keep = slot < cap
+    base = (torch.arange(G, device=x.device)[:, None, None] * E + eidx) * cap
+    # Dropped entries go to a spare last row that the experts never read.
+    buf = x.new_zeros(G * E * cap + 1, D)
+    buf[torch.where(keep, base + slot, G * E * cap)] = xt[:, :, None, :]
+    out = _expert_swiglu(buf[:-1].view(G, E, cap, D), p.experts) \
+        .reshape(G * E * cap, D)
+
+    asc = eidx.argsort(dim=-1)                  # each token's experts, ascending
+    rows = (base + slot.clamp(max=cap - 1)).gather(-1, asc)
+    w = (gate * keep).gather(-1, asc)[..., None]
+    yt = out[rows[..., 0]] * w[..., 0, :]
+    for j in range(1, k):
+        yt = yt + out[rows[..., j]] * w[..., j, :]
+    y = yt.reshape(B, S, D)
+    if cfg.n_shared_experts > 0:
+        y = y + swiglu(x, p.shared)
+    me = chose.sum(dim=(0, 2)).float() / T                    # tokens/expert
+    pe = probs.mean(dim=(0, 1))
+    aux = E * (me / k * pe).sum()
+    return y, aux
 
 
 # --------------------------------------------------------------------------

@@ -99,8 +99,15 @@ ROUTES = {  # name: (q, k, v, out) builder, expected tensor-core route
                               _bshd(4, 128, 32, 64, torch.float32)), False),
     "bf16_dh8": (lambda: (_bshd(2, 40, 4, 8), _bshd(2, 40, 2, 8),
                           _bshd(2, 40, 2, 8), _bshd(2, 40, 4, 8)), False),
+    # phi-3-vision's head dim: dh 128's tile, 32 columns zero-filled
     "bf16_dh96": (lambda: (_bshd(2, 64, 4, 96), _bshd(2, 64, 2, 96),
-                           _bshd(2, 64, 2, 96), _bshd(2, 64, 4, 96)), False),
+                           _bshd(2, 64, 2, 96), _bshd(2, 64, 4, 96)), True),
+    "float32_dh96": (lambda: (_bshd(2, 64, 4, 96, torch.float32),
+                              _bshd(2, 64, 2, 96, torch.float32),
+                              _bshd(2, 64, 2, 96, torch.float32),
+                              _bshd(2, 64, 4, 96, torch.float32)), False),
+    "bf16_dh80": (lambda: (_bshd(2, 64, 4, 80), _bshd(2, 64, 2, 80),
+                           _bshd(2, 64, 2, 80), _bshd(2, 64, 4, 80)), False),
     "bf16_odd_seq_stride": (lambda: (_odd_seq_stride(2, 64, 4, 64),
                                      _bshd(2, 64, 2, 64), _bshd(2, 64, 2, 64),
                                      _bshd(2, 64, 4, 64)), False),
@@ -152,6 +159,12 @@ def _byte_offset(layout, idx):
      (128, 2, 384, 1), (98304, 256, 196608), (0, 64)),
     (lambda: _bshd(2, 1024, 32, 128), (128, 32, 1024, 2),
      (256, 8192, 8388608), (0, 64)),
+    # dh 96 (phi-3-vision's serve: 576 patches + 1024 tokens): two boxes, the
+    # second's columns 96-127 outside the tensor
+    (lambda: _bshd(4, 1600, 32, 96), (96, 32, 1600, 4),
+     (192, 6144, 9830400), (0, 64)),
+    (lambda: fa.bshd_view(torch.empty((8, 200, 96), dtype=BF16)),
+     (96, 8, 200, 1), (38400, 192, 307200), (0, 64)),
 ])
 def test_tensor_map_layouts(make, dims, strides, box_cols):
     t = make()
@@ -166,6 +179,43 @@ def test_tensor_map_layouts(make, dims, strides, box_cols):
         b, s, head, d = (int(rng.integers(n)) for n in t.shape)
         assert base + _byte_offset(lay, (d, head, s, b)) == \
             t[b, s, head, d:].data_ptr()
+
+
+@pytest.mark.parametrize("dh,boxes", [(64, 1), (96, 2), (128, 2)])
+def test_tma_values_count_boxes_per_tile(dh, boxes):
+    """The twelfth value the kernel checks: 64-column boxes per tile, dh / 64
+    rounded up; the box stays 64 columns wide at every dh."""
+    t = _bshd(1, 64, 2, dh)
+    vals = fa._tma_values(tuple(t.shape), t.stride(), t.element_size())
+    assert len(vals) == 12 and vals[0] == dh
+    assert vals[7:11] == (64, 1, 64, 1) and vals[11] == boxes
+    assert len(fa.tma_layout(t)["box_cols"]) == boxes
+
+
+def test_phi3_vision_serve_tensors_take_the_tensor_cores(monkeypatch):
+    """phi-3-vision's prefill hands the kernel 576 patches and 1024 tokens
+    at dh 96 (B 4, 32 heads, bfloat16): the tensor-core route."""
+    cfg = get_config("phi_3_vision_4_2b")
+    H, K, dh, D = cfg.n_heads, cfg.n_kv_heads, cfg.dh, 16
+    rng = np.random.default_rng(1)
+    w = lambda *shape: torch.from_numpy(  # noqa: E731
+        rng.normal(size=shape).astype(np.float32))
+    p = types.SimpleNamespace(wq=w(D, H, dh), wk=w(D, K, dh), wv=w(D, K, dh),
+                              wo=w(H, dh, D), bq=None)
+    seen = {}
+
+    def capture(q, k, v, **kw):
+        seen.update(q=q, k=k, v=v, kw=kw)
+        raise _Captured
+
+    monkeypatch.setattr(ops, "flash_attention", capture)
+    with pytest.raises(_Captured):
+        layers.attention(w(4, cfg.frontend_len + 1024, D).to(BF16), p, cfg)
+    q, k, v = seen["q"], seen["k"], seen["v"]
+    assert (H, K, dh, cfg.frontend_len) == (32, 32, 96, 576)
+    assert q.shape == k.shape == v.shape == (4, 1600, 32, 96)
+    assert seen["kw"] == {"causal": True, "window": 0, "prefix": 0}
+    assert fa.tensor_core_route(q, k, v, torch.empty(q.shape, dtype=BF16))
 
 
 def test_tensor_core_route_launches_or_raises_off_the_cpu():

@@ -1,7 +1,7 @@
 """The port's serving slice against the reference's LM substrate: the smoke
-configs of every ported architecture (the dense decoders, the SSD stack,
-the Hymba hybrid, the encoder-decoder), the reference's weights carried
-across by ``interop.params_from_reference``,
+configs of every ported architecture (the dense, MoE and vision decoders,
+the SSD stack, the Hymba hybrid, the encoder-decoder), the reference's
+weights carried across by ``interop.params_from_reference``,
 inputs made with numpy from a seed. Bars: 1e-4 in float32, and the
 reference's own 2e-2 in bfloat16 (``tests/test_arch_smoke.py``); the port's
 prefill attention scores are float32 where the reference's dense path keeps
@@ -88,30 +88,42 @@ def _close(got, ref, dtype, bf16_values=False):
 def _batch(cfg, toks):
     """A prefill batch of numpy arrays: the tokens, and for the
     encoder-decoder seeded non-zero frames (the serve's stub frames are
-    zeros, which would leave the encoder and cross attention unchecked)."""
+    zeros, which would leave the encoder and cross attention unchecked),
+    for the vlm seeded patch embeddings (``tests/test_arch_smoke.py``)."""
     batch = {"tokens": toks}
     if cfg.kind == "encdec":
         batch["frames"] = np.random.default_rng(5).normal(
             size=(toks.shape[0], 8, cfg.d_model)).astype(np.float32)
+    if cfg.kind == "vlm":
+        batch["vision"] = (np.random.default_rng(5).normal(
+            size=(toks.shape[0], cfg.frontend_len, cfg.d_model))
+            * 0.02).astype(np.float32)
     return batch
 
 
 def _f32_cache(cfg) -> bool:
     """Whether the float32 model decodes from a float32-cast cache: the
-    reference cannot write a float32 key into the decoder's and the
+    reference cannot write a float32 key into the decoders' and the
     encoder-decoder's bfloat16 caches (the hybrid casts the key itself)."""
-    return cfg.kind in ("decoder", "encdec") and cfg.dtype == "float32"
+    return cfg.kind in ("decoder", "moe", "vlm", "encdec") \
+        and cfg.dtype == "float32"
+
+
+def _patches(cfg) -> int:
+    """The vlm's patch positions in front of the prompt."""
+    return cfg.frontend_len if cfg.kind == "vlm" else 0
 
 
 def _decode_pos(cfg, toks) -> int:
-    """The first decode position: the prompt and the hybrid's meta tokens."""
-    return toks.shape[1] + cfg.n_meta_tokens
+    """The first decode position: after the prompt, the hybrid's meta tokens
+    and the vlm's patches."""
+    return toks.shape[1] + cfg.n_meta_tokens + _patches(cfg)
 
 
 def _run_ref(rcfg, params, toks, nxt):
     ref = ref_build(rcfg)
     batch = {k: jnp.asarray(v) for k, v in _batch(rcfg, toks).items()}
-    lg, cache = ref.prefill(params, batch, max_len=30)
+    lg, cache = ref.prefill(params, batch, max_len=30 + _patches(rcfg))
     if _f32_cache(rcfg):
         cache = jax.tree.map(lambda a: a.astype(jnp.float32), cache)
     lg2, cache2 = ref.decode(params, cache, jnp.asarray(nxt),
@@ -122,7 +134,7 @@ def _run_ref(rcfg, params, toks, nxt):
 def _run_port(cfg, state, toks, nxt):
     model = _port(cfg, state)
     batch = {k: torch.from_numpy(v) for k, v in _batch(cfg, toks).items()}
-    lg, cache = model.prefill(batch, max_len=30)
+    lg, cache = model.prefill(batch, max_len=30 + _patches(cfg))
     if _f32_cache(cfg):
         cache = {k: v.float() for k, v in cache.items()}
     lg2, cache2 = model.decode(cache, torch.from_numpy(nxt),
@@ -172,12 +184,15 @@ def test_forward_matches_reference(arch):
     toks = np.random.default_rng(3).integers(0, cfg.vocab, (2, 20),
                                              dtype=np.int32)
     batch = _batch(cfg, toks)
-    lg, _ = ref.forward(params, {k: jnp.asarray(v) for k, v in batch.items()})
+    lg, aux = ref.forward(params, {k: jnp.asarray(v)
+                                   for k, v in batch.items()})
     with torch.no_grad():
-        lg_t, aux = _port(cfg, state)({k: torch.from_numpy(v)
-                                       for k, v in batch.items()})
+        lg_t, aux_t = _port(cfg, state)({k: torch.from_numpy(v)
+                                         for k, v in batch.items()})
     _close(lg_t, lg, "float32")
-    assert float(aux) == 0.0
+    # The MoE's summed load-balance value; zero for the other families.
+    np.testing.assert_allclose(float(aux_t), float(aux), rtol=1e-5, atol=1e-5)
+    assert (float(aux_t) > 0) == (cfg.kind == "moe")
 
 
 @pytest.mark.parametrize("arch", PORTED)
@@ -307,17 +322,13 @@ def test_entry_points_default_to_the_gpu(no_gpu):
 
 
 def test_unported_architectures_and_features_raise():
-    for arch in sorted(set(ARCH_NAMES) - set(PORTED)):
-        with pytest.raises(NotImplementedError, match="A11"):
-            get_config(arch)
+    """Every architecture of the reference is ported; a windowed decoder
+    and an unknown architecture still raise."""
+    assert sorted(PORTED) == sorted(ARCH_NAMES)
+    for arch in ARCH_NAMES:
+        build(get_config(arch), "meta")
     with pytest.raises(ValueError, match="unknown arch"):
         smoke_config("gpt2")
-    for kind, extra in (("moe", dict(n_experts=4, top_k=2, d_expert=8)),
-                        ("vlm", dict(frontend="vision", frontend_len=4))):
-        cfg = dataclasses.replace(smoke_config("tinyllama_1_1b"), kind=kind,
-                                  **extra)
-        with pytest.raises(NotImplementedError, match="A11"):
-            build(cfg, "cpu")
     windowed = dataclasses.replace(smoke_config("tinyllama_1_1b"), window=8)
     with pytest.raises(NotImplementedError, match="A11"):
         build(windowed, "cpu")
