@@ -252,6 +252,37 @@ Phases, each failing the run with a non-zero exit:
    written argument (mutation), an all-gather in a zero-collective program
    (collectives); (e) no ``nvcc`` build over the phase (``CompileWatch``).
    Its time is printed against its 30 s budget.
+16. training (``repro_torch.launch``'s ``make_train_step`` and
+   ``train_loop``) — (a) the flash kernel's training forward, which also
+   writes each row's log-sum-exp, and ``FlashAttention``'s gradients at
+   tinyllama's train shape (4, 4096, 32/4, 64) in bfloat16 (the
+   tensor-core route; lse within 1e-4, out, dq, dk, dv within relative RMS
+   2e-2 of the plain version's float32 autograd) and at a float32 smoke
+   shape (the CUDA-core route; 1e-5 and 1e-4), ``SSDScan`` at mamba2's
+   train shape (2, 4096, 80, 64, 128, chunk 256): y within 1e-4 of the
+   plain version's max abs, and the gradients within 1e-4 of each one's
+   max abs of float64 autograd through another chunked form of the scan
+   (the backward itself differentiates the plain version), each forward's
+   device time with and without the lse store and each backward's; (b) tinyllama-1.1b at full width, bf16
+   activations and float32 masters, ``train_4k``'s sequence 4096 with the
+   global batch cut from 256 to 8: two steps of two microbatches, exactly
+   88 flash launches a step (22 layers, 2 microbatches, forward and remat
+   recompute), all tensor-core, finite loss and grad norm, the step
+   counted, the parameters moved, then one step from the first state in
+   one batch within the reference's 5e-3 of the first step's loss; wall
+   per step, tokens/s, the idle share of a third step under torch.profiler
+   and the peak memory, within 0.9 of the card; (c) mamba2-2.7b at full
+   width, one step of 2 x 4096: exactly 128 SSD calls, the same prints and
+   memory bar; (d) one step of every architecture's float32 smoke config
+   on the card against the CPU (loss and grad norm within 1e-5 relative,
+   each first-moment leaf within 1e-4 of its max abs, the kernels
+   launched); (e) ``train_loop`` at smoke size (tinyllama, 8 steps, batch
+   4 x 32, checkpoints every 3 in a temporary directory) preempted at 6 and
+   resumed against the run that was not stopped (bit for bit, or within
+   1e-6 relative; which one is printed), then 30 steps whose last five
+   losses average below the first five. Its time is printed against its
+   120 s budget, with (e)'s resume report; the kernels line gains the
+   flash and SSD launches counted in each step of (b) and (c).
 
 Then one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` name and
 power-limit line, and last ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -337,6 +368,25 @@ MESH_KEYS = MESH_EVAL_KEYS + ("engine.gather:sharded", "learn.fold:sharded")
 # Phase 15, the static contract checker: its NCCL store and its budget.
 ANALYSIS_DIR = pathlib.Path("build") / "archive" / "phase15"
 ANALYSIS_BUDGET = 30.0   # seconds
+# Phase 16, training: its budget, the flash and SSD training checks, and
+# the full-width steps (tinyllama's train_4k global batch cut from 256).
+TRAIN_BUDGET = 120.0     # seconds
+TRAIN_SEED = 16
+# label: (B, S, H, K, dh, dtype, causal, window, prefix, route)
+TRAIN_FLASH = {
+    "tinyllama train": (4, 4096, 32, 4, 64, "bfloat16", True, 0, 0, "tc"),
+    "float32 smoke": (2, 200, 4, 2, 16, "float32", True, 32, 8, "cuda core"),
+}
+TRAIN_FLASH_TOL = {"bfloat16": (1e-4, 2e-2),   # lse abs, relative RMS
+                   "float32": (1e-5, 1e-4)}     # lse abs, max abs
+TRAIN_SSD = (2, 4096, 80, 64, 1, 128, 256)     # mamba2's train shape
+TRAIN_SSD_TOL = 1e-4     # relative to each gradient's max abs
+TRAIN_SEQ = 4096
+TRAIN_BATCH, TRAIN_MICRO = 8, 2
+MAMBA_TRAIN_BATCH = 2
+TRAIN_MICRO_TOL = 5e-3   # the reference's bar (tests/test_arch_smoke.py)
+TRAIN_MEM_SHARE = 0.9
+TRAIN_TRACE = pathlib.Path("build") / "archive" / "train_trace.json"
 # The device kernel names torch.profiler shows, one entry per captured
 # launch of each key (the Hedge call's trajectory pass).
 PROFILED_AS = {"policy_cost_chain": ("chain_smem_kernel", "chain_kernel"),
@@ -836,11 +886,8 @@ def device_ops(torch, fn, reps: int = 5) -> dict:
 
 def flash_plain_bshd(q, k, v, **kw):
     """The plain version on the models' (B, S, H, dh) layout."""
-    from repro_torch.kernels.flash_attention import attention_plain
-    B, Sq, H, dh = q.shape
-    rows = lambda t: t.transpose(1, 2).reshape(-1, t.shape[1], dh)  # noqa: E731
-    return attention_plain(rows(q), rows(k), rows(v), **kw).reshape(
-        B, H, Sq, dh).transpose(1, 2)
+    from repro_torch.kernels.flash_attention import attention_plain_bshd
+    return attention_plain_bshd(q, k, v, **kw)
 
 
 def allclose(got, ref, tol: float) -> tuple[float, bool]:
@@ -3429,6 +3476,429 @@ def analysis_phase(torch, np) -> dict:
     return launches
 
 
+
+def _rel_rms(got, ref) -> float:
+    d = (got.float() - ref.float()).square().mean().sqrt()
+    return float(d / ref.float().square().mean().sqrt().clamp(min=1e-30))
+
+
+def _flash_plain_train(torch, fa, q, k, v, do, kw):
+    """The plain version's float32 output, log-sum-exp and autograd
+    gradients on (B, S, heads, dh) inputs, one batch row at a time (the
+    naive scores of a whole tinyllama microbatch would take 17 GB)."""
+    outs = []
+    for b in range(q.shape[0]):
+        leaf = [t[b:b + 1].detach().float().requires_grad_() for t in (q, k, v)]
+        rows = [t.transpose(1, 2).reshape(-1, t.shape[1], t.shape[-1])
+                for t in leaf]
+        o, lse = fa.attention_plain(*rows, return_lse=True, **kw)
+        H, S, dh = q.shape[2], q.shape[1], q.shape[3]
+        o = o.reshape(1, H, S, dh).transpose(1, 2)
+        grads = torch.autograd.grad(o, leaf, do[b:b + 1].float())
+        outs.append((o.detach(), lse.reshape(1, H, S).detach(), *grads))
+    return [torch.cat(parts) for parts in zip(*outs)]
+
+
+def _ssd_f64(torch, x, dt, A, B, C, chunk):
+    """y of the SSD scan from a zero state in the whole-sequence chunked
+    form (every chunk at once, the chunk states by a segment-sum over
+    chunks), in the inputs' dtype: the gradient witness of phase 16 (a)."""
+    Bb, S, H, P = x.shape
+    rep = H // B.shape[2]
+    nc = S // chunk
+
+    def segsum(a):                       # (..., T) -> (..., T, T)
+        c = torch.cumsum(a, dim=-1)
+        d = c[..., :, None] - c[..., None, :]
+        keep = torch.ones(a.shape[-1], a.shape[-1], dtype=torch.bool,
+                          device=a.device).tril()
+        return d.masked_fill(~keep, float("-inf"))
+
+    X = (x * dt[..., None]).reshape(Bb, nc, chunk, H, P)
+    a = (A * dt).reshape(Bb, nc, chunk, H).permute(0, 3, 1, 2)  # (b,h,c,l)
+    Bh = B.repeat_interleave(rep, dim=2).reshape(Bb, nc, chunk, H, -1)
+    Ch = C.repeat_interleave(rep, dim=2).reshape(Bb, nc, chunk, H, -1)
+    a_cum = torch.cumsum(a, dim=-1)
+    L = segsum(a).exp()                                   # (b,h,c,l,s)
+    CB = torch.einsum("bclhn,bcshn->bhcls", Ch, Bh)
+    y = torch.einsum("bhcls,bcshp->bclhp", CB * L, X)
+    decay = (a_cum[..., -1:] - a_cum).exp()               # (b,h,c,l)
+    states = torch.einsum("bclhn,bhcl,bclhp->bchpn", Bh, decay, X)
+    states = torch.cat([torch.zeros_like(states[:, :1]), states], dim=1)
+    chunk_decay = segsum(torch.nn.functional.pad(a_cum[..., -1], (1, 0)))
+    states = torch.einsum("bhzc,bchpn->bzhpn", chunk_decay.exp(),
+                          states)[:, :-1]
+    y = y + torch.einsum("bclhn,bchpn,bhcl->bclhp", Ch, states, a_cum.exp())
+    return y.reshape(Bb, S, H, P)
+
+
+def train_kernel_checks(torch, np) -> dict:
+    """Phase 16 (a): the flash kernel's training forward (with its
+    log-sum-exp) and ``FlashAttention``'s gradients, and ``SSDScan``'s
+    gradients, on the card against the plain versions' float32 autograd;
+    each one's forward device time with and without the lse store and its
+    backward's device time."""
+    import types
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels import ssd_scan as ss
+
+    gen = torch.Generator("cuda").manual_seed(TRAIN_SEED)
+    rnd = lambda *s: torch.randn(*s, device="cuda", generator=gen)  # noqa: E731
+    report = {"flash_attention": {}, "ssd_scan": {}}
+    for label, (B, S, H, K, dh, dtype, causal, window, prefix, route) \
+            in TRAIN_FLASH.items():
+        dt = getattr(torch, dtype)
+        q, k, v = rnd(B, S, H, dh).to(dt), rnd(B, S, K, dh).to(dt), \
+            rnd(B, S, K, dh).to(dt)
+        do = rnd(B, S, H, dh).to(dt)
+        kw = dict(causal=causal, window=window, prefix=prefix)
+        LAUNCHES.clear()
+        out, lse = fa.flash_forward_lse(q, k, v, **kw)
+        torch.cuda.synchronize()
+        tc = LAUNCHES["flash_attention_tc"]
+        if LAUNCHES["flash_attention"] != 1 or tc != (route == "tc"):
+            fail(f"train flash {label}: launches {dict(LAUNCHES)}, expected "
+                 f"one on the {route} route")
+        leaf = [t.detach().requires_grad_() for t in (q, k, v)]
+        fn_out = fa.FlashAttention.apply(*leaf, causal, window, prefix)
+        fn_out.backward(do)
+        o_p, lse_p, *g_p = _flash_plain_train(torch, fa, q, k, v, do, kw)
+        lse_err = float((lse - lse_p).abs().max())
+        lse_tol, grad_tol = TRAIN_FLASH_TOL[dtype]
+        if dtype == "bfloat16":
+            errs = [_rel_rms(a, b) for a, b in zip(
+                [fn_out.detach()] + [t.grad for t in leaf], [o_p] + g_p)]
+            bar = f"relative RMS {grad_tol}"
+        else:
+            errs = [float((a.float() - b).abs().max()) for a, b in zip(
+                [fn_out.detach()] + [t.grad for t in leaf], [o_p] + g_p)]
+            bar = f"max abs {grad_tol}"
+        if not torch.equal(fn_out.detach(), out):
+            fail(f"train flash {label}: the Function's forward is not the "
+                 "kernel's")
+        ok = lse_err <= lse_tol and all(e <= grad_tol for e in errs)
+        o = torch.empty_like(q)
+        lse_buf = torch.empty_like(lse)
+        t_fwd = device_ms(torch, lambda: fa.flash_attention_strided(
+            q, k, v, o, **kw), reps=10)
+        t_lse = device_ms(torch, lambda: fa.flash_attention_strided(
+            q, k, v, o, lse=lse_buf, **kw), reps=10)
+        t_bwd = device_ms(torch, lambda: fa.flash_backward(
+            q, k, v, out, lse, do, **kw), reps=3)
+        print(f"  train flash {label} {(B, S, H, K, dh)} {dtype} {kw}: lse "
+              f"max abs {lse_err:.3e} (bar {lse_tol}); out, dq, dk, dv "
+              f"{', '.join(f'{e:.3e}' for e in errs)} ({bar}) "
+              f"{'OK' if ok else 'FAIL'}; forward {t_fwd:.3f} ms, with the "
+              f"lse store {t_lse:.3f} ms ({t_lse - t_fwd:+.3f}); backward "
+              f"(torch ops) {t_bwd:.3f} ms")
+        if not ok:
+            fail(f"train flash {label}: off the plain version's autograd")
+        report["flash_attention"][label] = {
+            "shape": [B, S, H, K, dh], "dtype": dtype, "route": route,
+            "lse_max_abs_err": lse_err, "grad_errs": errs,
+            "fwd_ms": t_fwd, "fwd_lse_ms": t_lse, "bwd_ms": t_bwd}
+        del q, k, v, do, out, lse, leaf, fn_out, o_p, lse_p, g_p, o, lse_buf
+        torch.cuda.empty_cache()
+
+    Bb, S, H, P, G, N, chunk = TRAIN_SSD
+    x = rnd(Bb, S, H, P)
+    dt = torch.rand(Bb, S, H, device="cuda", generator=gen) * 0.1 + 0.001
+    A = -torch.linspace(1.0, 16.0, H, device="cuda")
+    B_, C_ = rnd(Bb, S, G, N), rnd(Bb, S, G, N)
+    dy = rnd(Bb, S, H, P)
+    ins = (x, dt, A, B_, C_)
+    LAUNCHES.clear()
+    leaf = [t.detach().requires_grad_() for t in ins]
+    y, state = ss.SSDScan.apply(*leaf, chunk)
+    (y * dy).sum().backward()
+    if LAUNCHES["ssd_scan"] != 1:
+        fail(f"train SSD: {LAUNCHES['ssd_scan']} kernel calls, expected 1")
+    with torch.no_grad():
+        y_p, _ = ss.ssd_scan_plain(*ins, chunk)
+    y_err = float((y - y_p).detach().abs().max() / y_p.abs().max())
+    del y_p
+    # The gradients' witness is independent of the backward, which
+    # differentiates ssd_scan_plain itself: another chunked form of the
+    # scan, differentiated in float64.
+    wit = [t.detach().double().requires_grad_() for t in ins]
+    g_p = torch.autograd.grad((_ssd_f64(torch, *wit, chunk)
+                               * dy.double()).sum(), wit)
+    del wit
+    errs = [float((t.grad - g).abs().max() / g.abs().max().clamp(min=1e-30))
+            for t, g in zip(leaf, g_p)]
+    ok = y_err <= TRAIN_SSD_TOL and all(e <= TRAIN_SSD_TOL for e in errs)
+    ctx = types.SimpleNamespace(saved_tensors=ins, chunk=chunk,
+                                needs_input_grad=(True,) * 5 + (False,))
+    zero = torch.zeros_like(state)
+    t_fwd = device_ms(torch, lambda: ss.ssd_scan(*ins, chunk), reps=5)
+    t_bwd = device_ms(torch, lambda: ss.SSDScan.backward(ctx, dy, zero),
+                      reps=2)
+    print(f"  train SSD {TRAIN_SSD} float32: y {y_err:.3e}, dx, ddt, dA, dB, "
+          f"dC {', '.join(f'{e:.3e}' for e in errs)} against float64 "
+          f"autograd of another chunked form (relative to each one's "
+          f"max abs, bar {TRAIN_SSD_TOL}) {'OK' if ok else 'FAIL'}; forward "
+          f"(kernel) {t_fwd:.3f} ms, backward (the plain scan recomputed "
+          f"and differentiated) {t_bwd:.3f} ms")
+    if not ok:
+        fail("train SSD: off the plain version or the float64 gradients")
+    report["ssd_scan"]["mamba2 train"] = {
+        "shape": list(TRAIN_SSD), "y_err": y_err, "grad_errs": errs,
+        "fwd_ms": t_fwd, "bwd_ms": t_bwd}
+    del x, dt, A, B_, C_, dy, ins, leaf, y, state, g_p, ctx, zero
+    torch.cuda.empty_cache()
+    return report
+
+
+def _idle_share(torch, fn, wall_s: float) -> float:
+    """The device's idle share over one run of ``fn`` of ``wall_s`` host
+    seconds, from the device entries of a device-only torch.profiler trace
+    (read as phase 5 reads it)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = trace_device_rows(prof, TRAIN_TRACE)
+    if not rows:
+        fail("training: the profiler's trace holds no device event")
+    busy = sum(e.self_device_time_total for e in rows) / 1e3
+    print(f"  profiled step (not counted): wall {wall:.3f}s (unprofiled "
+          f"{wall_s:.3f}s), device busy {busy:.3f} ms, idle share "
+          f"{1 - busy / (wall * 1e3):.6f}")
+    return 1 - busy / (wall * 1e3)
+
+
+def train_full_width(torch, np, arch: str, batch: int, n_micro: int,
+                     steps: int, expect: dict) -> dict:
+    """Phase 16 (b)/(c): ``make_train_step`` on ``arch`` at full width, bf16
+    activations and float32 masters from the port's seeded init, on the
+    trainer's synthetic batches of ``batch`` x TRAIN_SEQ; ``expect`` holds
+    each kernel's launches per step."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build
+    from repro_torch.optim import AdamW, cosine_schedule
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    cfg = get_config(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build(cfg, "cuda")
+    model.init_weights(torch.Generator("cuda").manual_seed(0))
+    params = dict(model.named_parameters())
+    first = {n: p.detach().clone() for n, p in params.items()} \
+        if n_micro > 1 else None
+    opt = AdamW(lr=cosine_schedule(3e-4, 10, 100))
+    ds = SyntheticTokens(cfg.vocab, batch, TRAIN_SEQ, host_rank=0,
+                         host_count=1)
+    data = [{k: torch.as_tensor(v, device="cuda")
+             for k, v in ds.batch(s).items()} for s in range(steps)]
+    state = opt.init(params)
+    step = make_train_step(model, opt, n_microbatches=n_micro)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.values())
+    print(f"[train {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model},"
+          f" {n_params / 1e9:.3f}e9 parameters, global batch {batch} (cut "
+          f"from train_4k's 256) x {TRAIN_SEQ}, {n_micro} microbatch(es), "
+          f"init {time.perf_counter() - t0:.3f}s]")
+    losses, walls, per_step = [], [], []
+    for s in range(steps):
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        state, m = step(state, data[s])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        got = {k: LAUNCHES.get(k, 0) for k in expect}
+        per_step.append(got)
+        loss, gn = float(m["loss"]), float(m["grad_norm"])
+        losses.append(loss)
+        print(f"  step {s + 1}: loss {loss:.6f}, grad norm {gn:.6f}, wall "
+              f"{walls[-1]:.3f}s, {batch * TRAIN_SEQ / walls[-1]:.1f} "
+              f"tokens/s; launches {dict(LAUNCHES)}")
+        if got != expect:
+            fail(f"train {arch} step {s + 1}: launches {got}, expected "
+                 f"{expect}")
+        if "flash_attention" in expect and LAUNCHES["flash_attention_tc"] \
+                != expect["flash_attention"]:
+            fail(f"train {arch}: {LAUNCHES['flash_attention_tc']} of "
+                 f"{expect['flash_attention']} flash launches took the "
+                 "tensor-core route")
+        if not (math.isfinite(loss) and math.isfinite(gn)) \
+                or int(m["step"]) != s + 1:
+            fail(f"train {arch} step {s + 1}: loss {loss}, grad norm {gn}, "
+                 f"step {int(m['step'])}")
+    out = {"losses": losses, "walls": walls,
+           "tokens_per_s": batch * TRAIN_SEQ / walls[-1],
+           "launches_per_step": per_step}
+    idle = _idle_share(torch, lambda: step(state, data[-1]), walls[-1])
+    out["idle_share"] = idle
+    if first is not None:
+        moved = max(float((p.detach() - first[n]).abs().max())
+                    for n, p in params.items())
+        if not moved > 0:
+            fail(f"train {arch}: the parameters did not move")
+        # One step from the first state on the first batch, in one batch.
+        with torch.no_grad():
+            for n, p in params.items():
+                p.copy_(first[n])
+        del first
+        _, m1 = make_train_step(model, opt, 1)(opt.init(params), data[0])
+        gap = abs(float(m1["loss"]) - losses[0])
+        print(f"  one step from the first state in one batch: loss "
+              f"{float(m1['loss']):.6f}, {gap:.3e} from the microbatched "
+              f"step's (bar {TRAIN_MICRO_TOL}); parameters moved by up to "
+              f"{moved:.3e}")
+        if gap > TRAIN_MICRO_TOL:
+            fail(f"train {arch}: one batch and {n_micro} microbatches "
+                 f"disagree by {gap}")
+        out["single_batch_gap"] = gap
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  peak memory {peak / 2**30:.3f} GiB, {peak / total:.4f} of the "
+          f"card's {total / 2**30:.3f} GiB")
+    if peak > TRAIN_MEM_SHARE * total:
+        fail(f"train {arch}: peak {peak / total:.4f} of the card, over "
+             f"{TRAIN_MEM_SHARE}")
+    out["peak_gib"] = peak / 2**30
+    del model, params, opt, data, state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_smoke_parity(torch, np) -> None:
+    """Phase 16 (d): one ``train_step`` of every architecture's float32
+    smoke config on the card against the same step on the CPU."""
+    from repro_torch.configs import ARCH_NAMES, smoke_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import _extras
+    from repro_torch.models import build
+    from repro_torch.optim import AdamW, cosine_schedule
+
+    for arch in ARCH_NAMES:
+        cfg = dataclasses.replace(smoke_config(arch), dtype="float32")
+        batch = SyntheticTokens(cfg.vocab, 2, 32, host_rank=0, host_count=1,
+                                extras=_extras(cfg, 32)).batch(0)
+        got = {}
+        for dev in ("cpu", "cuda"):
+            model = build(cfg, dev)
+            if dev == "cpu":
+                model.init_weights(torch.Generator().manual_seed(0))
+                # a copy: the step updates the CPU model's tensors in place
+                state_dict = {k: t.clone() for k, t in
+                              model.state_dict().items()}
+            else:
+                model.load_state_dict(state_dict)
+            opt = AdamW(lr=cosine_schedule(3e-4, 10, 30))
+            params = dict(model.named_parameters())
+            LAUNCHES.clear()
+            st, m = make_train_step(model, opt)(
+                opt.init(params),
+                {k: torch.as_tensor(v, device=dev) for k, v in batch.items()})
+            got[dev] = (float(m["loss"]), float(m["grad_norm"]),
+                        {n: t.cpu() for n, t in st.m.items()}, dict(LAUNCHES))
+        (l_c, g_c, m_c, _), (l_g, g_g, m_g, launches) = got["cpu"], \
+            got["cuda"]
+        worst = max(float((m_g[n] - m_c[n]).abs().max()
+                          / m_c[n].abs().max().clamp(min=1e-30))
+                    for n in m_c)
+        ok = abs(l_g - l_c) <= 1e-5 * abs(l_c) \
+            and abs(g_g - g_c) <= 1e-5 * abs(g_c) and worst <= 1e-4
+        kinds = {"ssm": ("ssd_scan",), "hybrid": ("flash_attention",
+                                                  "ssd_scan")}
+        for key in kinds.get(cfg.kind, ("flash_attention",)):
+            if not launches.get(key):
+                ok = False
+        print(f"  {cfg.name} float32 train step, card vs CPU: loss {l_g:.7f} "
+              f"vs {l_c:.7f}, grad norm {g_g:.6f} vs {g_c:.6f}, worst grad "
+              f"leaf (first moment, 0.1 x clipped grad) {worst:.3e} of its "
+              f"max abs; launches {launches} {'OK' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"train {arch} smoke: the card's step is off the CPU's")
+
+
+def train_loop_check(torch, np) -> dict:
+    """Phase 16 (e): ``train_loop`` at smoke size on the card: preempted at
+    6 and resumed, against the run that was not stopped; then 30 steps."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.train import train_loop
+
+    cfg = smoke_config("tinyllama_1_1b")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        kw = dict(global_batch=4, seq_len=32, device="cuda", log_every=100,
+                  ckpt_every=3)
+        whole = train_loop(cfg, 8, f"{tmp}/whole", **kw)
+        r1 = train_loop(cfg, 8, f"{tmp}/cut", preempt_at=6, **kw)
+        r2 = train_loop(cfg, 8, f"{tmp}/cut", resume=True, **kw)
+        if r1["status"] != "preempted" or r2["status"] != "done" \
+                or len(r1["losses"]) != 6 or len(r2["losses"]) != 2:
+            fail(f"train loop: preempt/resume returned {r1} then {r2}")
+        resumed = r1["losses"] + r2["losses"]
+        gap = max(abs(a - b) / abs(b) for a, b in zip(resumed,
+                                                      whole["losses"]))
+        how = "bit for bit" if resumed == whole["losses"] else \
+            "within 1e-6 relative"
+        print(f"  train_loop {cfg.name}, 8 steps, batch 4 x 32, checkpoints "
+              f"every 3, preempted at 6 and resumed: losses "
+              f"{[round(x, 6) for x in resumed]}; largest relative gap to "
+              f"the uninterrupted run {gap:.3e}: {how}")
+        if gap > 1e-6:
+            fail(f"train loop: the resumed run leaves the uninterrupted one "
+                 f"by {gap}")
+        long = train_loop(cfg, 30, f"{tmp}/long", **{**kw,
+                                                      "ckpt_every": 100})
+        first, last = np.mean(long["losses"][:5]), \
+            np.mean(long["losses"][-5:])
+        print(f"  train_loop 30 steps: mean loss of the first five "
+              f"{first:.6f}, of the last five {last:.6f}")
+        if not last < first:
+            fail("train loop: the loss did not fall over 30 steps")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"resume_gap": gap, "resume": how}
+
+
+def train_phase(torch, np) -> dict:
+    """Phase 16: training on the card, (a)-(e). Returns the kernels'
+    training entries (the launches counted in each step of (b) and (c)) and
+    (e)'s resume report."""
+    t0 = time.perf_counter()
+    report = train_kernel_checks(torch, np)
+    print(f"  (a) {time.perf_counter() - t0:.3f}s")
+    t0 = time.perf_counter()
+    tiny = train_full_width(torch, np, "tinyllama_1_1b", TRAIN_BATCH,
+                            TRAIN_MICRO, 2,
+                            {"flash_attention": 22 * TRAIN_MICRO * 2})
+    print(f"  (b) {time.perf_counter() - t0:.3f}s")
+    t0 = time.perf_counter()
+    mamba = train_full_width(torch, np, "mamba2_2_7b", MAMBA_TRAIN_BATCH, 1,
+                             1, {"ssd_scan": 64 * 2})
+    print(f"  (c) {time.perf_counter() - t0:.3f}s")
+    t0 = time.perf_counter()
+    train_smoke_parity(torch, np)
+    print(f"  (d) {time.perf_counter() - t0:.3f}s")
+    t0 = time.perf_counter()
+    loop = train_loop_check(torch, np)
+    print(f"  (e) {time.perf_counter() - t0:.3f}s")
+    report["flash_attention"]["tinyllama_1_1b"] = tiny
+    report["ssd_scan"]["mamba2_2_7b"] = mamba
+    runs = {"flash_attention": tiny, "ssd_scan": mamba}
+    return {name: {"train_launches_per_step": [
+                got[name] for got in runs[name]["launches_per_step"]],
+                "train": r}
+            for name, r in report.items()}, loop
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--jobs", type=int, default=10000,
@@ -4055,6 +4525,18 @@ def main() -> int:
     if t_phase > ANALYSIS_BUDGET:
         print(f"WARNING: phase 15 took {t_phase:.3f}s, over its "
               f"{ANALYSIS_BUDGET:.0f}s budget")
+
+    # -- 16. training -------------------------------------------------------
+    t0 = time.perf_counter()
+    trained, loop = train_phase(torch, np)
+    for k in kernels:
+        k.update(trained.get(k["name"], {}))
+    t_phase = time.perf_counter() - t0
+    print(f"[phase training: {t_phase:.3f}s (budget {TRAIN_BUDGET:.0f}s); "
+          f"train_loop {json.dumps(loop)}]")
+    if t_phase > TRAIN_BUDGET:
+        print(f"WARNING: phase 16 took {t_phase:.3f}s, over its "
+              f"{TRAIN_BUDGET:.0f}s budget")
 
     for k in kernels:    # the same two numbers under their other names
         k["max_abs_diff"], k["kernel_ms"] = k["max_abs_err"], k["ms"]

@@ -4,7 +4,8 @@ The scheduler has no weights: its inputs are jobs, policies and markets.
 These constructors build the port's objects from plain arrays and tuples, so
 a caller holding another implementation's inputs (exported as numpy) feeds
 the port the same data. The LM substrate's weights come across with
-``params_from_reference``.
+``params_from_reference``, the optimizer's state with
+``opt_state_from_reference``.
 """
 
 from __future__ import annotations
@@ -17,10 +18,11 @@ import torch
 from repro_torch.core.market import SLOTS_PER_UNIT, SpotMarket
 from repro_torch.core.scheduler import Policy
 from repro_torch.core.types import ChainJob, chain_from_arrays
+from repro_torch.optim import OptState
 
 __all__ = ["chain_jobs_from_arrays", "markets_from_prices",
            "policies_from_tuples", "chain_jobs_to_arrays",
-           "params_from_reference"]
+           "params_from_reference", "opt_state_from_reference"]
 
 
 def chain_jobs_from_arrays(arrival: Sequence[float],
@@ -96,3 +98,14 @@ def params_from_reference(cfg, tree) -> dict[str, torch.Tensor]:
 
     walk(tree, ())
     return out
+
+
+def opt_state_from_reference(cfg, state):
+    """The port's ``optim.OptState`` from the reference's (anything with
+    ``step``, ``m`` and ``v``: the step a scalar, the moments parameter
+    trees as ``params_from_reference`` takes them), keyed by the port's
+    parameter names; CPU tensors, the step int32."""
+    return OptState(
+        step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32),
+        m=params_from_reference(cfg, state.m),
+        v=params_from_reference(cfg, state.v))

@@ -23,7 +23,9 @@ version.
   tensor-core products; ``ops.ssd``).
 
 A wrapper given CPU tensors computes its plain version; given CUDA tensors
-it launches its kernel or raises. ``flash_attention`` and ``ssd`` are the
+it launches its kernel or raises. Training reaches the two LM kernels
+through autograd Functions (``flash_attention.FlashAttention``,
+``ssd_scan.SSDScan``) whose forwards are the same kernels. ``flash_attention`` and ``ssd`` are the
 kernels as the models call them (``ops.py``, the reference's public names).
 ``LAUNCHES`` counts kernel launches by
 wrapper name (plain-version calls do not count), so a run can show which

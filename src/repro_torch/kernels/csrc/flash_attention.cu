@@ -35,6 +35,12 @@
 // flash_fwd_tc (flash_attention_tc_launch), bfloat16 with dh 64, 96 or 128
 // and 16-byte aligned pointers and strides: both products on the tensor
 // cores, see the note above it.
+//
+// Both kernels also write the per-row log-sum-exp, m + log l in float32,
+// into lse (B, H, Sq) when the pointer is not null: the residual of the
+// reference's training forward (repro/models/layers.py::_flash_train_fwd),
+// which the backward (kernels/flash_attention.py::flash_backward) reads.
+// With a null pointer they store nothing more than the output.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -67,9 +73,9 @@ struct Strides {
 template <typename T, int DP>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int H, int K,
-                 int Sq, int Sk, int dh, Strides st, int causal, int window,
-                 int prefix, float scale) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int H, int K, int Sq, int Sk, int dh,
+                 Strides st, int causal, int window, int prefix, float scale) {
   constexpr int DG = DP / 32;    // float4 column groups of the accumulator
   extern __shared__ __align__(16) float smem[];
   float* qt = smem;              // [DP][kLDT] query tile, d-major
@@ -213,13 +219,17 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         if (d < dh)
           store_from_f32(ob + (long long)row * st.os + d, acc[i][g * 4 + e] / den);
       }
+    // m and l are whole-row values in every thread of the row group.
+    if (lse != nullptr && cg == 0)
+      lse[(long long)blockIdx.y * Sq + row] = m[i] + logf(den);
   }
 }
 
 template <typename T, int DP>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-           int K, int Sq, int Sk, int dh, const Strides& st, int causal,
-           int window, int prefix, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int H, int K, int Sq, int Sk, int dh, const Strides& st,
+           int causal, int window, int prefix, float scale,
+           cudaStream_t stream) {
   const size_t smem = sizeof(float) * (2 * DP * kLDT + kBK * DP + kBK * kLDT);
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -228,33 +238,35 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
   const dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
   flash_fwd_kernel<T, DP><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H, K, Sq, Sk, dh, st,
-      causal, window, prefix, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, H, K, Sq, Sk, dh,
+      st, causal, window, prefix, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_dh(const void* q, const void* k, const void* v, void* o, int B,
-              int H, int K, int Sq, int Sk, int dh, const Strides& st,
-              int causal, int window, int prefix, float scale,
-              cudaStream_t stream) {
+int launch_dh(const void* q, const void* k, const void* v, void* o,
+              float* lse, int B, int H, int K, int Sq, int Sk, int dh,
+              const Strides& st, int causal, int window, int prefix,
+              float scale, cudaStream_t stream) {
   if (dh <= 32)
-    return launch<T, 32>(q, k, v, o, B, H, K, Sq, Sk, dh, st, causal, window,
-                         prefix, scale, stream);
+    return launch<T, 32>(q, k, v, o, lse, B, H, K, Sq, Sk, dh, st, causal,
+                         window, prefix, scale, stream);
   if (dh <= 64)
-    return launch<T, 64>(q, k, v, o, B, H, K, Sq, Sk, dh, st, causal, window,
-                         prefix, scale, stream);
-  return launch<T, 128>(q, k, v, o, B, H, K, Sq, Sk, dh, st, causal, window,
-                        prefix, scale, stream);
+    return launch<T, 64>(q, k, v, o, lse, B, H, K, Sq, Sk, dh, st, causal,
+                         window, prefix, scale, stream);
+  return launch<T, 128>(q, k, v, o, lse, B, H, K, Sq, Sk, dh, st, causal,
+                        window, prefix, scale, stream);
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16 (q, k, v and o alike). strides: 12 element
-// strides, (batch, seq, head) of q, k, v and o in that order. Returns the
-// CUDA error of the launch (0 on success).
+// dtype: 0 float32, 1 bfloat16 (q, k, v and o alike). lse: null, or float32
+// (B, H, Sq) contiguous for the log-sum-exp. strides: 12 element strides,
+// (batch, seq, head) of q, k, v and o in that order. Returns the CUDA error
+// of the launch (0 on success).
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int dtype, int B,
+                                      const void* v, void* o, void* lse,
+                                      int dtype, int B,
                                       int H, int K, int Sq, int Sk, int dh,
                                       const long long* strides, int causal,
                                       int window, int prefix, float scale,
@@ -266,11 +278,12 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                    strides[8], strides[9], strides[10], strides[11]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_dh<float>(q, k, v, o, B, H, K, Sq, Sk, dh, st, causal,
-                            window, prefix, scale, s);
+    return launch_dh<float>(q, k, v, o, static_cast<float*>(lse), B, H, K,
+                            Sq, Sk, dh, st, causal, window, prefix, scale, s);
   if (dtype == 1)
-    return launch_dh<__nv_bfloat16>(q, k, v, o, B, H, K, Sq, Sk, dh, st,
-                                    causal, window, prefix, scale, s);
+    return launch_dh<__nv_bfloat16>(q, k, v, o, static_cast<float*>(lse), B,
+                                    H, K, Sq, Sk, dh, st, causal, window,
+                                    prefix, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -334,6 +347,7 @@ constexpr int kBoxBytes = 64 * 128;    // one box: 64 rows x 128 bytes
 constexpr int kAlign = 1024;           // the 128-byte swizzle's repeat
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -593,8 +607,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_tc(const __grid_constant__ CUtensorMap qmap,
              const __grid_constant__ CUtensorMap kmap,
              const __grid_constant__ CUtensorMap vmap,
-             __nv_bfloat16* __restrict__ o, int H, int K, int Sq, int Sk,
-             long long o_sb, long long o_ss, long long o_sh, int causal,
+             __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int H,
+             int K, int Sq, int Sk, long long o_sb, long long o_ss, long long o_sh, int causal,
              int window, int prefix, float scale_log2) {
   constexpr int NB = DH / kBoxCols;            // boxes per tile: 1 or 2
   constexpr int kTile = NB * kBoxBytes;        // one Q, K or V tile
@@ -718,6 +732,10 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap qmap,
     den = fmaxf(den, 1e-30f);
     const int row = row0 + 8 * r;
     if (row >= Sq) continue;
+    // The running max is of scores scaled into the log2 domain: back to
+    // natural logs. m is the quad's whole-row max in each of its lanes.
+    if (lse != nullptr && t4 == 0)
+      lse[(long long)blockIdx.x * Sq + row] = (m[r] + log2f(den)) * kLn2;
 #pragma unroll
     for (int j = 0; j < DS / 8; ++j) {
       const __nv_bfloat162 v2 = __floats2bfloat162_rn(
@@ -770,8 +788,8 @@ int encode(EncodeTiled fn, CUtensorMap* map, const void* ptr,
 }
 
 template <int DS>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-           int K, int Sq, int Sk, const long long* layouts,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int H, int K, int Sq, int Sk, const long long* layouts,
            const long long* o_strides, int causal, int window, int prefix,
            float scale, cudaStream_t stream) {
   constexpr int NB = (DS + kBoxCols - 1) / kBoxCols;   // boxes per tile
@@ -801,8 +819,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
   }
   const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
   flash_fwd_tc<DS><<<grid, kThreads, smem, stream>>>(
-      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), H, K, Sq, Sk,
-      o_strides[0], o_strides[1], o_strides[2], causal, window, prefix,
+      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), lse, H, K, Sq,
+      Sk, o_strides[0], o_strides[1], o_strides[2], causal, window, prefix,
       scale * kLog2e);
   return (int)cudaGetLastError();
 }
@@ -813,12 +831,14 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
 // tensor maps of q, k and v: dims (dh, heads, seq, batch), byte strides of
 // heads, seq and batch, the box (64, 1, 64, 1) and the boxes per tile
 // (dh / 64 rounded up).
-// o_strides: the element strides (batch, seq, head) of o. Returns 0 on
+// o_strides: the element strides (batch, seq, head) of o. lse: null, or
+// float32 (B, H, Sq) contiguous for the log-sum-exp. Returns 0 on
 // success, the CUDA error of the launch, -1 when the driver has no
 // cuTensorMapEncodeTiled and -2 when it refuses a tensor map.
 extern "C" int flash_attention_tc_launch(const void* q, const void* k,
-                                         const void* v, void* o, int B, int H,
-                                         int K, int Sq, int Sk, int dh,
+                                         const void* v, void* o, void* lse,
+                                         int B, int H, int K, int Sq, int Sk,
+                                         int dh,
                                          const long long* layouts,
                                          const long long* o_strides,
                                          int causal, int window, int prefix,
@@ -827,13 +847,16 @@ extern "C" int flash_attention_tc_launch(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dh == 64)
-    return tc::launch<64>(q, k, v, o, B, H, K, Sq, Sk, layouts, o_strides,
-                          causal, window, prefix, scale, s);
+    return tc::launch<64>(q, k, v, o, static_cast<float*>(lse), B, H, K, Sq,
+                          Sk, layouts, o_strides, causal, window, prefix,
+                          scale, s);
   if (dh == 96)
-    return tc::launch<96>(q, k, v, o, B, H, K, Sq, Sk, layouts, o_strides,
-                          causal, window, prefix, scale, s);
+    return tc::launch<96>(q, k, v, o, static_cast<float*>(lse), B, H, K, Sq,
+                          Sk, layouts, o_strides, causal, window, prefix,
+                          scale, s);
   if (dh == 128)
-    return tc::launch<128>(q, k, v, o, B, H, K, Sq, Sk, layouts, o_strides,
-                           causal, window, prefix, scale, s);
+    return tc::launch<128>(q, k, v, o, static_cast<float*>(lse), B, H, K, Sq,
+                           Sk, layouts, o_strides, causal, window, prefix,
+                           scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -24,6 +24,19 @@ under ``flash_attention_tc`` as well.
 
 The plain version is a naive masked softmax in float32, the counterpart of
 the reference's ``kernels/ref.py::attention_ref``.
+
+Training (``FlashAttention``, the autograd Function that
+``ops.flash_attention`` takes whenever grad is enabled): the forward is the
+kernel on the card, which then also writes each query row's log-sum-exp
+(float32, (B, H, Sq)); on the CPU the plain version and its logsumexp. The
+backward, ``flash_backward``, is the reference's ``_flash_train_bwd``
+(``repro/models/layers.py``) in torch ops: per query block of ``bq`` rows
+and per key block of ``bk`` keys it can reach (``_reachable_kv``), it
+recomputes the scores, takes ``p = exp(s - lse)`` and accumulates dv, dp,
+ds, dq and dk in float32. The reference has no backward kernel; a CUDA one
+is later work (ROADMAP "After the port"). Keys are masked by the real Sk:
+the reference's ``_score_block`` masks by the padded Sk, which lets zero
+keys into a non-causal softmax (ROADMAP queue C).
 """
 
 from __future__ import annotations
@@ -42,38 +55,66 @@ from repro_torch.obs.compiled import record_launch
 __all__ = ["flash_attention_fwd", "flash_attention_strided",
            "launch_cuda_core", "tensor_core_route",
            "tma_layout", "bshd_view", "attention_plain", "attn_pairs",
-           "flash_work", "NEG_INF"]
+           "flash_work", "NEG_INF", "FlashAttention", "flash_forward_lse",
+           "flash_backward", "BLOCK_Q", "BLOCK_K"]
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TC_HEAD_DIMS = (64, 96, 128)
 TMA_BOX_COLS = 64   # bf16 columns per TMA box: 128 bytes, the swizzle's span
 TMA_BOX_ROWS = 64   # query rows of a block, keys of a tile
+BLOCK_Q = 512       # the backward's query rows per block (the reference's)
+BLOCK_K = 1024      # the backward's keys per block
+
+
+def _bad(q_pos, k_pos, causal: bool, window: int, prefix: int):
+    """The masked (query, key) pairs of position grids, as the kernels and
+    the reference mask them (the key padding aside)."""
+    diff = q_pos[:, None] - k_pos[None, :]
+    bad = torch.zeros(diff.shape, dtype=torch.bool, device=diff.device)
+    if causal:
+        bad |= diff < 0
+    if window > 0:
+        oow = diff >= window
+        if prefix > 0:
+            oow &= k_pos[None, :] >= prefix
+        bad |= oow
+    return bad
 
 
 def attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
-                    prefix: int = 0):
+                    prefix: int = 0, return_lse: bool = False):
     """q: (BH, Sq, dh), k/v: (BK, Sk, dh); naive masked softmax attention in
-    float32, returned in ``q.dtype``."""
+    float32, returned in ``q.dtype``; with ``return_lse`` also each row's
+    float32 log-sum-exp (BH, Sq)."""
     BH, Sq, dh = q.shape
     BK, Sk, _ = k.shape
     g = BH // BK
     kf = k.float().repeat_interleave(g, dim=0)
     vf = v.float().repeat_interleave(g, dim=0)
     s = torch.einsum("hqd,hkd->hqk", q.float(), kf) / math.sqrt(dh)
-    q_pos = torch.arange(Sq, device=q.device)[:, None]
-    k_pos = torch.arange(Sk, device=q.device)[None, :]
-    bad = torch.zeros((Sq, Sk), dtype=torch.bool, device=q.device)
-    if causal:
-        bad |= k_pos > q_pos
-    if window > 0:
-        oow = (q_pos - k_pos) >= window
-        if prefix > 0:
-            oow &= k_pos >= prefix
-        bad |= oow
+    bad = _bad(torch.arange(Sq, device=q.device),
+               torch.arange(Sk, device=q.device), causal, window, prefix)
     s = torch.where(bad[None], NEG_INF, s)
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("hqk,hkd->hqd", p, vf).to(q.dtype)
+    out = torch.einsum("hqk,hkd->hqd", p, vf).to(q.dtype)
+    if return_lse:
+        return out, torch.logsumexp(s, dim=-1)
+    return out
+
+
+def attention_plain_bshd(q, k, v, *, causal: bool = True, window: int = 0,
+                         prefix: int = 0, return_lse: bool = False):
+    """``attention_plain`` on the model's layout: q (B, Sq, H, dh), k/v
+    (B, Sk, K, dh) -> out (B, Sq, H, dh), and with ``return_lse`` also the
+    log-sum-exp (B, H, Sq)."""
+    B, Sq, H, dh = q.shape
+    rows = lambda t: t.transpose(1, 2).reshape(-1, t.shape[1], dh)  # noqa: E731
+    res = attention_plain(rows(q), rows(k), rows(v), causal=causal,
+                          window=window, prefix=prefix, return_lse=return_lse)
+    out, lse = res if return_lse else (res, None)
+    out = out.reshape(B, H, Sq, dh).transpose(1, 2)
+    return (out, lse.reshape(B, H, Sq)) if return_lse else out
 
 
 def tensor_core_route(q, k, v, out) -> bool:
@@ -122,11 +163,11 @@ def _tc_arrays(q, k, v, out):
 
 _SIGNATURES = {
     "flash_attention_launch": (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
         + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 3
         + [ctypes.c_float, ctypes.c_void_p]),
     "flash_attention_tc_launch": (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
         + [ctypes.POINTER(ctypes.c_longlong)] * 2 + [ctypes.c_int] * 3
         + [ctypes.c_float, ctypes.c_void_p]),
 }
@@ -140,7 +181,7 @@ def _entry(name: str):
     return fn
 
 
-def _check(q, k, v, out) -> None:
+def _check(q, k, v, out, lse=None) -> None:
     B, Sq, H, dh = q.shape
     Sk, K = k.shape[1], k.shape[2]
     if q.device.type != "cuda":
@@ -158,6 +199,11 @@ def _check(q, k, v, out) -> None:
     if not 1 <= dh <= 128 or B * H > 65535 or min(Sq, Sk) < 1:
         raise ValueError("flash_attention: need 1 <= dh <= 128, "
                          "B*H <= 65535 and Sq, Sk >= 1")
+    if lse is not None and (
+            lse.shape != (B, H, Sq) or lse.dtype != torch.float32
+            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError("flash_attention: lse must be contiguous float32 "
+                         f"(B, H, Sq) = {(B, H, Sq)} on {q.device}")
 
 
 def attn_pairs(Sq: int, Sk: int, causal: bool, window: int,
@@ -176,29 +222,34 @@ def attn_pairs(Sq: int, Sk: int, causal: bool, window: int,
     return int((band + pre).sum())
 
 
-def flash_work(q, k, v, out, causal: bool, window: int, prefix: int) -> dict:
+def flash_work(q, k, v, out, causal: bool, window: int, prefix: int,
+               lse=None) -> dict:
     """Work of one attention launch on (B, S, heads, dh) operands: q, k, v
-    read once and out written once, and 4 dh operations (two products'
-    multiply-adds) per visible (query, key) pair and query head, at the
-    bfloat16 rate for bfloat16 operands."""
+    read once and out (and the lse, when asked for) written once, and 4 dh
+    operations (two products' multiply-adds) per visible (query, key) pair
+    and query head, at the bfloat16 rate for bfloat16 operands."""
     B, Sq, H, dh = q.shape
     n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, out))
+    if lse is not None:
+        n_bytes += lse.numel() * lse.element_size()
     n_ops = 4 * dh * attn_pairs(Sq, k.shape[1], causal, window, prefix) \
         * B * H
     return {"bytes": n_bytes,
             "ops": {"bf16" if q.dtype == torch.bfloat16 else "f32": n_ops}}
 
 
-def _launch_cuda_core(q, k, v, out, causal, window, prefix) -> None:
+def _launch_cuda_core(q, k, v, out, causal, window, prefix,
+                      lse=None) -> None:
     B, Sq, H, dh = q.shape
     Sk, K = k.shape[1], k.shape[2]
     strides = (ctypes.c_longlong * 12)(
         *(s for t in (q, k, v, out) for s in t.stride()[:3]))
     stream = torch.cuda.current_stream(q.device)
     with record_launch("flash_attention", stream, lambda: flash_work(
-            q, k, v, out, causal, window, prefix)):
+            q, k, v, out, causal, window, prefix, lse)):
         rc = _entry("flash_attention_launch")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             _DTYPES[q.dtype], B, H, K, Sq, Sk, dh, strides, int(causal),
             window, prefix, 1.0 / math.sqrt(dh), stream.cuda_stream)
     if rc != 0:
@@ -206,7 +257,8 @@ def _launch_cuda_core(q, k, v, out, causal, window, prefix) -> None:
     LAUNCHES["flash_attention"] += 1
 
 
-def _launch_tensor_core(q, k, v, out, causal, window, prefix) -> None:
+def _launch_tensor_core(q, k, v, out, causal, window, prefix,
+                        lse=None) -> None:
     B, Sq, H, dh = q.shape
     Sk, K = k.shape[1], k.shape[2]
     layouts, o_strides = _tc_arrays(
@@ -214,9 +266,10 @@ def _launch_tensor_core(q, k, v, out, causal, window, prefix) -> None:
     stream = torch.cuda.current_stream(q.device)
     with record_launch(("flash_attention", "flash_attention_tc"), stream,
                        lambda: flash_work(q, k, v, out, causal, window,
-                                          prefix)):
+                                          prefix, lse)):
         rc = _entry("flash_attention_tc_launch")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), B, H,
             K, Sq, Sk, dh, layouts, o_strides, int(causal), window, prefix,
             1.0 / math.sqrt(dh), stream.cuda_stream)
     if rc != 0:
@@ -238,14 +291,16 @@ def launch_cuda_core(q, k, v, out, *, causal: bool = True, window: int = 0,
 
 
 def flash_attention_strided(q, k, v, out, *, causal: bool = True,
-                            window: int = 0, prefix: int = 0) -> None:
+                            window: int = 0, prefix: int = 0,
+                            lse=None) -> None:
     """Launch a kernel on CUDA tensors q/out (B, Sq, H, dh) and k/v
     (B, Sk, K, dh) of any strides with a contiguous head dim; writes
-    ``out``. ``tensor_core_route`` picks the kernel."""
-    _check(q, k, v, out)
+    ``out``, and each row's log-sum-exp into ``lse`` (contiguous float32
+    (B, H, Sq)) when given. ``tensor_core_route`` picks the kernel."""
+    _check(q, k, v, out, lse)
     launch = _launch_tensor_core if tensor_core_route(q, k, v, out) \
         else _launch_cuda_core
-    launch(q, k, v, out, causal, window, prefix)
+    launch(q, k, v, out, causal, window, prefix, lse)
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
@@ -271,3 +326,109 @@ def bshd_view(t):
     """The (B*H, S, dh) layout of the TPU kernel as the (B, S, H, dh) layout
     of the kernels, with B = 1 (a view, no copy)."""
     return t.unsqueeze(0).transpose(1, 2)
+
+
+# --------------------------------------------------------------------------
+# training: the forward with its log-sum-exp, the blockwise backward
+# --------------------------------------------------------------------------
+
+def flash_forward_lse(q, k, v, *, causal: bool = True, window: int = 0,
+                      prefix: int = 0):
+    """q: (B, Sq, H, dh), k/v: (B, Sk, K, dh) -> (out (B, Sq, H, dh) in
+    q.dtype, lse (B, H, Sq) float32). CPU tensors take the plain version
+    and its logsumexp; CUDA tensors launch the kernel, which writes both."""
+    B, Sq, H, dh = q.shape
+    if q.device.type == "cpu":
+        return attention_plain_bshd(q, k, v, causal=causal, window=window,
+                                    prefix=prefix, return_lse=True)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    flash_attention_strided(q, k, v, out, causal=causal, window=window,
+                            prefix=prefix, lse=lse)
+    return out, lse
+
+
+def _reachable_kv(qi: int, bq: int, bk: int, Sk: int, causal: bool,
+                  window: int, prefix: int) -> list[int]:
+    """The key blocks query block ``qi`` can attend to (the reference's
+    ``_reachable_kv``)."""
+    q_lo, q_hi = qi * bq, qi * bq + bq - 1
+    ids = []
+    for ki in range(-(-Sk // bk)):
+        k_lo, k_hi = ki * bk, ki * bk + bk - 1
+        if causal and k_lo > q_hi:
+            continue
+        if window > 0 and k_hi < q_lo - window + 1 - bq \
+                and not (prefix > 0 and k_lo < prefix):
+            continue
+        ids.append(ki)
+    return ids
+
+
+def flash_backward(q, k, v, out, lse, dout, *, causal: bool = True,
+                   window: int = 0, prefix: int = 0, bq: int = BLOCK_Q,
+                   bk: int = BLOCK_K):
+    """The gradients (dq, dk, dv) of attention, in the inputs' dtypes, from
+    the forward's inputs, output and log-sum-exp: the reference's
+    ``_flash_train_bwd`` in torch ops, float32 throughout. q/out/dout
+    (B, Sq, H, dh), k/v (B, Sk, K, dh), lse (B, H, Sq). Blocks of ``bq``
+    queries and ``bk`` keys (the last of each may be short); GQA's group
+    is summed into dk and dv."""
+    B, Sq, H, dh = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    g = H // K
+    scale = 1.0 / math.sqrt(dh)
+    grouped = lambda t: t.reshape(B, Sq, K, g, dh).float()  # noqa: E731
+    qg, dog = grouped(q), grouped(dout)
+    delta = torch.einsum("bqkgh,bqkgh->bkgq", dog, grouped(out))
+    lse = lse.reshape(B, K, g, Sq)
+    dq = torch.zeros((B, Sq, K, g, dh), dtype=torch.float32, device=q.device)
+    dk = torch.zeros((B, Sk, K, dh), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    pos = torch.arange(max(Sq, Sk), device=q.device)
+    for qi in range(-(-Sq // bq)):
+        qs = slice(qi * bq, min(Sq, qi * bq + bq))
+        q_blk = qg[:, qs]
+        do_t = dog[:, qs].permute(0, 2, 3, 1, 4)          # (B, K, g, bq, dh)
+        lse_blk = lse[..., qs, None]
+        dl_blk = delta[..., qs, None]
+        dq_blk = torch.zeros_like(q_blk)
+        for ki in _reachable_kv(qi, bq, bk, Sk, causal, window, prefix):
+            ks = slice(ki * bk, min(Sk, ki * bk + bk))
+            k_blk, v_blk = k[:, ks].float(), v[:, ks].float()
+            s = torch.einsum("bqkgh,btkh->bkgqt", q_blk, k_blk) * scale
+            s = torch.where(_bad(pos[qs], pos[ks], causal, window, prefix),
+                            NEG_INF, s)
+            p = torch.exp(s - lse_blk)                    # (B, K, g, bq, bk)
+            dv[:, ks] += torch.einsum("bkgqt,bkgqh->btkh", p, do_t)
+            dp = torch.einsum("bkgqh,btkh->bkgqt", do_t, v_blk)
+            ds = p * (dp - dl_blk) * scale
+            dq_blk += torch.einsum("bkgqt,btkh->bqkgh", ds, k_blk)
+            dk[:, ks] += torch.einsum("bkgqt,bqkgh->btkh", ds, q_blk)
+        dq[:, qs] += dq_blk
+    return (dq.reshape(q.shape).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with the flash kernel's forward and ``flash_backward``:
+    ``FlashAttention.apply(q, k, v, causal, window, prefix, bq, bk)`` on
+    q (B, Sq, H, dh) and k/v (B, Sk, K, dh). It keeps q, k, v, the output
+    and the log-sum-exp for the backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, prefix, bq=BLOCK_Q,
+                bk=BLOCK_K):
+        out, lse = flash_forward_lse(q, k, v, causal=causal, window=window,
+                                     prefix=prefix)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, window, prefix, bq, bk)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, prefix, bq, bk = ctx.args
+        dq, dk, dv = flash_backward(q, k, v, out, lse, dout, causal=causal,
+                                    window=window, prefix=prefix, bq=bq,
+                                    bk=bk)
+        return dq, dk, dv, None, None, None, None, None

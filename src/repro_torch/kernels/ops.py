@@ -2,7 +2,11 @@
 
 ``flash_attention`` takes the models' (B, S, H, dh) layout; ``ssd`` the
 chunked SSD scan. CPU tensors take the plain versions; CUDA tensors launch
-the kernels or raise.
+the kernels or raise. Where autograd records (grad enabled and an input
+that requires grad) both go through their autograd Functions
+(``flash_attention.FlashAttention``, ``ssd_scan.SSDScan``), whose forwards
+are the same kernels (the flash kernel then also writing its log-sum-exp);
+serving under ``inference_mode`` launches as before.
 """
 
 from __future__ import annotations
@@ -15,15 +19,19 @@ from repro_torch.kernels import ssd_scan as ss
 __all__ = ["flash_attention", "ssd"]
 
 
+def _records(*ts) -> bool:
+    """Whether autograd records an op on these tensors."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     prefix: int = 0):
     """q: (B, Sq, H, dh); k/v: (B, Sk, K, dh) -> (B, Sq, H, dh) in q.dtype."""
-    B, Sq, H, dh = q.shape
+    if _records(q, k, v):
+        return fa.FlashAttention.apply(q, k, v, causal, window, prefix)
     if q.device.type == "cpu":
-        rows = lambda t: t.transpose(1, 2).reshape(-1, t.shape[1], dh)  # noqa: E731
-        out = fa.attention_plain(rows(q), rows(k), rows(v), causal=causal,
-                                 window=window, prefix=prefix)
-        return out.reshape(B, H, Sq, dh).transpose(1, 2)
+        return fa.attention_plain_bshd(q, k, v, causal=causal, window=window,
+                                       prefix=prefix)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     fa.flash_attention_strided(q, k, v, out, causal=causal, window=window,
                                prefix=prefix)
@@ -33,6 +41,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 def ssd(x, dt, A, B, C, *, chunk: int = 128, init_state=None):
     """Chunked SSD scan. Shapes as in ``kernels/ssd_scan.py``. The kernel
     starts from a zero state: a CUDA call with ``init_state`` raises."""
+    if init_state is None and _records(x, dt, A, B, C):
+        return ss.SSDScan.apply(x, dt, A, B, C, chunk)
     if x.device.type == "cpu":
         return ss.ssd_scan_plain(x, dt, A, B, C, chunk, init_state)
     if init_state is not None:

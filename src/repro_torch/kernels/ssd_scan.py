@@ -20,6 +20,17 @@ at mamba2's decay rates it reaches a few thousand, where a float32 cumsum
 
 The plain version runs the same chunked math with torch ops, all (batch,
 head) pairs at once and the chunks in a Python loop.
+
+Training (``SSDScan``, the autograd Function that ``ops.ssd`` takes
+whenever grad is enabled): the forward is the kernel on the card and the
+plain version on the CPU; the backward recomputes the chunked scan in
+torch ops from the saved inputs (``ssd_scan_plain`` under ``enable_grad``)
+and differentiates it with ``torch.autograd.grad``. This is the
+counterpart of the reference's backward, which XLA derives from the jnp
+``layers.ssd``; the reference has no backward kernel. That recompute is the
+one place where the plain scan's math runs on the card, and it is the
+backward, not a stand-in for the forward kernel. Its decay cumsum is
+float64, as the forward's (ROADMAP queue C).
 """
 
 from __future__ import annotations
@@ -38,7 +49,7 @@ from repro_torch.obs.compiled import (
 )
 
 __all__ = ["ssd_scan", "ssd_scan_plain", "ssd_plan", "smem_bytes",
-           "vector_ok", "ssd_ops", "ssd_bounds", "ssd_work"]
+           "vector_ok", "ssd_ops", "ssd_bounds", "ssd_work", "SSDScan"]
 
 GRID_X_LIMIT = 2 ** 31 - 1   # largest x grid dimension
 GRID_LIMIT = 65535           # largest y and z grid dimension
@@ -81,7 +92,10 @@ def ssd_scan_plain(x, dt, A, B, C, chunk: int = 128, init_state=None):
         xdt = xr[:, c] * dtr[:, c, :, :, None]                 # (Bb, Q, H, P)
         cum = torch.cumsum((A * dtr[:, c]).double(), dim=1)   # (Bb, Q, H)
         seg = (cum[:, :, None, :] - cum[:, None, :, :]).float()  # (Bb, l, s, H)
-        L = torch.where(tri[None, :, :, None], seg.exp(), 0.0)
+        # Masked before the exp: above the diagonal seg is positive and its
+        # exp may overflow, which a where after the exp would turn into a
+        # NaN gradient (0 * inf).
+        L = seg.masked_fill(~tri[None, :, :, None], float("-inf")).exp()
         CB = torch.einsum("blgn,bsgn->blsg", Cr[:, c], Br[:, c])
         Yd = torch.einsum("blsh,bshp->blhp",
                           CB.repeat_interleave(rep, dim=3) * L, xdt)
@@ -275,3 +289,28 @@ def ssd_scan(x, dt, A, B, C, chunk: int = 128):
         raise RuntimeError(f"ssd_scan_launch: CUDA error {rc} at launch")
     LAUNCHES["ssd_scan"] += 1
     return y, state
+
+
+class SSDScan(torch.autograd.Function):
+    """The SSD scan with the kernel's forward (the plain version on the CPU)
+    and a backward that differentiates the plain version recomputed from
+    the inputs: ``SSDScan.apply(x, dt, A, B, C, chunk) -> (y, state)``,
+    shapes as in :func:`ssd_scan`, from a zero state."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk):
+        ctx.save_for_backward(x, dt, A, B, C)
+        ctx.chunk = chunk
+        return ssd_scan(x, dt, A, B, C, chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        saved = ctx.saved_tensors
+        needs = ctx.needs_input_grad[:5]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n) for t, n in zip(saved, needs)]
+            y, state = ssd_scan_plain(*ins, ctx.chunk)
+            wrt = [t for t in ins if t.requires_grad]
+            got = iter(torch.autograd.grad((y, state), wrt, (dy, dstate),
+                                           allow_unused=True))
+        return (*(next(got) if n else None for n in needs), None)

@@ -1,7 +1,9 @@
 """Model zoo entry point: ``build(cfg, device)`` returns the family's
 ``nn.Module``, which exposes ``init_weights``, ``forward``, ``prefill``,
-``decode`` and ``init_cache`` with the same signatures in every family
-(the encoder-decoder's ``init_cache`` also takes the encoder's length).
+``decode``, ``init_cache``, ``loss`` and ``param_count`` with the same
+signatures in every family (the encoder-decoder's ``init_cache`` also
+takes the encoder's length; ``loss`` and ``param_count`` come from
+``models/lm.py``).
 Every kind of the reference is ported: the decoder (dense, moe and vlm
 share it, as in the reference), Mamba-2, the Hymba hybrid and the
 encoder-decoder."""
@@ -15,9 +17,10 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.decoder import Decoder
 from repro_torch.models.encdec import EncDec
 from repro_torch.models.hybrid import Hybrid
+from repro_torch.models.lm import AUX_LOSS_WEIGHT
 from repro_torch.models.ssm import Mamba
 
-__all__ = ["build"]
+__all__ = ["build", "AUX_LOSS_WEIGHT"]
 
 _FAMILIES = {"decoder": Decoder, "moe": Decoder, "vlm": Decoder,
              "ssm": Mamba, "hybrid": Hybrid, "encdec": EncDec}

@@ -17,6 +17,7 @@ from torch import nn
 
 from repro_torch.models import layers as ll
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.lm import LM, remat
 
 __all__ = ["Decoder"]
 
@@ -100,7 +101,7 @@ class Block(nn.Module):
             else SwiGLU(cfg.d_model, cfg.d_ff, device)
 
 
-class Decoder(nn.Module):
+class Decoder(LM):
     """The decoder of ``cfg`` (dense, moe or vlm) with uninitialised weights
     on ``device`` (``init_weights`` fills them; ``load_state_dict`` loads
     them)."""
@@ -158,14 +159,18 @@ class Decoder(nn.Module):
             return x + f, aux
         return x + ll.swiglu(h, blk.ffn), 0.0
 
+    def _block(self, x, blk):
+        x = x + ll.attention(ll.rms_norm(x, blk.ln1), blk.attn, self.cfg)
+        return self._ffn(x, blk)
+
     def forward(self, batch: dict):
         """Training/prefill forward -> (logits (B, S, V), aux_loss): a vlm's
-        logits cover the patch positions too."""
+        logits cover the patch positions too. Each block is recomputed in
+        the backward under ``cfg.remat``."""
         x = self._embed(batch["tokens"], batch.get("vision"))
         aux = torch.zeros((), device=x.device)
         for blk in self.layers:
-            x = x + ll.attention(ll.rms_norm(x, blk.ln1), blk.attn, self.cfg)
-            x, a = self._ffn(x, blk)
+            x, a = remat(self.cfg, self._block, x, blk)
             aux = aux + a
         return self._logits(x), aux
 

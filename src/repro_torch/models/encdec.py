@@ -21,6 +21,7 @@ from torch import nn
 from repro_torch.models import layers as ll
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.decoder import Attention, SwiGLU, _param
+from repro_torch.models.lm import LM, remat
 
 __all__ = ["EncDec"]
 
@@ -50,7 +51,7 @@ class DecBlock(EncBlock):
         self.ffn.init_weights(gen)
 
 
-class EncDec(nn.Module):
+class EncDec(LM):
     """The encoder-decoder of ``cfg`` with uninitialised weights on
     ``device`` (``init_weights`` fills them; ``load_state_dict`` loads
     them)."""
@@ -91,10 +92,13 @@ class EncDec(nn.Module):
         dt = self._dtype()
         x = torch.einsum("bfd,de->bfe", frames.to(dt), self.frame_proj.to(dt))
         for blk in self.enc_layers:
-            x = x + ll.attention(ll.rms_norm(x, blk.ln1), blk.attn, self.cfg,
-                                 causal=False)
-            x = x + ll.swiglu(ll.rms_norm(x, blk.ln2), blk.ffn)
+            x = remat(self.cfg, self._enc_block, x, blk)
         return ll.rms_norm(x, self.enc_norm)
+
+    def _enc_block(self, x, blk):
+        x = x + ll.attention(ll.rms_norm(x, blk.ln1), blk.attn, self.cfg,
+                             causal=False)
+        return x + ll.swiglu(ll.rms_norm(x, blk.ln2), blk.ffn)
 
     def _dec_block(self, x, blk, enc_out):
         """One decoder layer -> (x, (k, v), (cross k, cross v))."""
@@ -107,11 +111,15 @@ class EncDec(nn.Module):
         return x + ll.swiglu(ll.rms_norm(x, blk.ln2), blk.ffn), kv, ckv
 
     def forward(self, batch: dict):
-        """Training/prefill forward -> (logits (B, S, V), aux_loss)."""
+        """Training/prefill forward -> (logits (B, S, V), aux_loss). Each
+        encoder and decoder block is recomputed in the backward under
+        ``cfg.remat``."""
         enc_out = self.encode(batch["frames"])
         x = self.embed[batch["tokens"]].to(self._dtype())
         for blk in self.dec_layers:
-            x = self._dec_block(x, blk, enc_out)[0]
+            x = remat(self.cfg,
+                      lambda x, blk, e: self._dec_block(x, blk, e)[0],
+                      x, blk, enc_out)
         return self._logits(x), torch.zeros((), device=x.device)
 
     def init_cache(self, batch: int, max_len: int, enc_len: int):

@@ -27,6 +27,7 @@ from torch import nn
 from repro_torch.models import layers as ll
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.decoder import Attention, SwiGLU, _param
+from repro_torch.models.lm import LM, remat
 from repro_torch.models.ssm import Mixer, _dims, _mix
 
 __all__ = ["Hybrid"]
@@ -48,7 +49,7 @@ class Block(nn.Module):
         self.ffn.init_weights(gen)
 
 
-class Hybrid(nn.Module):
+class Hybrid(LM):
     """The hybrid stack of ``cfg`` with uninitialised weights on ``device``
     (``init_weights`` fills them; ``load_state_dict`` loads them)."""
 
@@ -103,10 +104,11 @@ class Hybrid(nn.Module):
 
     def forward(self, batch: dict):
         """Training/prefill forward -> (logits (B, S, V) of the tokens after
-        the meta prefix, aux_loss)."""
+        the meta prefix, aux_loss). Each block is recomputed in the
+        backward under ``cfg.remat``."""
         x = self._with_meta(batch["tokens"])
         for blk in self.layers:
-            x = self._block(x, blk)[0]
+            x = remat(self.cfg, lambda x, blk: self._block(x, blk)[0], x, blk)
         logits = self._logits(x[:, self.cfg.n_meta_tokens:, :])
         return logits, torch.zeros((), device=x.device)
 

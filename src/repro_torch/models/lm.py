@@ -1,0 +1,44 @@
+"""What every family of the model zoo shares for training: ``loss`` (the
+reference's ``Model.loss``), ``param_count``, and ``remat``, which
+recomputes a block in the backward (the reference's ``jax.checkpoint`` per
+block under ``cfg.remat``)."""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.distributed.xent import cross_entropy
+
+__all__ = ["LM", "AUX_LOSS_WEIGHT", "remat"]
+
+AUX_LOSS_WEIGHT = 0.01  # MoE load-balance loss weight
+
+
+def remat(cfg, fn, *args):
+    """``fn(*args)``; under ``cfg.remat`` with grad enabled, through
+    ``torch.utils.checkpoint`` (non-reentrant): the block keeps only its
+    inputs and runs again in the backward. Serving (grad disabled) calls
+    ``fn`` as it is."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+class LM(nn.Module):
+    """Base of the families: ``forward(batch) -> (logits, aux)``."""
+
+    def loss(self, batch: dict):
+        """Mean next-token cross entropy over ``batch["labels"]`` plus
+        ``AUX_LOSS_WEIGHT`` times the MoE aux; a vlm's logits keep only
+        their last ``labels.shape[1]`` positions (its patch positions
+        dropped). 0-d float32."""
+        logits, aux = self(batch)
+        labels = batch["labels"]
+        if logits.shape[1] != labels.shape[1]:
+            logits = logits[:, -labels.shape[1]:, :]
+        return cross_entropy(logits, labels) + AUX_LOSS_WEIGHT * aux
+
+    def param_count(self) -> int:
+        return sum(p.numel() for p in self.parameters())

@@ -20,6 +20,7 @@ from torch import nn
 from repro_torch.models import layers as ll
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.decoder import _param
+from repro_torch.models.lm import LM, remat
 
 __all__ = ["Mamba", "Mixer"]
 
@@ -107,7 +108,7 @@ def _mix(x, lp, cfg: ModelConfig, conv_state=None, ssd_state=None,
     return out, new_conv, final
 
 
-class Mamba(nn.Module):
+class Mamba(LM):
     """The Mamba-2 stack of ``cfg`` with uninitialised projection weights on
     ``device`` (``init_weights`` fills them; ``load_state_dict`` loads
     them)."""
@@ -138,11 +139,15 @@ class Mamba(nn.Module):
         x = ll.rms_norm(x, self.final_norm)
         return torch.einsum("bsd,dv->bsv", x, self.lm_head.to(x.dtype))
 
+    def _block(self, x, blk):
+        return x + _mix(ll.rms_norm(x, blk.ln), blk, self.cfg)[0]
+
     def forward(self, batch: dict):
-        """Training/prefill forward -> (logits (B, S, V), aux_loss)."""
+        """Training/prefill forward -> (logits (B, S, V), aux_loss). Each
+        block is recomputed in the backward under ``cfg.remat``."""
         x = self._embed(batch["tokens"])
         for blk in self.layers:
-            x = x + _mix(ll.rms_norm(x, blk.ln), blk, self.cfg)[0]
+            x = remat(self.cfg, self._block, x, blk)
         return self._logits(x), torch.zeros((), device=x.device)
 
     def init_cache(self, batch: int, max_len: int):

@@ -360,21 +360,27 @@ def test_every_bounded_cache_is_registered():
 # (setup_persistent_cache: its nvcc builds persist in build/).
 OMITTED = {
     "analysis": set(),
+    "ckpt": set(),
     "core": set(),
+    "data": set(),
     "engine": {"available_backends", "resolve_backend",
                "setup_persistent_cache"},
     "kernels": {"policy_cost_batch"},
     "obs": {"record_jit"},
+    "optim": set(),
 }
 # Names the port adds: its own result types, the launch counter, the
 # launch-capture hook, and the engine's scenario batches and sources.
 ADDED = {
     "analysis": set(),
+    "ckpt": set(),
     "core": {"JobCost", "TaskCost", "TolaResult"},
+    "data": set(),
     "engine": {"MarketListBatch", "SCENARIO_KINDS", "ScenarioSource",
                "SynthBatch"},
     "kernels": {"LAUNCHES"},
     "obs": {"record_launch"},
+    "optim": set(),
 }
 
 
