@@ -282,7 +282,38 @@ Phases, each failing the run with a non-zero exit:
    1e-6 relative; which one is printed), then 30 steps whose last five
    losses average below the first five. Its time is printed against its
    120 s budget, with (e)'s resume report; the kernels line gains the
-   flash and SSD launches counted in each step of (b) and (c).
+   flash and SSD launches counted in each step of (b) and (c); (a) also
+   prints each backward's bound (``flash_backward_work``,
+   ``ssd_backward_work``) and SDPA's backward at tinyllama's train shape
+   (autograd through a retained SDPA graph), and (b) keeps its losses,
+   grad norms and per-tensor state digests for phase 17 (a);
+17. the mesh of the LM substrate (``launch.steps.ShardedTrainStep``,
+   ``launch.train``'s mesh path, ``distributed``) — (a) tinyllama-1.1b at
+   full width on a 1x1 NCCL mesh (its ``FileStore`` under
+   ``build/archive/phase17/``): two meshed steps of phase 16 (b)'s 8 x 4096
+   in two microbatches from the same seeded init, their losses, grad norms
+   and parameter and moment digests bit for bit phase 16 (b)'s, exactly 88
+   flash launches a step, all tensor-core, one all-gather and one
+   all-reduce a step, wall per step and peak memory (within 0.9 of the
+   card); then the checkpoint gather of that state (``gather_state``: one
+   all-gather a tensor, each copied to the host), its seconds and the card
+   memory it adds (at most two of the largest tensor), and ``train_loop``
+   on the same NCCL group (the ``torchrun`` CLI's path) on the tinyllama
+   float32 smoke config, preempted and resumed, bit for bit the card's
+   uninterrupted run; (b) a 2x2 mesh of four gloo ranks sharing the card, spawned with
+   a join timeout, each loading phase 1's libraries and building none: the
+   tinyllama and mamba2 float32 smoke configs' meshed steps (the CUDA-core
+   flash route and the SSD kernel, half the one-rank step's launches per
+   rank) bit for bit the card's one-rank steps with two microbatches, each
+   rank holding exactly three copies of its shard bytes between steps and
+   no whole parameter, two collectives a step; ``compressed_psum_tree`` bit
+   for bit its one-process emulation and within 2 % of the exact mean, and
+   ``pipeline_apply`` within 1e-5 of the sequential stages, over the four
+   ranks; ``train_loop`` preempted on the 2x2 mesh, the group shrunk to two
+   ranks (``engine.mesh.regroup``) and resumed on 1x2, bit for bit the
+   card's uninterrupted run. A rank on the CPU, or one that fails or hangs,
+   fails the run. Its time is printed against its 60 s budget; the kernels
+   line gains (a)'s flash launches per step and rank 0's launches in (b).
 
 Then one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` name and
 power-limit line, and last ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -366,6 +397,20 @@ MESH_EVAL_KEYS = ("engine.eval.chain:sharded", "engine.eval.task:sharded",
                   "engine.eval.task_ps:sharded")
 MESH_KEYS = MESH_EVAL_KEYS + ("engine.gather:sharded", "learn.fold:sharded")
 # Phase 15, the static contract checker: its NCCL store and its budget.
+# Phase 17, the mesh of the LM substrate: its budget, (a)'s store, (b)'s
+# smoke steps (shrink MESH_SMOKE_STEPS first if the script passes 1150 s),
+# preempted loop and compression and pipeline shapes (the CPU tests').
+MESH_TRAIN_BUDGET = 60.0     # seconds
+MESH_TRAIN_DIR = pathlib.Path("build") / "archive" / "phase17"
+MESH_TRAIN_TIMEOUT = 240.0   # seconds for (b)'s four ranks, start to end
+MESH_SMOKE_ARCHS = ("tinyllama_1_1b", "mamba2_2_7b")
+MESH_SMOKE_BATCH, MESH_SMOKE_SEQ, MESH_SMOKE_STEPS = 4, 32, 3
+MESH_SMOKE_LR = 1e-2
+MESH_LOOP = dict(global_batch=4, seq_len=32, log_every=100, ckpt_every=2,
+                 microbatches=2)
+MESH_LOOP_STEPS, MESH_LOOP_PREEMPT = 6, 4     # preempted at a checkpoint
+MESH_COMP_SHAPE = (4, 32)
+MESH_PIPE = (4, 8, 2, 16)    # stages, microbatches, rows, width
 ANALYSIS_DIR = pathlib.Path("build") / "archive" / "phase15"
 ANALYSIS_BUDGET = 30.0   # seconds
 # Phase 16, training: its budget, the flash and SSD training checks, and
@@ -3145,7 +3190,8 @@ def mesh_rank(rank: int, out_dir: str) -> None:
         dist.destroy_process_group()
 
 
-def spawn_ranks(fn, world: int, args, timeout: float) -> None:
+def spawn_ranks(fn, world: int, args, timeout: float,
+                label: str = "phase 14 (b)") -> None:
     """Run ``fn(rank, *args)`` in ``world`` spawned processes; fail the run
     if one raises or they are not all done within ``timeout`` seconds (the
     processes are killed either way before this returns)."""
@@ -3157,12 +3203,12 @@ def spawn_ranks(fn, world: int, args, timeout: float) -> None:
     try:
         while not ctx.join(timeout=max(deadline - time.perf_counter(), 0.0)):
             if time.perf_counter() >= deadline:
-                fail(f"phase 14 (b): the {world} ranks did not finish "
+                fail(f"{label}: the {world} ranks did not finish "
                      f"within {timeout} s")
     except mp.ProcessRaisedException as e:
-        fail(f"phase 14 (b): a rank failed:\n{e}")
+        fail(f"{label}: a rank failed:\n{e}")
     except mp.ProcessExitedException as e:
-        fail(f"phase 14 (b): a rank exited: {e}")
+        fail(f"{label}: a rank exited: {e}")
     finally:
         for p in ctx.processes:
             if p.is_alive():
@@ -3542,6 +3588,7 @@ def train_kernel_checks(torch, np) -> dict:
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
     from repro_torch.kernels import LAUNCHES
     from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.obs.compiled import work_bound
 
     gen = torch.Generator("cuda").manual_seed(TRAIN_SEED)
     rnd = lambda *s: torch.randn(*s, device="cuda", generator=gen)  # noqa: E731
@@ -3586,18 +3633,33 @@ def train_kernel_checks(torch, np) -> dict:
             q, k, v, o, lse=lse_buf, **kw), reps=10)
         t_bwd = device_ms(torch, lambda: fa.flash_backward(
             q, k, v, out, lse, do, **kw), reps=3)
+        b_ms, b_by = work_bound(fa.flash_backward_work(q, k, v, **kw))
+        # The library's backward alone: autograd through a retained SDPA
+        # graph (the yardstick's mask), where SDPA computes this attention.
+        t_lib = None
+        sdpa = sdpa_yardstick(torch, *leaf, kw) if route == "tc" else None
+        if sdpa is not None:
+            lib_out = sdpa()
+            t_lib = device_ms(torch, lambda: torch.autograd.grad(
+                lib_out, leaf, do.transpose(1, 2), retain_graph=True),
+                reps=3)
+            del lib_out
         print(f"  train flash {label} {(B, S, H, K, dh)} {dtype} {kw}: lse "
               f"max abs {lse_err:.3e} (bar {lse_tol}); out, dq, dk, dv "
               f"{', '.join(f'{e:.3e}' for e in errs)} ({bar}) "
               f"{'OK' if ok else 'FAIL'}; forward {t_fwd:.3f} ms, with the "
               f"lse store {t_lse:.3f} ms ({t_lse - t_fwd:+.3f}); backward "
-              f"(torch ops) {t_bwd:.3f} ms")
+              f"(torch ops) {t_bwd:.3f} ms, bound {b_ms:.4f} ms ({b_by}), "
+              f"SDPA's backward "
+              f"{'none' if t_lib is None else f'{t_lib:.3f} ms'}")
         if not ok:
             fail(f"train flash {label}: off the plain version's autograd")
         report["flash_attention"][label] = {
             "shape": [B, S, H, K, dh], "dtype": dtype, "route": route,
             "lse_max_abs_err": lse_err, "grad_errs": errs,
-            "fwd_ms": t_fwd, "fwd_lse_ms": t_lse, "bwd_ms": t_bwd}
+            "fwd_ms": t_fwd, "fwd_lse_ms": t_lse, "bwd_ms": t_bwd,
+            "bwd_bound_ms": b_ms, "bwd_bound_by": b_by,
+            "bwd_library_ms": t_lib}
         del q, k, v, do, out, lse, leaf, fn_out, o_p, lse_p, g_p, o, lse_buf
         torch.cuda.empty_cache()
 
@@ -3634,17 +3696,20 @@ def train_kernel_checks(torch, np) -> dict:
     t_fwd = device_ms(torch, lambda: ss.ssd_scan(*ins, chunk), reps=5)
     t_bwd = device_ms(torch, lambda: ss.SSDScan.backward(ctx, dy, zero),
                       reps=2)
+    b_ms, b_by = work_bound(ss.ssd_backward_work(*ins, chunk))
     print(f"  train SSD {TRAIN_SSD} float32: y {y_err:.3e}, dx, ddt, dA, dB, "
           f"dC {', '.join(f'{e:.3e}' for e in errs)} against float64 "
           f"autograd of another chunked form (relative to each one's "
           f"max abs, bar {TRAIN_SSD_TOL}) {'OK' if ok else 'FAIL'}; forward "
           f"(kernel) {t_fwd:.3f} ms, backward (the plain scan recomputed "
-          f"and differentiated) {t_bwd:.3f} ms")
+          f"and differentiated) {t_bwd:.3f} ms, bound {b_ms:.4f} ms "
+          f"({b_by}); no library call computes it")
     if not ok:
         fail("train SSD: off the plain version or the float64 gradients")
     report["ssd_scan"]["mamba2 train"] = {
         "shape": list(TRAIN_SSD), "y_err": y_err, "grad_errs": errs,
-        "fwd_ms": t_fwd, "bwd_ms": t_bwd}
+        "fwd_ms": t_fwd, "bwd_ms": t_bwd, "bwd_bound_ms": b_ms,
+        "bwd_bound_by": b_by, "bwd_library_ms": None}
     del x, dt, A, B_, C_, dy, ins, leaf, y, state, g_p, ctx, zero
     torch.cuda.empty_cache()
     return report
@@ -3668,6 +3733,23 @@ def _idle_share(torch, fn, wall_s: float) -> float:
           f"{wall_s:.3f}s), device busy {busy:.3f} ms, idle share "
           f"{1 - busy / (wall * 1e3):.6f}")
     return 1 - busy / (wall * 1e3)
+
+
+def state_digests(torch, params: dict, state) -> dict:
+    """Per-tensor digests of parameters and moments on the card: the int32
+    bit patterns weighted by odd position numbers, summed in int64
+    (wrapping). A change of one word always changes its tensor's digest
+    (an odd weight times a non-zero difference below 2**32 is not 0 mod
+    2**64)."""
+    def one(t):
+        w = t.reshape(-1).view(torch.int32).long()
+        w.mul_(torch.arange(w.numel(), device=t.device).mul_(2).add_(1))
+        return int(w.sum())
+
+    out = {f"p.{n}": one(t) for n, t in params.items()}
+    out.update({f"m.{n}": one(t) for n, t in state.m.items()})
+    out.update({f"v.{n}": one(t) for n, t in state.v.items()})
+    return out
 
 
 def train_full_width(torch, np, arch: str, batch: int, n_micro: int,
@@ -3706,7 +3788,7 @@ def train_full_width(torch, np, arch: str, batch: int, n_micro: int,
           f" {n_params / 1e9:.3f}e9 parameters, global batch {batch} (cut "
           f"from train_4k's 256) x {TRAIN_SEQ}, {n_micro} microbatch(es), "
           f"init {time.perf_counter() - t0:.3f}s]")
-    losses, walls, per_step = [], [], []
+    losses, norms, walls, per_step = [], [], [], []
     for s in range(steps):
         LAUNCHES.clear()
         t0 = time.perf_counter()
@@ -3717,6 +3799,7 @@ def train_full_width(torch, np, arch: str, batch: int, n_micro: int,
         per_step.append(got)
         loss, gn = float(m["loss"]), float(m["grad_norm"])
         losses.append(loss)
+        norms.append(gn)
         print(f"  step {s + 1}: loss {loss:.6f}, grad norm {gn:.6f}, wall "
               f"{walls[-1]:.3f}s, {batch * TRAIN_SEQ / walls[-1]:.1f} "
               f"tokens/s; launches {dict(LAUNCHES)}")
@@ -3732,9 +3815,12 @@ def train_full_width(torch, np, arch: str, batch: int, n_micro: int,
                 or int(m["step"]) != s + 1:
             fail(f"train {arch} step {s + 1}: loss {loss}, grad norm {gn}, "
                  f"step {int(m['step'])}")
-    out = {"losses": losses, "walls": walls,
+    out = {"losses": losses, "grad_norms": norms, "walls": walls,
            "tokens_per_s": batch * TRAIN_SEQ / walls[-1],
-           "launches_per_step": per_step}
+           "launches_per_step": per_step,
+           # phase 17 (a) holds its meshed steps to these
+           "digests": state_digests(torch, {n: p.detach() for n, p in
+                                            params.items()}, state)}
     idle = _idle_share(torch, lambda: step(state, data[-1]), walls[-1])
     out["idle_share"] = idle
     if first is not None:
@@ -3890,13 +3976,493 @@ def train_phase(torch, np) -> dict:
     t0 = time.perf_counter()
     loop = train_loop_check(torch, np)
     print(f"  (e) {time.perf_counter() - t0:.3f}s")
+    # (b)'s losses, grad norms and state digests: phase 17 (a)'s witness
+    tiny_ref = {k: tiny[k] for k in ("losses", "grad_norms")}
+    tiny_ref["digests"] = tiny.pop("digests")
+    mamba.pop("digests")
     report["flash_attention"]["tinyllama_1_1b"] = tiny
     report["ssd_scan"]["mamba2_2_7b"] = mamba
     runs = {"flash_attention": tiny, "ssd_scan": mamba}
     return {name: {"train_launches_per_step": [
                 got[name] for got in runs[name]["launches_per_step"]],
                 "train": r}
-            for name, r in report.items()}, loop
+            for name, r in report.items()}, loop, tiny_ref
+
+
+def mesh_train_full_width(torch, np, ref: dict, loop_want: list) -> dict:
+    """Phase 17 (a): tinyllama-1.1b at full width on a 1x1 NCCL mesh,
+    ``ShardedTrainStep`` from phase 16 (b)'s seeded init on its batches,
+    held to (b)'s losses, grad norms and state digests bit for bit; the
+    checkpoint gather of that state; ``train_loop`` preempted and resumed
+    on the same group, held to ``loop_want`` (the card's uninterrupted
+    one-rank run's losses)."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.engine import GridMesh
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.launch.steps import ShardedTrainStep
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import build
+    from repro_torch.obs import compiled
+    from repro_torch.optim import AdamW, cosine_schedule
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    MESH_TRAIN_DIR.mkdir(parents=True, exist_ok=True)
+    store = (MESH_TRAIN_DIR / "nccl_store").resolve()
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl", init_method=f"file://{store}",
+                            world_size=1, rank=0)
+    try:
+        mesh = GridMesh.create(1, 1)
+        if mesh.mesh is None or dist.get_backend() != "nccl":
+            fail(f"phase 17 (a): the 1x1 mesh is not on an NCCL group "
+                 f"({dist.get_backend()})")
+        cfg = get_config("tinyllama_1_1b")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = build(cfg, "cuda")
+        model.init_weights(torch.Generator("cuda").manual_seed(0))
+        opt = AdamW(lr=cosine_schedule(3e-4, 10, 100))
+        step = ShardedTrainStep(model, opt, mesh, TRAIN_MICRO)
+        shards = step.shard(dict(model.named_parameters()))
+        step.release()
+        state = opt.init(shards)
+        ds = SyntheticTokens(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, host_rank=0,
+                             host_count=1)
+        data = [{k: torch.as_tensor(v, device="cuda")
+                 for k, v in ds.batch(s).items()}
+                for s in range(len(ref["losses"]))]
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        flash, walls, counts = [], [], []
+        for s, batch in enumerate(data):
+            compiled.reset_collectives()
+            LAUNCHES.clear()
+            t0 = time.perf_counter()
+            state, m = step(shards, state, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            got = (LAUNCHES["flash_attention"], LAUNCHES["flash_attention_tc"])
+            flash.append(got[0])
+            c = compiled.collective_counts(step.KEY)
+            counts.append(c)
+            loss, gn = float(m["loss"]), float(m["grad_norm"])
+            same = loss == ref["losses"][s] and gn == ref["grad_norms"][s]
+            print(f"  (a) meshed step {s + 1}: loss {loss:.6f}, grad norm "
+                  f"{gn:.6f} ({'bit for bit' if same else 'DIFFERS from'} "
+                  f"phase 16 (b)'s {ref['losses'][s]:.6f}, "
+                  f"{ref['grad_norms'][s]:.6f}); wall {walls[-1]:.3f}s "
+                  f"(16 (b): the same step unmeshed); flash launches "
+                  f"{got[0]}, tensor-core {got[1]}; collectives "
+                  f"all-gather {c['all-gather']}, all-reduce "
+                  f"{c['all-reduce']} (total {c['total']})")
+            if not same:
+                fail(f"phase 17 (a) step {s + 1}: loss or grad norm differs "
+                     f"from phase 16 (b)'s")
+            if got != (22 * TRAIN_MICRO * 2,) * 2:
+                fail(f"phase 17 (a) step {s + 1}: flash launches {got}, "
+                     f"expected {22 * TRAIN_MICRO * 2}, all tensor-core")
+            if (c["all-gather"], c["all-reduce"], c["total"]) != (1, 1, 2):
+                fail(f"phase 17 (a) step {s + 1}: collectives {c}, expected "
+                     "one all-gather and one all-reduce")
+        digests = state_digests(torch, shards, state)
+        off = sorted(k for k, v in ref["digests"].items()
+                     if digests.get(k) != v)
+        peak = torch.cuda.max_memory_allocated()
+        print(f"  (a) after {len(data)} meshed steps: "
+              f"{len(digests) - len(off)} of {len(ref['digests'])} "
+              f"parameter and moment digests equal phase 16 (b)'s"
+              f"{f' (differ: {off[:5]})' if off else ''}; shards "
+              f"{3 * step.shard_bytes() / 2**30:.3f} GiB held between steps "
+              f"({held / 2**30:.3f} GiB allocated); peak "
+              f"{peak / 2**30:.3f} GiB, {peak / total:.4f} of the card")
+        if off or set(digests) != set(ref["digests"]):
+            fail(f"phase 17 (a): the meshed state differs from phase 16 "
+                 f"(b)'s at {off[:10]}")
+        if peak > TRAIN_MEM_SHARE * total:
+            fail(f"phase 17 (a): peak {peak / total:.4f} of the card")
+
+        # A checkpoint's gather of the same state: a tensor at a time to
+        # the host, adding at most two of the largest tensor to the card.
+        del data
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        # the caching allocator hands out blocks of 512 bytes
+        largest = max(-(-t.numel() * 4 // 512) * 512 for t in shards.values())
+        torch.cuda.reset_peak_memory_stats()
+        compiled.reset_collectives()
+        t0 = time.perf_counter()
+        whole, whole_opt = step.gather_state(shards, state)
+        t_gather = time.perf_counter() - t0
+        added = torch.cuda.max_memory_allocated() - before
+        c = compiled.collective_counts(step.CKPT_KEY)
+        names = list(shards)
+        same = all(torch.equal(d[n], src[n].cpu())
+                   for n in (names[0], names[-1])
+                   for d, src in ((whole, shards), (whole_opt.m, state.m),
+                                  (whole_opt.v, state.v)))
+        print(f"  (a) checkpoint gather: {3 * step.shard_bytes() / 2**30:.3f}"
+              f" GiB to the host in {t_gather:.3f}s, {c['all-gather']} "
+              f"all-gathers (3 x {len(names)} tensors); card memory added "
+              f"{added / 2**20:.1f} MiB, bar 2 x the largest tensor "
+              f"{2 * largest / 2**20:.1f} MiB; host copy "
+              f"{'equal to' if same else 'DIFFERS from'} the shards")
+        if not same or added > 2 * largest \
+                or c["all-gather"] != 3 * len(names):
+            fail("phase 17 (a): the checkpoint gather is off its bars")
+        del model, step, shards, state, whole, whole_opt
+        torch.cuda.empty_cache()
+
+        # The trainer's own loop on the NCCL group, preempted and resumed.
+        cut = (MESH_TRAIN_DIR / "nccl_ckpt").resolve()
+        shutil.rmtree(cut, ignore_errors=True)
+        cfg = _smoke_config("tinyllama_1_1b")
+        t0 = time.perf_counter()
+        pre = train_loop(cfg, MESH_LOOP_STEPS, str(cut), device="cuda",
+                         preempt_at=MESH_LOOP_PREEMPT, mesh=mesh, **MESH_LOOP)
+        res = train_loop(cfg, MESH_LOOP_STEPS, str(cut), device="cuda",
+                         resume=True, mesh=mesh, **MESH_LOOP)
+        t_loop = time.perf_counter() - t0
+        shutil.rmtree(cut, ignore_errors=True)
+        losses = pre["losses"] + res["losses"]
+        how = "bit for bit" if losses == loop_want else "DIFFERS from"
+        print(f"  (a) train_loop on the 1x1 NCCL mesh, float32 smoke: "
+              f"{pre['status']} at step {pre['step']}, resumed to "
+              f"{res['step']} ({res['status']}), losses {losses}, {how} "
+              f"the card's uninterrupted run; {t_loop:.3f}s")
+        if pre["status"] != "preempted" or res["status"] != "done" \
+                or losses != loop_want:
+            fail(f"phase 17 (a): train_loop on NCCL gave {losses}, the "
+                 f"uninterrupted run {loop_want}")
+    finally:
+        dist.destroy_process_group()
+    return {"flash_launches_per_step": flash, "walls": walls,
+            "collectives_per_step": [c["total"] for c in counts],
+            "peak_gib": peak / 2**30, "gather_s": t_gather,
+            "gather_added_mib": added / 2**20, "loop_s": t_loop}
+
+
+def _pipe_stage(w, a):
+    """Phase 17 (b)'s pipeline stage (a module-level function: spawned
+    ranks unpickle it)."""
+    import torch
+    return torch.tanh(a @ w)
+
+
+def _mesh_train_inputs(np):
+    """Phase 17 (b)'s compression inputs per rank and pipeline weights and
+    microbatches (the CPU tests' shapes)."""
+    comp = [np.random.default_rng(100 + r).normal(
+        size=MESH_COMP_SHAPE).astype(np.float32) for r in range(4)]
+    n_stages, n_micro, bm, d = MESH_PIPE
+    rng = np.random.default_rng(0)
+    w = (rng.normal(size=(n_stages, d, d)) * 0.3).astype(np.float32)
+    x = rng.normal(size=(n_micro, bm, d)).astype(np.float32)
+    return comp, w, x
+
+
+def _smoke_batches(cfg, rank: int = 0, count: int = 1):
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch.train import _extras
+    ds = SyntheticTokens(cfg.vocab, MESH_SMOKE_BATCH, MESH_SMOKE_SEQ,
+                         host_rank=rank, host_count=count,
+                         extras=_extras(cfg, MESH_SMOKE_SEQ))
+    return [ds.batch(s) for s in range(MESH_SMOKE_STEPS)]
+
+
+def _smoke_config(arch: str):
+    from repro_torch.configs import smoke_config
+    return dataclasses.replace(smoke_config(arch), dtype="float32")
+
+
+def mesh_train_rank(rank: int, out_dir: str) -> None:
+    """One of phase 17 (b)'s four gloo ranks on the card (spawned)."""
+    import datetime
+    import os
+
+    os.environ["GLOO_SOCKET_IFNAME"] = "lo"
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    out = pathlib.Path(out_dir)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method=f"file://{out / 'store'}", world_size=4,
+        rank=rank, timeout=datetime.timedelta(seconds=MESH_TRAIN_TIMEOUT))
+    in_group = True
+    try:
+        from repro_torch.distributed import (
+            compressed_psum_tree, pipeline_apply)
+        from repro_torch.engine import GridMesh
+        from repro_torch.engine.mesh import regroup
+        from repro_torch.kernels import LAUNCHES
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.launch.steps import ShardedTrainStep
+        from repro_torch.launch.train import train_loop
+        from repro_torch.models import build
+        from repro_torch.obs import compiled
+        from repro_torch.optim import AdamW
+
+        meta = {"backend": dist.get_backend()}
+        watch = compiled.CompileWatch()
+        torch.cuda.reset_peak_memory_stats()
+        with watch:
+            mesh = GridMesh.create(2, 2)
+            meta["coords"] = [mesh.data_rank, mesh.model_rank]
+            for arch in MESH_SMOKE_ARCHS:
+                cfg = _smoke_config(arch)
+                model = build(cfg, "cuda")
+                model.init_weights(torch.Generator("cuda").manual_seed(0))
+                opt = AdamW(lr=MESH_SMOKE_LR)
+                step = ShardedTrainStep(model, opt, mesh, 2)
+                shards = step.shard(dict(model.named_parameters()))
+                step.release()
+                state = opt.init(shards)
+                rec = {"device": str(shards["embed"].device),
+                       "held": sum(t.numel() * t.element_size()
+                                   for d in (shards, state.m, state.v)
+                                   for t in d.values()),
+                       "shard_bytes": step.shard_bytes(),
+                       "whole_between": sum(p.numel()
+                                            for p in model.parameters()),
+                       "allocated": torch.cuda.memory_allocated(),
+                       "losses": [], "norms": [], "launches": [],
+                       "counts": []}
+                for b in _smoke_batches(cfg, mesh.data_rank,
+                                        mesh.data_shards):
+                    compiled.reset_collectives()
+                    LAUNCHES.clear()
+                    state, m = step(shards, state, {
+                        k: torch.as_tensor(v, device="cuda")
+                        for k, v in b.items()})
+                    torch.cuda.synchronize()
+                    rec["launches"].append(dict(LAUNCHES))
+                    rec["counts"].append(
+                        compiled.collective_counts(step.KEY)["total"])
+                    rec["losses"].append(float(m["loss"]))
+                    rec["norms"].append(float(m["grad_norm"]))
+                rec["whole_after"] = sum(p.numel()
+                                         for p in model.parameters())
+                whole, whole_opt = step.gather_state(shards, state)
+                on_card = lambda d: {n: t.cuda() for n, t in d.items()}  # noqa: E731
+                rec["digests"] = state_digests(
+                    torch, on_card(whole), dataclasses.replace(
+                        whole_opt, m=on_card(whole_opt.m),
+                        v=on_card(whole_opt.v)))
+                meta[arch] = rec
+                del model, step, shards, state, whole, whole_opt
+
+            comp, w, x = _mesh_train_inputs(np)
+            g = {"w": torch.from_numpy(comp[rank]).cuda()}
+            with compiled.program("phase17.compress"):
+                mean, _ = compressed_psum_tree(
+                    g, {"w": torch.zeros_like(g["w"])},
+                    make_mesh((4,), ("data",)), "data")
+            np.save(out / f"compress{rank}.npy", mean["w"].cpu().numpy())
+            with compiled.program("phase17.pipeline"):
+                y = pipeline_apply(_pipe_stage, torch.from_numpy(w).cuda(),
+                                   torch.from_numpy(x).cuda(), MESH_PIPE[0],
+                                   make_mesh((4,), ("stage",)))
+            np.save(out / f"pipe{rank}.npy", y.cpu().numpy())
+            meta["comp_pipe_counts"] = [
+                compiled.collective_counts(k)["total"]
+                for k in ("phase17.compress", "phase17.pipeline")]
+
+            cfg = _smoke_config("tinyllama_1_1b")
+            cut = str(out / "ckpt")
+            meta["preempted"] = train_loop(
+                cfg, MESH_LOOP_STEPS, cut, device="cuda",
+                preempt_at=MESH_LOOP_PREEMPT, mesh=mesh, **MESH_LOOP)
+            in_group = regroup(2, f"file://{out / 'store2'}")
+            if in_group:
+                small = GridMesh.create(1, 2)
+                meta["small_coords"] = [small.data_rank, small.model_rank]
+                meta["resumed"] = train_loop(
+                    cfg, MESH_LOOP_STEPS, cut, device="cuda", resume=True,
+                    mesh=small, **MESH_LOOP)
+        meta["compiles"] = watch.compiles
+        meta["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        (out / f"rank{rank}.json").write_text(json.dumps(meta))
+        if in_group:
+            # No rank tears its connections down while another is still in
+            # a collective with it.
+            dist.barrier()
+    finally:
+        if in_group:
+            dist.destroy_process_group()
+
+
+def mesh_loop_witness() -> list:
+    """The losses of phase 17's ``train_loop`` run on the card's one rank,
+    not stopped: what its preempted and resumed runs are held to."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch.train import train_loop
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_train_")
+    try:
+        return train_loop(_smoke_config("tinyllama_1_1b"), MESH_LOOP_STEPS,
+                          tmp, device="cuda", **MESH_LOOP)["losses"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def mesh_train_smoke(torch, np, whole: list) -> dict:
+    """Phase 17 (b): a 2x2 mesh of four gloo ranks sharing the card; the
+    card's one-rank steps first, as the witnesses (``whole``: the one-rank
+    ``train_loop``'s losses)."""
+    import shutil
+
+    from repro_torch.distributed.compression import dequantize, quantize_ef
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build
+    from repro_torch.optim import AdamW
+
+    want = {}
+    for arch in MESH_SMOKE_ARCHS:
+        cfg = _smoke_config(arch)
+        model = build(cfg, "cuda")
+        model.init_weights(torch.Generator("cuda").manual_seed(0))
+        opt = AdamW(lr=MESH_SMOKE_LR)
+        params = dict(model.named_parameters())
+        state = opt.init(params)
+        step = make_train_step(model, opt, 2)
+        rec = {"losses": [], "norms": [], "launches": []}
+        for b in _smoke_batches(cfg):
+            LAUNCHES.clear()
+            state, m = step(state, {k: torch.as_tensor(v, device="cuda")
+                                    for k, v in b.items()})
+            torch.cuda.synchronize()
+            rec["launches"].append(dict(LAUNCHES))
+            rec["losses"].append(float(m["loss"]))
+            rec["norms"].append(float(m["grad_norm"]))
+        rec["digests"] = state_digests(
+            torch, {n: p.detach() for n, p in params.items()}, state)
+        want[arch] = rec
+        del model, params, state
+    comp, w, x = _mesh_train_inputs(np)
+    qs = [quantize_ef(torch.from_numpy(c).cuda(),
+                      torch.zeros(c.shape, device="cuda")) for c in comp]
+    smax = torch.stack([s for _, s, _ in qs]).max()
+    total = sum(torch.clamp(torch.round(dequantize(q, s) / smax), -127, 127)
+                .to(torch.int32) for q, s, _ in qs)
+    comp_want = (total.float() * smax / torch.tensor(4.0, device="cuda")) \
+        .cpu().numpy()
+    exact = np.mean(comp, axis=0)
+    seq = torch.from_numpy(x).cuda()
+    for s in range(MESH_PIPE[0]):
+        seq = _pipe_stage(torch.from_numpy(w[s]).cuda(), seq)
+    seq = seq.cpu().numpy()
+
+    out = (MESH_TRAIN_DIR / "ranks").resolve()
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    t0 = time.perf_counter()
+    spawn_ranks(mesh_train_rank, 4, (str(out),), MESH_TRAIN_TIMEOUT,
+                label="phase 17 (b)")
+    t_ranks = time.perf_counter() - t0
+    print(f"  (b) 2x2 mesh, four gloo ranks on the card: {t_ranks:.3f}s "
+          f"start to end")
+    rank0 = {}
+    n_stages, n_micro = MESH_PIPE[:2]
+    for r in range(4):
+        meta = json.loads((out / f"rank{r}.json").read_text())
+        faults = []
+        if meta["backend"] != "gloo" or meta["compiles"]:
+            faults.append(f"backend {meta['backend']}, {meta['compiles']} "
+                          "kernel build(s)")
+        for arch in MESH_SMOKE_ARCHS:
+            got, ref = meta[arch], want[arch]
+            same = got["losses"] == ref["losses"] \
+                and got["norms"] == ref["norms"] \
+                and got["digests"] == ref["digests"]
+            # a rank runs one of the two microbatches of each step
+            halves = [{k: n // 2 for k, n in d.items()}
+                      for d in ref["launches"]]
+            ok_launch = got["launches"] == halves and all(
+                d.get(k) for d in got["launches"]
+                for k in (("ssd_scan",) if "mamba" in arch
+                          else ("flash_attention",)))
+            print(f"  (b) rank {r} at {tuple(meta['coords'])}, {arch} "
+                  f"float32 smoke on {got['device']}: {len(got['losses'])} "
+                  f"steps {'bit for bit' if same else 'DIFFER from'} the "
+                  f"card's one-rank steps (losses {got['losses']}); held "
+                  f"between steps {got['held']} B = 3 x its shards "
+                  f"{got['shard_bytes']} B "
+                  f"({'yes' if got['held'] == 3 * got['shard_bytes'] else 'NO'})"
+                  f", whole parameters {got['whole_between']} and "
+                  f"{got['whole_after']} elements; launches per step "
+                  f"{got['launches']}; collectives per step {got['counts']}")
+            if not same:
+                faults.append(f"{arch} differs from the one-rank steps")
+            if not got["device"].startswith("cuda") or not ok_launch:
+                faults.append(f"{arch} ran on {got['device']} with launches "
+                              f"{got['launches']} (want {halves})")
+            if got["held"] != 3 * got["shard_bytes"] \
+                    or got["whole_between"] or got["whole_after"]:
+                faults.append(f"{arch} holds {got['held']} B, not 3 x "
+                              f"{got['shard_bytes']}")
+            if got["counts"] != [2] * MESH_SMOKE_STEPS:
+                faults.append(f"{arch} collectives {got['counts']}")
+            if r == 0:
+                for d in got["launches"]:
+                    for k, n in d.items():
+                        rank0[k] = rank0.get(k, 0) + n
+        comp_got = np.load(out / f"compress{r}.npy")
+        pipe_got = np.load(out / f"pipe{r}.npy")
+        rel = float(np.abs(comp_got - exact).max()
+                    / max(float(np.abs(c).max()) for c in comp))
+        pipe_err = float(np.abs(pipe_got - seq).max())
+        print(f"  (b) rank {r}: compressed_psum_tree "
+              f"{'bit for bit' if np.array_equal(comp_got, comp_want) else 'DIFFERS from'}"
+              f" its one-process emulation, {rel:.3e} of the largest input "
+              f"from the exact mean (bar 0.02); pipeline_apply {pipe_err:.3e} "
+              f"from the sequential stages (bar 1e-5); collectives "
+              f"{meta['comp_pipe_counts']} (want [2, {n_micro + n_stages}]);"
+              f" peak {meta['peak_gib']:.3f} GiB")
+        if not np.array_equal(comp_got, comp_want) or rel >= 0.02 \
+                or pipe_err >= 1e-5 \
+                or meta["comp_pipe_counts"] != [2, n_micro + n_stages]:
+            faults.append("compression or pipeline off its bar")
+        pre = meta["preempted"]
+        if pre["status"] != "preempted" \
+                or pre["losses"] != whole[:MESH_LOOP_PREEMPT]:
+            faults.append(f"the 2x2 run before the preemption: {pre}")
+        if r < 2:
+            res = meta["resumed"]
+            how = "bit for bit" if res["losses"] == \
+                whole[MESH_LOOP_PREEMPT:] else "DIFFERS"
+            print(f"  (b) rank {r}: train_loop preempted on 2x2 at step "
+                  f"{MESH_LOOP_PREEMPT}, resumed on 1x2 at "
+                  f"{tuple(meta['small_coords'])}: losses "
+                  f"{pre['losses'] + res['losses']}, {how} the card's "
+                  f"uninterrupted run")
+            if res["status"] != "done" or how != "bit for bit":
+                faults.append(f"the resumed run {res} leaves {whole}")
+        if faults:
+            fail(f"phase 17 (b) rank {r}: {'; '.join(faults)}")
+    return {"rank0_launches": rank0, "ranks_s": t_ranks}
+
+
+def mesh_train_phase(torch, np, ref: dict) -> dict:
+    """Phase 17: the mesh of the LM substrate, (a) and (b). Returns (a)'s
+    flash launches per step and rank 0's launches in (b)."""
+    loop_want = mesh_loop_witness()
+    t0 = time.perf_counter()
+    a = mesh_train_full_width(torch, np, ref, loop_want)
+    print(f"  (a) {time.perf_counter() - t0:.3f}s")
+    t0 = time.perf_counter()
+    b = mesh_train_smoke(torch, np, loop_want)
+    print(f"  (b) {time.perf_counter() - t0:.3f}s")
+    return {"a": a, "b": b}
 
 
 def main() -> int:
@@ -4528,7 +5094,7 @@ def main() -> int:
 
     # -- 16. training -------------------------------------------------------
     t0 = time.perf_counter()
-    trained, loop = train_phase(torch, np)
+    trained, loop, tiny_ref = train_phase(torch, np)
     for k in kernels:
         k.update(trained.get(k["name"], {}))
     t_phase = time.perf_counter() - t0
@@ -4537,6 +5103,25 @@ def main() -> int:
     if t_phase > TRAIN_BUDGET:
         print(f"WARNING: phase 16 took {t_phase:.3f}s, over its "
               f"{TRAIN_BUDGET:.0f}s budget")
+
+    # -- 17. the mesh of the LM substrate ----------------------------------
+    t0 = time.perf_counter()
+    meshed_lm = mesh_train_phase(torch, np, tiny_ref)
+    for k in kernels:
+        if k["name"] == "flash_attention":
+            k["mesh_train_launches_per_step"] = \
+                meshed_lm["a"]["flash_launches_per_step"]
+        k["mesh_train_rank0_launches"] = \
+            meshed_lm["b"]["rank0_launches"].get(k["name"], 0)
+    t_phase = time.perf_counter() - t0
+    print(f"[phase mesh of the LM substrate: {t_phase:.3f}s (budget "
+          f"{MESH_TRAIN_BUDGET:.0f}s); (a) walls "
+          f"{[round(w, 3) for w in meshed_lm['a']['walls']]}, peak "
+          f"{meshed_lm['a']['peak_gib']:.3f} GiB; (b) ranks "
+          f"{meshed_lm['b']['ranks_s']:.3f}s]")
+    if t_phase > MESH_TRAIN_BUDGET:
+        print(f"WARNING: phase 17 took {t_phase:.3f}s, over its "
+              f"{MESH_TRAIN_BUDGET:.0f}s budget")
 
     for k in kernels:    # the same two numbers under their other names
         k["max_abs_diff"], k["kernel_ms"] = k["max_abs_err"], k["ms"]

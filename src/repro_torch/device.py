@@ -3,7 +3,9 @@
 The port's entry points run on the card: ``device`` defaults to ``"cuda"``
 and a missing GPU is an error, never a silent fall back to the CPU. Only a
 caller that passes ``device="cpu"`` gets the CPU, where the kernel wrappers
-take their plain PyTorch versions.
+take their plain PyTorch versions. ``meta`` tensors (the dry-run's, an
+explicit request for shapes without data) take the plain versions too
+(``PLAIN_DEVICES``); a CUDA tensor launches its kernel or raises.
 
 The kernels are CUDA C++ sources with a plain C interface under
 ``kernels/csrc/``. Each source is compiled by ``nvcc`` into its own shared
@@ -28,7 +30,11 @@ import torch
 from repro_torch.obs.compiled import CompileWatch
 
 __all__ = ["resolve_device", "build_kernels", "kernel_library",
-           "KERNEL_SOURCES", "BUILD_DIR"]
+           "KERNEL_SOURCES", "BUILD_DIR", "PLAIN_DEVICES"]
+
+# Device types whose tensors the LM kernel wrappers hand to the plain
+# versions: the CPU's, and meta tensors (shapes, no data).
+PLAIN_DEVICES = ("cpu", "meta")
 
 _PKG = pathlib.Path(__file__).resolve().parent
 CSRC = _PKG / "kernels" / "csrc"

@@ -23,13 +23,21 @@ Padded lanes carry real (duplicated) data, are masked out of every
 reduction, and are dropped at the splice. A 1x1 mesh needs no process
 group: it is the unsharded computation, through the same code.
 
-Every collective of the port goes through :func:`all_gather` (over the
-whole mesh) and :func:`all_reduce` (over ``"data"``), each recorded under
-the running program key (``obs.compiled.collective_counts``). The process
-group's backend decides how a tensor on the card reaches the collective:
-NCCL takes it as it is; gloo, which has no all-gather for CUDA tensors,
-gets a host copy. A gloo all-reduce is copied back into its tensor; a
-gloo all-gather stays on the host, where the splice reads it.
+Every collective of the port goes through this module's three counted
+helpers, each recorded under the running program key
+(``obs.compiled.collective_counts``): :func:`all_gather` (over the whole
+mesh), :func:`all_reduce` (SUM or MAX over one dim, ``"data"`` by
+default) and :func:`permute` (a ring's collective permute over one dim,
+the pipeline's). The process group's backend decides how a tensor on the
+card reaches the collective: NCCL takes it as it is; gloo, which has no
+collectives for CUDA tensors, gets a host copy. A gloo all-reduce or
+permute is copied back to the tensor's device; a gloo all-gather stays on
+the host, where the splice reads it. The helpers take a ``GridMesh`` or,
+for dims other than ``("data", "model")`` (the pipeline's ``"stage"``), a
+``DeviceMesh`` from :func:`make_mesh`. The process group itself is
+joined, left and shrunk here too (:func:`start_process_group`,
+:func:`regroup`): no other module of the port reaches
+``torch.distributed``.
 """
 
 from __future__ import annotations
@@ -46,7 +54,9 @@ from repro_torch.obs.compiled import note_collective
 
 __all__ = [
     "GridMesh", "ScenarioMesh", "as_scenario_mesh", "pad_to", "edge_repeat",
-    "scen_rows", "all_gather", "all_reduce",
+    "scen_rows", "all_gather", "all_reduce", "permute", "mesh_axes",
+    "mesh_shape", "dim_size", "dim_rank", "make_mesh", "start_process_group",
+    "end_process_group", "process_rank", "regroup",
 ]
 
 _DIMS = ("data", "model")
@@ -349,15 +359,65 @@ def as_scenario_mesh(mesh) -> GridMesh | None:
 
 
 # --------------------------------------------------------------------------
-# The two collectives
+# The collectives
 # --------------------------------------------------------------------------
 
-def all_gather(mesh: GridMesh, t: torch.Tensor) -> torch.Tensor:
-    """Gather ``t`` (the same shape on every rank) from the whole mesh:
-    ``(n_shards, *t.shape)`` in rank order, on ``t``'s device under NCCL
-    and on the host under gloo (which stages through it; the splice reads
-    the blocks there, so they do not go back to the card). Recorded as one
-    ``all-gather`` of the running program."""
+def _group(mesh, dim: str):
+    """The process group of ``mesh``'s dim ``dim`` for this rank, or None
+    when the dim is this process alone (one rank wide, or no mesh)."""
+    if dim_size(mesh, dim) == 1:
+        return None
+    return (mesh.mesh if isinstance(mesh, GridMesh) else mesh).get_group(dim)
+
+
+def mesh_axes(mesh) -> tuple[str, ...]:
+    """The axis names of any mesh the port takes: none for None, always
+    ``("data", "model")`` for a ``GridMesh`` (the model dim 1 wide where
+    it has none), a stand-in's ``axis_names`` (the dry-run's meshes, never
+    built), a ``DeviceMesh``'s dim names."""
+    if mesh is None:
+        return ()
+    if isinstance(mesh, GridMesh):
+        return _DIMS
+    if hasattr(mesh, "axis_names"):
+        return tuple(mesh.axis_names)
+    return tuple(mesh.mesh_dim_names or ())
+
+
+def mesh_shape(mesh) -> dict[str, int]:
+    """Axis name -> size of any mesh ``mesh_axes`` takes (a stand-in's
+    from its ``shape`` mapping)."""
+    if mesh is None:
+        return {}
+    if isinstance(mesh, GridMesh):
+        return {"data": mesh.data_shards, "model": mesh.model_shards}
+    if hasattr(mesh, "axis_names"):
+        return {a: int(mesh.shape[a]) for a in mesh.axis_names}
+    return dict(zip(mesh.mesh_dim_names, (int(n) for n in mesh.mesh.shape)))
+
+
+def dim_size(mesh, dim: str) -> int:
+    """Ranks along ``mesh``'s dim ``dim`` (1 for None and for a
+    ``GridMesh``'s absent model dim)."""
+    return 1 if mesh is None else mesh_shape(mesh)[dim]
+
+
+def dim_rank(mesh, dim: str) -> int:
+    """This rank's position along ``mesh``'s dim ``dim``."""
+    if mesh is None:
+        return 0
+    if isinstance(mesh, GridMesh):
+        return {"data": mesh.data_rank, "model": mesh.model_rank}[dim]
+    return int(mesh.get_local_rank(dim))
+
+
+def all_gather(mesh, t: torch.Tensor) -> torch.Tensor:
+    """Gather ``t`` (the same shape on every rank) from the whole mesh (a
+    ``GridMesh`` spanning the process group): ``(n_shards, *t.shape)`` in
+    rank order, on ``t``'s device under NCCL and on the host under gloo
+    (which stages through it; the engine's splice reads the blocks there,
+    and a caller that wants them on the card copies them back). Recorded
+    as one ``all-gather`` of the running program."""
     note_collective("all-gather")
     dist = _dist()
     if mesh.mesh is None or dist is None:
@@ -374,19 +434,129 @@ def all_gather(mesh: GridMesh, t: torch.Tensor) -> torch.Tensor:
     return torch.stack(parts)
 
 
-def all_reduce(mesh: GridMesh, t: torch.Tensor) -> torch.Tensor:
-    """Sum ``t`` over the ``"data"`` dim, in place (every ``"model"``
-    column reduces on its own). Recorded as one ``all-reduce`` of the
-    running program."""
+def all_reduce(mesh, t: torch.Tensor, dim: str = "data",
+               op: str = "sum") -> torch.Tensor:
+    """Reduce ``t`` over the dim ``dim`` of ``mesh`` (a ``GridMesh`` or a
+    ``DeviceMesh``), in place (every line along the other dims reduces on
+    its own). ``op`` is ``"sum"`` or ``"max"``. Recorded as one
+    ``all-reduce`` of the running program."""
     note_collective("all-reduce")
-    dist = _dist()
-    if mesh.mesh is None or dist is None:
+    group = _group(mesh, dim)
+    if group is None:
         return t
-    group = mesh.mesh.get_group("data")
+    import torch.distributed as dist
+
+    red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
     if dist.get_backend(group) == "nccl":
-        dist.all_reduce(t, group=group)
+        dist.all_reduce(t, op=red, group=group)
         return t
     host = t.cpu()
-    dist.all_reduce(host, group=group)
+    dist.all_reduce(host, op=red, group=group)
     t.copy_(host)
     return t
+
+
+def permute(mesh, t: torch.Tensor, dim: str) -> torch.Tensor:
+    """The collective permute of a ring along ``mesh``'s dim ``dim``: each
+    rank sends ``t`` to the next rank (the last to the first) and returns
+    what the one before it sent (same shape and dtype), on ``t``'s device;
+    a paired send and receive, staged through the host under gloo.
+    Recorded as one ``collective-permute``."""
+    note_collective("collective-permute")
+    group = _group(mesh, dim)
+    if group is None:
+        return t
+    import torch.distributed as dist
+
+    ranks = dist.get_process_group_ranks(group)
+    i, n = dist.get_rank(group), len(ranks)
+    nccl = dist.get_backend(group) == "nccl"
+    send = t.contiguous() if nccl else t.cpu()
+    recv = torch.empty_like(send)
+    for req in dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, send, ranks[(i + 1) % n], group),
+            dist.P2POp(dist.irecv, recv, ranks[(i - 1) % n], group)]):
+        req.wait()
+    return recv if nccl else recv.to(t.device)
+
+
+# --------------------------------------------------------------------------
+# Process groups and meshes of ranks
+# --------------------------------------------------------------------------
+
+def start_process_group(backend: str, init_method: str = "env://",
+                        world_size: int = -1, rank: int = -1,
+                        timeout_s: float = 600.0) -> None:
+    """Join a process group over ``backend`` (``torchrun``'s environment by
+    default): NCCL for one rank a card, gloo for CPU ranks and for ranks
+    that share a card (``_check_backend``). A ``tcp://host:port`` group
+    gets a store of its own, served by its rank 0: under ``torchrun``
+    torch's ``tcp://`` rendezvous would join the launcher's store instead,
+    which serves no such port, and wait there until the timeout."""
+    import datetime
+    import urllib.parse
+
+    import torch.distributed as dist
+
+    timeout = datetime.timedelta(seconds=timeout_s)
+    if init_method.startswith("tcp://"):
+        url = urllib.parse.urlparse(init_method)
+        store = dist.TCPStore(url.hostname, url.port, world_size, rank == 0,
+                              timeout)
+        dist.init_process_group(backend, store=store, world_size=world_size,
+                                rank=rank, timeout=timeout)
+        return
+    dist.init_process_group(backend, init_method=init_method,
+                            world_size=world_size, rank=rank,
+                            timeout=timeout)
+
+
+def end_process_group() -> None:
+    """Leave the process group, if this process is in one."""
+    dist = _dist()
+    if dist is not None:
+        dist.destroy_process_group()
+
+
+def process_rank() -> tuple[int, int]:
+    """(rank, world size) of this process in its group; (0, 1) without
+    one."""
+    dist = _dist()
+    if dist is None:
+        return 0, 1
+    return dist.get_rank(), dist.get_world_size()
+
+
+def regroup(ranks: int, init_method: str) -> bool:
+    """The elastic restart's shrink: leave the process group and form a
+    new one, through ``init_method``, of its first ``ranks`` ranks (same
+    backend; ``GridMesh.create`` then builds its meshes over the new
+    group). Returns whether this process is in the new group; a process
+    that is not has left every group. Every rank of the old group calls
+    it."""
+    import torch.distributed as dist
+
+    rank, _ = process_rank()
+    backend = dist.get_backend()
+    dist.destroy_process_group()
+    if rank >= ranks:
+        return False
+    start_process_group(backend, init_method, ranks, rank)
+    return True
+
+
+def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...]):
+    """A ``DeviceMesh`` of ``shape`` with dims ``axes`` over every rank of
+    the process group (CUDA ranks under NCCL, CPU ranks under gloo; the
+    pipeline's ``("stage",)``, for tests and elastic re-shards). Exported
+    as ``launch.mesh.make_mesh``, the reference's name."""
+    dist = _dist()
+    if dist is None:
+        raise ValueError("a DeviceMesh needs an initialised process group "
+                         "(start_process_group)")
+    _check_backend(dist)
+    from torch.distributed.device_mesh import init_device_mesh
+
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return init_device_mesh(device_type, tuple(shape),
+                            mesh_dim_names=tuple(axes))

@@ -48,7 +48,7 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.device import kernel_library
+from repro_torch.device import PLAIN_DEVICES, kernel_library
 from repro_torch.kernels import LAUNCHES
 from repro_torch.obs.compiled import record_launch
 
@@ -56,7 +56,7 @@ __all__ = ["flash_attention_fwd", "flash_attention_strided",
            "launch_cuda_core", "tensor_core_route",
            "tma_layout", "bshd_view", "attention_plain", "attn_pairs",
            "flash_work", "NEG_INF", "FlashAttention", "flash_forward_lse",
-           "flash_backward", "BLOCK_Q", "BLOCK_K"]
+           "flash_backward", "flash_backward_work", "BLOCK_Q", "BLOCK_K"]
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -238,6 +238,24 @@ def flash_work(q, k, v, out, causal: bool, window: int, prefix: int,
             "ops": {"bf16" if q.dtype == torch.bfloat16 else "f32": n_ops}}
 
 
+def flash_backward_work(q, k, v, causal: bool, window: int,
+                        prefix: int) -> dict:
+    """Work of one attention backward (``flash_backward``'s function) on
+    (B, S, heads, dh) operands: q, k, v, the output, its gradient and the
+    log-sum-exp read once, dq, dk, dv written once, and 10 dh operations
+    (five products' multiply-adds: the scores again, dP, dV, dQ, dK) per
+    visible (query, key) pair and query head, at the bfloat16 rate for
+    bfloat16 operands (a backward on the tensor cores; the port's runs in
+    float32 torch ops)."""
+    B, Sq, H, dh = q.shape
+    io = 2 * q.numel() * q.element_size() + B * H * Sq * 4
+    n_bytes = io + 2 * sum(t.numel() * t.element_size() for t in (q, k, v))
+    n_ops = 10 * dh * attn_pairs(Sq, k.shape[1], causal, window, prefix) \
+        * B * H
+    return {"bytes": n_bytes,
+            "ops": {"bf16" if q.dtype == torch.bfloat16 else "f32": n_ops}}
+
+
 def _launch_cuda_core(q, k, v, out, causal, window, prefix,
                       lse=None) -> None:
     B, Sq, H, dh = q.shape
@@ -307,12 +325,13 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
                         prefix: int = 0):
     """q: (BH, Sq, dh) — batch*q_heads flattened; k/v: (BK, Sk, dh) with
     BH % BK == 0 (GQA group = BH // BK). Returns (BH, Sq, dh) in q.dtype.
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    CPU and meta tensors take the plain version; CUDA tensors launch the
+    kernel."""
     BH, Sq, dh = q.shape
     BK, Sk, _ = k.shape
     if BH % BK or k.shape != (BK, Sk, dh) or v.shape != k.shape:
         raise ValueError("flash_attention_fwd: inconsistent shapes")
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return attention_plain(q, k, v, causal=causal, window=window,
                                prefix=prefix)
     out = torch.empty((BH, Sq, dh), dtype=q.dtype, device=q.device)
@@ -335,10 +354,11 @@ def bshd_view(t):
 def flash_forward_lse(q, k, v, *, causal: bool = True, window: int = 0,
                       prefix: int = 0):
     """q: (B, Sq, H, dh), k/v: (B, Sk, K, dh) -> (out (B, Sq, H, dh) in
-    q.dtype, lse (B, H, Sq) float32). CPU tensors take the plain version
-    and its logsumexp; CUDA tensors launch the kernel, which writes both."""
+    q.dtype, lse (B, H, Sq) float32). CPU and meta tensors take the plain
+    version and its logsumexp; CUDA tensors launch the kernel, which writes
+    both."""
     B, Sq, H, dh = q.shape
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return attention_plain_bshd(q, k, v, causal=causal, window=window,
                                     prefix=prefix, return_lse=True)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)

@@ -1,9 +1,9 @@
 """The kernels as the models call them (the reference's ``kernels/ops.py``).
 
 ``flash_attention`` takes the models' (B, S, H, dh) layout; ``ssd`` the
-chunked SSD scan. CPU tensors take the plain versions; CUDA tensors launch
-the kernels or raise. Where autograd records (grad enabled and an input
-that requires grad) both go through their autograd Functions
+chunked SSD scan. CPU and meta tensors take the plain versions; CUDA
+tensors launch the kernels or raise. Where autograd records (grad enabled
+and an input that requires grad) both go through their autograd Functions
 (``flash_attention.FlashAttention``, ``ssd_scan.SSDScan``), whose forwards
 are the same kernels (the flash kernel then also writing its log-sum-exp);
 serving under ``inference_mode`` launches as before.
@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.device import PLAIN_DEVICES
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ssd_scan as ss
 
@@ -29,7 +30,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     """q: (B, Sq, H, dh); k/v: (B, Sk, K, dh) -> (B, Sq, H, dh) in q.dtype."""
     if _records(q, k, v):
         return fa.FlashAttention.apply(q, k, v, causal, window, prefix)
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return fa.attention_plain_bshd(q, k, v, causal=causal, window=window,
                                        prefix=prefix)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -43,7 +44,7 @@ def ssd(x, dt, A, B, C, *, chunk: int = 128, init_state=None):
     starts from a zero state: a CUDA call with ``init_state`` raises."""
     if init_state is None and _records(x, dt, A, B, C):
         return ss.SSDScan.apply(x, dt, A, B, C, chunk)
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return ss.ssd_scan_plain(x, dt, A, B, C, chunk, init_state)
     if init_state is not None:
         raise NotImplementedError(

@@ -40,7 +40,7 @@ import functools
 
 import torch
 
-from repro_torch.device import kernel_library
+from repro_torch.device import PLAIN_DEVICES, kernel_library
 from repro_torch.kernels import LAUNCHES
 from repro_torch.obs.compiled import (
     HBM_BYTES_PER_S,
@@ -49,7 +49,8 @@ from repro_torch.obs.compiled import (
 )
 
 __all__ = ["ssd_scan", "ssd_scan_plain", "ssd_plan", "smem_bytes",
-           "vector_ok", "ssd_ops", "ssd_bounds", "ssd_work", "SSDScan"]
+           "vector_ok", "ssd_ops", "ssd_bounds", "ssd_work",
+           "ssd_backward_work", "SSDScan"]
 
 GRID_X_LIMIT = 2 ** 31 - 1   # largest x grid dimension
 GRID_LIMIT = 65535           # largest y and z grid dimension
@@ -246,18 +247,35 @@ def ssd_work(x, dt, A, B, C, y, state, chunk: int) -> dict:
             "ops": ops}
 
 
+def ssd_backward_work(x, dt, A, B, C, chunk: int) -> dict:
+    """Work of one scan backward (``SSDScan.backward``'s function): x, dt,
+    A, B, C, the gradients of y and of the final state read once, the
+    gradients of x, dt, A, B, C written once, and each product of
+    ``ssd_ops`` twice (a product's two operand gradients), at the rates
+    ``ssd_work`` counts them."""
+    Bb, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    x_ops, other_ops = ssd_ops(Bb, S, H, P, G, N, min(chunk, S))
+    x_class = "bf16" if x.dtype == torch.bfloat16 else "tf32"
+    ops = {"tf32": 6 * other_ops}
+    ops[x_class] = ops.get(x_class, 0) + 6 * x_ops
+    ins = sum(t.numel() * t.element_size() for t in (x, dt, A, B, C))
+    return {"bytes": 2 * ins + x.numel() * x.element_size()
+            + Bb * H * P * N * 4, "ops": ops}
+
+
 def ssd_scan(x, dt, A, B, C, chunk: int = 128):
     """x: (Bb, S, H, P) float32 or bfloat16; dt: (Bb, S, H); A: (H,);
     B/C: (Bb, S, G, N), float32. Returns (y, final_state): y (Bb, S, H, P)
-    in x.dtype, state (Bb, H, P, N) float32. CPU tensors take the plain
-    version; CUDA tensors launch the kernel, which reads x through its
+    in x.dtype, state (Bb, H, P, N) float32. CPU and meta tensors take the
+    plain version; CUDA tensors launch the kernel, which reads x through its
     strides (a copy only when its last dim is not contiguous)."""
     Bb, S, H, P = x.shape
     G, N = B.shape[2], B.shape[3]
     if dt.shape != (Bb, S, H) or A.shape != (H,) \
             or B.shape != (Bb, S, G, N) or C.shape != B.shape or H % G:
         raise ValueError("ssd_scan: inconsistent shapes")
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return ssd_scan_plain(x, dt, A, B, C, chunk)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan has no kernel for {x.device}")

@@ -1,12 +1,113 @@
-"""Step factories (the reference's ``launch/steps.py``, without shardings):
-the train step with gradient accumulation, and the greedy serve steps."""
+"""Step factories + sharding trees for train / prefill / decode (the
+reference's ``launch/steps.py``).
+
+The shardings bind the logical rules to a mesh: ``fitted`` gives each
+tensor's divisibility-safe spec as a ``NamedSharding``, whose
+``shard_shape`` is a position's block shape on any mesh (the dry-run's
+production meshes included) and whose ``block`` is the slice a rank of a
+live mesh holds. The dry-run, the trainer and the server share these.
+
+``make_train_step`` is the one-card step; ``ShardedTrainStep`` the meshed
+one, which keeps each rank's shards of the masters and moments between
+steps.
+"""
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-__all__ = ["make_train_step", "make_prefill_step", "make_decode_step"]
+from repro_torch.distributed.sharding import (
+    NamedSharding, P, ShardingRules, logical_to_spec)
+from repro_torch.engine.mesh import all_gather, all_reduce, mesh_shape
+from repro_torch.obs.compiled import program
+from repro_torch.optim import AdamW, OptState
 
+__all__ = [
+    "make_train_step", "make_prefill_step", "make_decode_step",
+    "train_shardings", "prefill_shardings", "decode_shardings",
+    "named", "fitted", "batch_axes_tree", "ShardedTrainStep",
+]
+
+
+def _tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts (and ``rest``, alike)."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def named(mesh, spec_tree):
+    """Spec tree -> ``NamedSharding`` tree."""
+    return _tree_map(lambda s: NamedSharding(mesh, s), spec_tree)
+
+
+def _fit_spec(spec: P, shape: tuple[int, ...], mesh) -> P:
+    """Drop mesh axes that do not divide the corresponding dim (replicate
+    fallback) — a block layout needs exact divisibility. E.g. kv_heads=4
+    cannot split over model=16, so the K/V projections replicate over the
+    model axis."""
+    sizes = mesh_shape(mesh)
+    out = []
+    for i, entry in enumerate(spec):
+        if entry is None or i >= len(shape):
+            out.append(None)
+            continue
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        kept: list[str] = []
+        size = 1
+        for a in axes:
+            n = sizes[a]
+            if shape[i] % (size * n) == 0:
+                kept.append(a)
+                size *= n
+        if not kept:
+            out.append(None)
+        elif len(kept) == 1:
+            out.append(kept[0])
+        else:
+            out.append(tuple(kept))
+    return P(*out)
+
+
+def _shape(x) -> tuple[int, ...]:
+    return tuple(x.shape) if hasattr(x, "shape") else tuple(x)
+
+
+def fitted(mesh, spec_tree, shapes_tree):
+    """Shape-aware ``NamedSharding`` tree (divisibility-safe); the shapes
+    are tensors (``meta`` ones will do) or tuples."""
+    return _tree_map(
+        lambda s, sh: NamedSharding(mesh, _fit_spec(s, _shape(sh), mesh)),
+        spec_tree, shapes_tree)
+
+
+def batch_axes_tree(model, mode: str) -> dict:
+    """Logical axes for the input batch dict of each mode."""
+    cfg = model.cfg
+    if mode in ("train", "prefill"):
+        t = {"tokens": ("batch", "seq")}
+        if cfg.kind == "encdec":
+            t["frames"] = ("batch", "seq", None)
+        if cfg.kind == "vlm":
+            t["vision"] = ("batch", "seq", None)
+        if mode == "train":
+            t["labels"] = ("batch", "seq")
+        return t
+    return {"token": ("cache_batch", None)}
+
+
+def _param_specs(model, rules, params_shapes) -> dict:
+    """The model's parameter specs, in ``params_shapes``' order."""
+    spec = logical_to_spec(rules, model.axes())
+    return {n: spec[n] for n in params_shapes}
+
+
+# ---------------------------------------------------------------------------
+# train
+# ---------------------------------------------------------------------------
 
 def make_train_step(model, optimizer, n_microbatches: int = 1):
     """``train_step(opt_state, batch) -> (opt_state, metrics)`` on the
@@ -30,9 +131,7 @@ def make_train_step(model, optimizer, n_microbatches: int = 1):
             loss = loss.detach()
         else:
             loss = torch.zeros((), device=next(iter(params.values())).device)
-            for i in range(n):
-                mb = {k: x.reshape((n, x.shape[0] // n) + x.shape[1:])[i]
-                      for k, x in batch.items()}
+            for mb in _microbatches(batch, n):
                 mb_loss = model.loss(mb)
                 mb_loss.backward()
                 loss = loss + mb_loss.detach()
@@ -51,6 +150,213 @@ def make_train_step(model, optimizer, n_microbatches: int = 1):
     return train_step
 
 
+def _microbatches(batch: dict, n: int):
+    """The reference's contiguous microbatch slices of ``batch``."""
+    for i in range(n):
+        yield {k: x.reshape((n, x.shape[0] // n) + x.shape[1:])[i]
+               for k, x in batch.items()}
+
+
+def train_shardings(model, rules: ShardingRules, mesh, params_shapes,
+                    opt_shapes: OptState, batch_shapes):
+    """((params, opt state, batch), (params, opt state, metrics)) sharding
+    trees of the train step; the opt state's as an ``OptState``."""
+    p_spec = _param_specs(model, rules, params_shapes)
+    p_sh = fitted(mesh, p_spec, params_shapes)
+    opt_sh = OptState(step=NamedSharding(mesh, P()),
+                      m=fitted(mesh, p_spec, opt_shapes.m),
+                      v=fitted(mesh, p_spec, opt_shapes.v))
+    b_spec = logical_to_spec(rules, batch_axes_tree(model, "train"))
+    b_sh = fitted(mesh, b_spec, batch_shapes)
+    metrics_sh = named(mesh, {"loss": P(), "grad_norm": P(), "step": P()})
+    return (p_sh, opt_sh, b_sh), (p_sh, opt_sh, metrics_sh)
+
+
+# Flat gradient slots start on 512-byte boundaries, the caching allocator's
+# alignment: a reduction over a view then runs as over a tensor of its own
+# (the card's reduce kernels vectorise by the pointer's alignment), so the
+# meshed step's grad norm is the one-card step's, bit for bit.
+_ALIGN = 128
+
+
+class ShardedTrainStep:
+    """The train step over a ``("data", "model")`` ``GridMesh``.
+
+    Between steps each rank holds exactly its shards of the float32
+    masters and of both AdamW moments, the blocks that the fitted specs of
+    ``model.axes()`` give its mesh position (``shards``, ``OptState`` of
+    shard dicts), and the model's parameters are empty. A step:
+
+    1. gathers the parameters: one all-gather of the rank's shards, flat,
+       from which every whole parameter is assembled (whole parameters
+       exist only during the step's forward and backward);
+    2. runs the model's forward and backward on the rank's own ``"data"``
+       rows of the global batch (``batch``: those rows; the reference's
+       ``"batch"`` constraints) in contiguous slices, accumulating into one
+       flat float32 buffer of the whole gradients with the loss in its
+       last slot. ``n_microbatches`` counts the global batch's slices, as
+       the reference's does: a multiple of ``"data"``, each rank taking
+       ``n_microbatches // data`` of them (one each when it is smaller);
+    3. sums that buffer over ``"data"``: one all-reduce; divides it by the
+       global microbatch count;
+    4. takes the grad norm over the whole gradients in the one-card order
+       and updates only the rank's shards with the elementwise AdamW.
+
+    So a step issues exactly two collectives (one all-gather, one
+    all-reduce), recorded under ``KEY``. Compute over ``"model"`` is
+    replicated, not split tensor-parallel (torch has no GSPMD; ROADMAP
+    queue C): the ranks of a ``"data"`` row compute the same gradients.
+    With ``data`` = 2 and two microbatches (one a rank) a step is the
+    one-card step with two microbatches bit for bit (float addition of two
+    terms commutes; the divisions are by powers of two); a ``data`` of 1 is
+    the one-card step with the same microbatches.
+
+    ``shard`` cuts this rank's shards from whole tensors (the seeded init
+    or a restored checkpoint; ``release`` then empties the model's
+    parameters); ``gather_state`` is the inverse, for a checkpoint (one
+    all-gather a tensor under ``CKPT_KEY``, whole tensors on the host).
+    """
+
+    KEY = "train.step:sharded"
+    CKPT_KEY = "train.ckpt:sharded"
+
+    def __init__(self, model, optimizer: AdamW, mesh,
+                 n_microbatches: int = 1):
+        self.model, self.opt, self.mesh = model, optimizer, mesh
+        data = mesh.data_shards
+        if n_microbatches > data and n_microbatches % data:
+            raise ValueError(f"{n_microbatches} microbatches do not split "
+                             f"over {data} data ranks")
+        self.n = max(1, n_microbatches // data)      # this rank's
+        self.div = float(self.n * data)              # the global count
+        self.params = dict(model.named_parameters())
+        self.shapes = {n: tuple(p.shape) for n, p in self.params.items()}
+        self.device = next(iter(self.params.values())).device
+        self.shardings = fitted(mesh, _param_specs(
+            model, ShardingRules.create(mesh), self.shapes), self.shapes)
+        coords = [{"data": d, "model": m} for d, m in mesh.rank_coords]
+        here = {"data": mesh.data_rank, "model": mesh.model_rank}
+        self.blocks = {n: s.block(self.shapes[n], here)
+                       for n, s in self.shardings.items()}
+        self.shard_shapes = {n: s.shard_shape(self.shapes[n])
+                             for n, s in self.shardings.items()}
+        # Per parameter, the ranks whose blocks tile it (one position for
+        # each combination of the axes its spec uses) and their blocks.
+        self.tiles = {}
+        for n, s in self.shardings.items():
+            used = {a for e in s.spec if e is not None
+                    for a in ((e,) if isinstance(e, str) else e)}
+            self.tiles[n] = [(r, s.block(self.shapes[n], c))
+                             for r, c in enumerate(coords)
+                             if all(c[a] == 0 for a in c if a not in used)]
+        self.grad_at, at = {}, 0
+        for n, shape in self.shapes.items():
+            self.grad_at[n] = at
+            at += -(-math.prod(shape) // _ALIGN) * _ALIGN
+        self.grad_size = at + 1          # the loss rides in the last slot
+
+    # -- state ----------------------------------------------------------------
+
+    @torch.no_grad()
+    def shard(self, full: dict) -> dict:
+        """This rank's shards (contiguous copies on the model's device) of
+        whole tensors ``full`` (name -> tensor, any device)."""
+        return {n: full[n][self.blocks[n]].to(self.device, copy=True)
+                .contiguous() for n in self.shapes}
+
+    def release(self) -> None:
+        """Empty the model's parameters (and drop their grads)."""
+        for p in self.params.values():
+            p.grad = None
+            p.data = torch.empty(0, dtype=p.dtype, device=self.device)
+
+    def shard_bytes(self) -> int:
+        """Bytes of one copy of this rank's shards."""
+        return sum(math.prod(s) for s in self.shard_shapes.values()) * 4
+
+    def _assemble(self, n: str, got: torch.Tensor, at: int, device):
+        """Parameter ``n`` whole on ``device``, from the all-gathered
+        shards ``got`` (rank, flat), its own starting at ``at``."""
+        t = torch.empty(self.shapes[n], dtype=torch.float32, device=device)
+        size = math.prod(self.shard_shapes[n])
+        for r, blk in self.tiles[n]:
+            t[blk] = got[r, at:at + size].view(self.shard_shapes[n])
+        return t
+
+    @torch.no_grad()
+    def _gather(self, shards: dict) -> dict:
+        """Whole parameters on the model's device from every rank's
+        ``shards`` (this rank's given): one all-gather of them all, flat."""
+        flat = torch.cat([shards[n].reshape(-1) for n in self.shapes])
+        got = all_gather(self.mesh, flat).to(self.device)
+        del flat
+        whole, at = {}, 0
+        for n in self.shapes:
+            whole[n] = self._assemble(n, got, at, self.device)
+            at += math.prod(self.shard_shapes[n])
+        return whole
+
+    @torch.no_grad()
+    def gather_state(self, shards: dict, opt_state: OptState,
+                     keep: bool = True):
+        """(whole parameters, whole ``OptState``) on the host, from every
+        rank's shards of the masters and moments, for a checkpoint; None on
+        a rank that passes ``keep=False``. Every rank calls it. One
+        all-gather a tensor (``3 x`` the parameter count, under
+        ``CKPT_KEY``), each assembled where the gather left it and copied
+        to the host: a save adds at most two whole tensors to the card's
+        memory (the gathered shards and their assembly), not the state."""
+        out = [{}, {}, {}]
+        with program(self.CKPT_KEY):
+            for d, part in zip(out, (shards, opt_state.m, opt_state.v)):
+                for n in self.shapes:
+                    got = all_gather(self.mesh, part[n].reshape(-1))
+                    if keep:
+                        d[n] = self._assemble(n, got, 0, got.device).cpu()
+                    del got
+        if not keep:
+            return None
+        p, m, v = out
+        return p, OptState(step=opt_state.step.to("cpu", copy=True), m=m,
+                           v=v)
+
+    # -- the step ---------------------------------------------------------------
+
+    def __call__(self, shards: dict, opt_state: OptState, batch: dict):
+        """One step from this rank's ``shards`` and ``opt_state`` (updated
+        in place) on its ``batch`` rows -> (opt_state, metrics), metrics as
+        ``make_train_step``'s."""
+        with program(self.KEY):
+            whole = self._gather(shards)
+            grads = torch.zeros(self.grad_size, device=self.device)
+            views = {}
+            for n, p in self.params.items():
+                p.data = whole[n]
+                views[n] = grads[self.grad_at[n]:self.grad_at[n]
+                                 + p.numel()].view(p.shape)
+                p.grad = views[n]
+            del whole
+            loss = torch.zeros((), device=self.device)
+            for mb in _microbatches(batch, self.n):
+                mb_loss = self.model.loss(mb)
+                mb_loss.backward()
+                loss = loss + mb_loss.detach()
+            self.release()
+            grads[-1] = loss
+            all_reduce(self.mesh, grads)
+            grads.div_(torch.tensor(self.div, device=self.device))
+            gnorm = self.opt.global_norm(views)
+            self.opt.update({n: views[n][self.blocks[n]] for n in views},
+                            opt_state, shards, gnorm=gnorm)
+            loss = grads[-1].clone()
+        return opt_state, {"loss": loss, "grad_norm": gnorm,
+                           "step": opt_state.step.clone()}
+
+
+# ---------------------------------------------------------------------------
+# serve: prefill + decode
+# ---------------------------------------------------------------------------
+
 def _greedy(logits):
     return logits[:, -1, :].argmax(dim=-1, keepdim=True).to(torch.int32)
 
@@ -64,6 +370,19 @@ def make_prefill_step(model, max_len: int | None = None):
     return prefill_step
 
 
+def prefill_shardings(model, rules: ShardingRules, mesh, params_shapes,
+                      batch_shapes, cache_shapes):
+    p_spec = _param_specs(model, rules, params_shapes)
+    b_spec = logical_to_spec(rules, batch_axes_tree(model, "prefill"))
+    cache_spec = logical_to_spec(rules, model.cache_axes())
+    B = _shape(batch_shapes["tokens"])[0]
+    tok = fitted(mesh, rules.spec("cache_batch", None), (B, 1))
+    in_s = (fitted(mesh, p_spec, params_shapes),
+            fitted(mesh, b_spec, batch_shapes))
+    out_s = (tok, fitted(mesh, cache_spec, cache_shapes))
+    return in_s, out_s
+
+
 def make_decode_step(model):
     """One-token greedy serve step: (cache, token, pos) -> (next_token,
     cache)."""
@@ -72,3 +391,16 @@ def make_decode_step(model):
         return _greedy(logits), cache
 
     return decode_step
+
+
+def decode_shardings(model, rules: ShardingRules, mesh, params_shapes,
+                     cache_shapes, token_shape):
+    p_spec = _param_specs(model, rules, params_shapes)
+    cache_spec = logical_to_spec(rules, model.cache_axes())
+    tok = fitted(mesh, rules.spec("cache_batch", None), token_shape)
+    pos = NamedSharding(mesh, P())
+    p_sh = fitted(mesh, p_spec, params_shapes)
+    c_sh = fitted(mesh, cache_spec, cache_shapes)
+    in_s = (p_sh, c_sh, tok, pos)
+    out_s = (tok, c_sh)
+    return in_s, out_s

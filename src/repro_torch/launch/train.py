@@ -1,7 +1,9 @@
-"""Trainer CLI on one card (the reference's ``launch/train.py``).
+"""Elastic trainer CLI (the reference's ``launch/train.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama_1_1b \\
         --smoke --steps 30 --device cpu [--preempt-at 20] [--resume]
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+        --arch tinyllama_1_1b --smoke --steps 30 [--elastic-demo]
 
 What it runs: the model's own init from a seeded ``torch.Generator`` on the
 device (a fresh start), ``launch.steps.make_train_step`` with AdamW on the
@@ -11,14 +13,24 @@ device), async checkpoints with an atomic commit every ``ckpt_every`` steps
 and at the last, and preemption: ``preempt_at`` waits for the save in
 flight and stops before that step, as a spot reclaim would; ``resume``
 restores the latest committed step and goes on from there, bit for bit the
-run that was not stopped on the CPU. ``--elastic-demo`` preempts half way
-and resumes on the same card.
+run that was not stopped on the CPU.
 
-Left out, for the port's ``distributed/`` slice (ROADMAP A11.8): the
-reference's ``_mesh_for`` and ``train_shardings`` (its mesh of devices and
-the shardings of the step) and ``donate_argnums`` (the port updates the
-parameters and moments in place, which is what donation buys). Its elastic
-restart onto fewer devices is a restart on the same card here.
+On a mesh (``mesh=``: a ``GridMesh``, or a rank count for ``_mesh_for``;
+under ``torchrun`` one rank a card over NCCL, the reference's
+``_mesh_for`` shape) each step is ``launch.steps.ShardedTrainStep``: every
+rank keeps only its shards of the masters and moments and trains on its
+``"data"`` rows of the global batch. Checkpoints keep the one-card flat
+tree (``_state_tree``): the ranks gather it to rank 0's host a tensor at
+a time, rank 0 writes it, and every rank restores the whole tree and
+keeps its shard, so a run preempted on one mesh resumes on a smaller one,
+or on one card without a process group (the reference's elastic restart
+onto fewer devices). ``--elastic-demo``
+preempts half way and, under ``torchrun``, shrinks the process group to
+its first half of the ranks (``engine.mesh.regroup``: a new group formed
+in the same launch, the reference's ``jax.devices()[:half]``), which
+resume on the mesh of that half; without ``torchrun`` it resumes in the
+same process. ``donate_argnums`` has no counterpart: the port updates its
+tensors in place, which is what donation buys.
 """
 
 from __future__ import annotations
@@ -33,12 +45,29 @@ from repro_torch.ckpt import CheckpointManager
 from repro_torch.configs import ARCH_NAMES, get_config, smoke_config
 from repro_torch.data import SyntheticTokens, make_batches
 from repro_torch.device import resolve_device
+from repro_torch.engine.mesh import (
+    GridMesh, all_gather, end_process_group, process_rank, regroup,
+    start_process_group)
 from repro_torch.launch import steps as step_lib
 from repro_torch.models import build
 from repro_torch.obs import span
+from repro_torch.obs.compiled import program
 from repro_torch.optim import AdamW, OptState, cosine_schedule
 
 __all__ = ["train_loop", "main"]
+
+
+def _mesh_for(n: int | None = None) -> GridMesh:
+    """The reference's mesh of ``n`` ranks (default: every rank of the
+    process group): ("data", "model") with a model dim of 4, 2 or 1,
+    whichever divides ``n`` first."""
+    n = process_rank()[1] if n is None else n
+    model = 1
+    for m in (4, 2, 1):
+        if n % m == 0 and n >= m:
+            model = m
+            break
+    return GridMesh.create(n // model, model)
 
 
 def _extras(cfg, seq_len: int) -> dict:
@@ -51,10 +80,10 @@ def _extras(cfg, seq_len: int) -> dict:
     return extras
 
 
-def _state_tree(model, opt_state: OptState) -> dict:
-    """The flat checkpoint of a run: the model's state dict, then
-    ``opt.m.<name>``, ``opt.v.<name>`` and ``opt.step``."""
-    tree = dict(model.state_dict())
+def _state_tree(params: dict, opt_state: OptState) -> dict:
+    """The flat checkpoint of a run: the model's state dict (``params``),
+    then ``opt.m.<name>``, ``opt.v.<name>`` and ``opt.step``."""
+    tree = dict(params)
     tree.update({f"opt.m.{n}": t for n, t in opt_state.m.items()})
     tree.update({f"opt.v.{n}": t for n, t in opt_state.v.items()})
     tree["opt.step"] = opt_state.step
@@ -71,10 +100,19 @@ def _load(tree: dict, loaded: dict) -> None:
 def train_loop(cfg, steps: int, ckpt_dir: str, global_batch: int = 8,
                seq_len: int = 128, device="cuda", resume: bool = False,
                preempt_at: int | None = None, log_every: int = 10,
-               ckpt_every: int = 20, microbatches: int = 1):
-    """Train ``cfg`` for ``steps`` steps on ``device`` (default the GPU).
-    Returns {"status": "done" or "preempted", "step", "losses" (this run's,
-    one float per step), "final_loss"}."""
+               ckpt_every: int = 20, microbatches: int = 1, mesh=None):
+    """Train ``cfg`` for ``steps`` steps on ``device`` (default the GPU),
+    on one card (``mesh`` None: no process group, no collective) or on a
+    mesh of ranks (a ``GridMesh``, or a rank count for ``_mesh_for``; every
+    rank calls it). ``microbatches`` counts the global batch's slices on
+    any mesh (``ShardedTrainStep``), so one run resumes on another mesh
+    with the same steps. Returns {"status": "done" or "preempted", "step",
+    "losses" (this run's, one float per step), "final_loss"}."""
+    if mesh is not None:
+        mesh = _mesh_for(mesh) if isinstance(mesh, int) else mesh
+        return _train_meshed(cfg, steps, ckpt_dir, global_batch, seq_len,
+                             device, resume, preempt_at, log_every,
+                             ckpt_every, microbatches, mesh)
     dev = resolve_device(device)
     model = build(cfg, dev)
     params = dict(model.named_parameters())
@@ -89,35 +127,108 @@ def train_loop(cfg, steps: int, ckpt_dir: str, global_batch: int = 8,
 
     start = 0
     if resume and mgr.latest_step() is not None:
-        tree = _state_tree(model, opt_state)
+        tree = _state_tree(model.state_dict(), opt_state)
         loaded, start = mgr.restore(tree, device=dev)
         _load(tree, loaded)
         print(f"[train] restored step {start} onto {dev}")
     else:
         model.init_weights(torch.Generator(dev).manual_seed(0))
 
+    return _run(ds, start, steps, dev, lambda b: step_fn(opt_state, b)[1],
+                lambda s: mgr.save(s, _state_tree(model.state_dict(),
+                                                  opt_state)),
+                mgr.wait, preempt_at, log_every, ckpt_every)
+
+
+def _run(ds, start, steps, dev, run_step, save, wait, preempt_at, log_every,
+         ckpt_every, say=print) -> dict:
+    """The loop both paths share: steps ``start``..``steps`` - 1 of
+    ``ds``'s batches through ``run_step(batch) -> metrics`` (the state is
+    updated in place), ``save(step)`` every ``ckpt_every`` steps and at the
+    last, ``wait()`` (the save in flight committed) at a preemption and at
+    the end."""
     losses = []
     window = 0.0
     for s, host_batch in make_batches(ds, start, steps - start):
         if preempt_at is not None and s == preempt_at:
-            mgr.wait()
-            print(f"[train] PREEMPTED at step {s} (spot reclaim simulated)")
+            wait()
+            say(f"[train] PREEMPTED at step {s} (spot reclaim simulated)")
             return {"status": "preempted", "step": s, "losses": losses}
         with span("train.step", step=s) as sp:
             batch = {k: torch.as_tensor(v, device=dev)
                      for k, v in host_batch.items()}
-            opt_state, metrics = step_fn(opt_state, batch)
-            losses.append(float(metrics["loss"]))
+            losses.append(float(run_step(batch)["loss"]))
         window += sp.seconds
         if (s + 1) % log_every == 0:
-            print(f"[train] step {s + 1} loss {losses[-1]:.4f} "
-                  f"({window / log_every * 1e3:.0f} ms/step)")
+            say(f"[train] step {s + 1} loss {losses[-1]:.4f} "
+                f"({window / log_every * 1e3:.0f} ms/step)")
             window = 0.0
         if (s + 1) % ckpt_every == 0 or s + 1 == steps:
-            mgr.save(s + 1, _state_tree(model, opt_state))
-    mgr.wait()
+            save(s + 1)
+    wait()
     return {"status": "done", "step": steps, "losses": losses,
             "final_loss": losses[-1] if losses else None}
+
+
+def _committed(mesh: GridMesh, mgr: CheckpointManager, lead: bool,
+               dev: torch.device) -> None:
+    """Rank 0 waits for its save in flight to commit, then every rank
+    passes one all-gather of a token on the run's device ``dev`` (NCCL
+    takes CUDA tensors only): no rank goes on (to a resume that reads the
+    checkpoint) before it is on disk."""
+    if lead:
+        mgr.wait()
+    with program(step_lib.ShardedTrainStep.CKPT_KEY):
+        all_gather(mesh, torch.zeros(1, device=dev))
+
+
+def _train_meshed(cfg, steps, ckpt_dir, global_batch, seq_len, device,
+                  resume, preempt_at, log_every, ckpt_every, microbatches,
+                  mesh: GridMesh):
+    """``train_loop`` on ``mesh``: ``ShardedTrainStep`` on each rank's
+    ``"data"`` rows, checkpoints as the one-card loop's."""
+    dev = resolve_device(device)
+    mesh.check_device(dev)
+    lead = process_rank()[0] == 0
+    say = print if lead else (lambda *a, **k: None)
+    model = build(cfg, dev)
+    opt = AdamW(lr=cosine_schedule(3e-4, 10, steps))
+    mgr = CheckpointManager(ckpt_dir)
+    ds = SyntheticTokens(cfg.vocab, global_batch, seq_len,
+                         extras=_extras(cfg, seq_len),
+                         host_rank=mesh.data_rank,
+                         host_count=mesh.data_shards)
+    step_fn = step_lib.ShardedTrainStep(model, opt, mesh, microbatches)
+
+    start = 0
+    if resume and mgr.latest_step() is not None:
+        meta = {n: torch.empty(s, device="meta")
+                for n, s in step_fn.shapes.items()}
+        step = torch.empty((), dtype=torch.int32, device="meta")
+        loaded, start = mgr.restore(_state_tree(
+            meta, OptState(step=step, m=meta, v=meta)))
+        pick = lambda pre: {n: loaded[pre + n] for n in meta}  # noqa: E731
+        shards = step_fn.shard(pick(""))
+        opt_state = OptState(step=loaded["opt.step"].to(dev),
+                             m=step_fn.shard(pick("opt.m.")),
+                             v=step_fn.shard(pick("opt.v.")))
+        say(f"[train] restored step {start} onto a {mesh.data_shards}x"
+            f"{mesh.model_shards} mesh (elastic re-shard)")
+    else:
+        model.init_weights(torch.Generator(dev).manual_seed(0))
+        shards = step_fn.shard(dict(model.named_parameters()))
+        opt_state = opt.init(shards)
+    step_fn.release()
+
+    def save(step: int) -> None:
+        state = step_fn.gather_state(shards, opt_state, keep=lead)
+        if lead:
+            mgr.save(step, _state_tree(*state))
+
+    return _run(ds, start, steps, dev,
+                lambda b: step_fn(shards, opt_state, b)[1], save,
+                lambda: _committed(mesh, mgr, lead, dev), preempt_at,
+                log_every, ckpt_every, say)
 
 
 def main(argv=None):
@@ -135,22 +246,48 @@ def main(argv=None):
     p.add_argument("--resume", action="store_true")
     p.add_argument("--preempt-at", type=int, default=None)
     p.add_argument("--elastic-demo", action="store_true",
-                   help="preempt half way, resume on the same card")
+                   help="preempt half way, resume on half the ranks (the "
+                        "same process without torchrun)")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
 
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    common = dict(global_batch=args.batch, seq_len=args.seq,
-                  device=args.device, microbatches=args.microbatches)
-    if args.elastic_demo:
-        r = train_loop(cfg, args.steps, args.ckpt_dir,
-                       preempt_at=args.steps // 2, **common)
-        print(f"[train] restart after {r['step']} on the same device")
-        r = train_loop(cfg, args.steps, args.ckpt_dir, resume=True, **common)
-    else:
-        r = train_loop(cfg, args.steps, args.ckpt_dir, resume=args.resume,
-                       preempt_at=args.preempt_at, **common)
-    print(f"[train] finished: {r['status']} at step {r['step']}")
+    device, mesh = args.device, None
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:   # torchrun
+        if torch.device(device).type == "cuda":
+            local = int(os.environ.get("LOCAL_RANK", 0))
+            torch.cuda.set_device(local)
+            device = f"cuda:{local}"
+        start_process_group(
+            "nccl" if torch.device(device).type == "cuda" else "gloo")
+        mesh = _mesh_for()
+    lead = process_rank()[0] == 0
+    common = dict(global_batch=args.batch, seq_len=args.seq, device=device,
+                  microbatches=args.microbatches)
+    try:
+        if args.elastic_demo:
+            r = train_loop(cfg, args.steps, args.ckpt_dir,
+                           preempt_at=args.steps // 2, mesh=mesh, **common)
+            if mesh is not None:
+                keep = max(1, process_rank()[1] // 2)
+                addr = os.environ.get("MASTER_ADDR", "localhost")
+                port = int(os.environ.get("MASTER_PORT", 29500)) + 1
+                if not regroup(keep, f"tcp://{addr}:{port}"):
+                    return r
+                mesh = _mesh_for()
+            if lead:
+                print(f"[train] elastic restart after {r['step']} on "
+                      f"{process_rank()[1]} rank(s)")
+            r = train_loop(cfg, args.steps, args.ckpt_dir, resume=True,
+                           mesh=mesh, **common)
+        else:
+            r = train_loop(cfg, args.steps, args.ckpt_dir,
+                           resume=args.resume, preempt_at=args.preempt_at,
+                           mesh=mesh, **common)
+    finally:
+        end_process_group()
+    if lead:
+        print(f"[train] finished: {r['status']} at step {r['step']}")
     return r
 
 

@@ -1,9 +1,10 @@
 """Model zoo entry point: ``build(cfg, device)`` returns the family's
 ``nn.Module``, which exposes ``init_weights``, ``forward``, ``prefill``,
-``decode``, ``init_cache``, ``loss`` and ``param_count`` with the same
-signatures in every family (the encoder-decoder's ``init_cache`` also
-takes the encoder's length; ``loss`` and ``param_count`` come from
-``models/lm.py``).
+``decode``, ``init_cache``, ``axes``, ``cache_axes`` (the logical axes of
+the parameters, keyed by state-dict name, and of the cache), ``loss`` and
+``param_count`` with the same signatures in every family (the
+encoder-decoder's ``init_cache`` also takes the encoder's length;
+``loss`` and ``param_count`` come from ``models/lm.py``).
 Every kind of the reference is ported: the decoder (dense, moe and vlm
 share it, as in the reference), Mamba-2, the Hymba hybrid and the
 encoder-decoder."""

@@ -17,9 +17,24 @@ from torch import nn
 
 from repro_torch.models import layers as ll
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.lm import LM, remat
+from repro_torch.models.lm import LM, layer_axes, remat
 
-__all__ = ["Decoder"]
+__all__ = ["Decoder", "ATTN_AXES", "FFN_AXES", "KV_CACHE_AXES"]
+
+# The reference's per-layer logical axes without its "layers" entry.
+ATTN_AXES = {
+    "wq": ("fsdp", "heads", None),
+    "wk": ("fsdp", "kv_heads", None),
+    "wv": ("fsdp", "kv_heads", None),
+    "wo": ("heads", None, "fsdp"),
+}
+FFN_AXES = {
+    "w_gate": ("fsdp", "d_ff"),
+    "w_up": ("fsdp", "d_ff"),
+    "w_down": ("d_ff", "fsdp"),
+}
+# The (L, B, S, K, dh) key and value caches, stacked as the reference's.
+KV_CACHE_AXES = ("layers", "cache_batch", "cache_seq", None, None)
 
 
 def _param(*shape, device, fill=None) -> nn.Parameter:
@@ -135,6 +150,36 @@ class Decoder(LM):
             ll.dense_init_(self.lm_head.data, gen)
         if self.vision_proj is not None:
             ll.dense_init_(self.vision_proj.data, gen)
+
+    def axes(self) -> dict:
+        """Logical axes of every parameter, keyed by state-dict name (the
+        reference's ``axes`` with the stacks' ``"layers"`` entry dropped)."""
+        cfg = self.cfg
+        attn = dict(ATTN_AXES)
+        if cfg.qkv_bias:
+            attn.update(bq=("heads", None), bk=("kv_heads", None),
+                        bv=("kv_heads", None))
+        if cfg.kind == "moe":
+            ffn = {"router": (None, "experts"),
+                   "experts": {"w_gate": ("experts", "fsdp", None),
+                               "w_up": ("experts", "fsdp", None),
+                               "w_down": ("experts", None, "fsdp")}}
+            if cfg.n_shared_experts:
+                ffn["shared"] = FFN_AXES
+        else:
+            ffn = FFN_AXES
+        a = {"embed": ("vocab", "fsdp"),
+             **layer_axes("layers", cfg.n_layers, {
+                 "ln1": (None,), "ln2": (None,), "attn": attn, "ffn": ffn}),
+             "final_norm": (None,)}
+        if not cfg.tie_embeddings:
+            a["lm_head"] = ("fsdp", "vocab")
+        if cfg.kind == "vlm":
+            a["vision_proj"] = ("fsdp", None)
+        return a
+
+    def cache_axes(self) -> dict:
+        return {"k": KV_CACHE_AXES, "v": KV_CACHE_AXES}
 
     def _embed(self, tokens, vision=None):
         """Token embeddings; a vlm prepends the projected patches."""

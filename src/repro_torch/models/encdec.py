@@ -20,8 +20,9 @@ from torch import nn
 
 from repro_torch.models import layers as ll
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.decoder import Attention, SwiGLU, _param
-from repro_torch.models.lm import LM, remat
+from repro_torch.models.decoder import (
+    ATTN_AXES, FFN_AXES, KV_CACHE_AXES, Attention, SwiGLU, _param)
+from repro_torch.models.lm import LM, layer_axes, remat
 
 __all__ = ["EncDec"]
 
@@ -79,6 +80,25 @@ class EncDec(LM):
         for blk in (*self.enc_layers, *self.dec_layers):
             blk.init_weights(gen)
         ll.dense_init_(self.lm_head.data, gen)
+
+    def axes(self) -> dict:
+        """Logical axes of every parameter, keyed by state-dict name (the
+        reference's ``axes`` with the stacks' ``"layers"`` entry dropped)."""
+        cfg, norm = self.cfg, (None,)
+        return {"frame_proj": ("fsdp", None),
+                "embed": ("vocab", "fsdp"),
+                **layer_axes("enc_layers", cfg.n_enc_layers, {
+                    "ln1": norm, "ln2": norm, "attn": ATTN_AXES,
+                    "ffn": FFN_AXES}),
+                "enc_norm": norm,
+                **layer_axes("dec_layers", cfg.n_layers, {
+                    "ln1": norm, "ln2": norm, "attn": ATTN_AXES,
+                    "ffn": FFN_AXES, "ln_cross": norm, "cross": ATTN_AXES}),
+                "final_norm": norm,
+                "lm_head": ("fsdp", "vocab")}
+
+    def cache_axes(self) -> dict:
+        return dict.fromkeys(("k", "v", "cross_k", "cross_v"), KV_CACHE_AXES)
 
     def _dtype(self):
         return getattr(torch, self.cfg.dtype)

@@ -26,9 +26,11 @@ from torch import nn
 
 from repro_torch.models import layers as ll
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.decoder import Attention, SwiGLU, _param
-from repro_torch.models.lm import LM, remat
-from repro_torch.models.ssm import Mixer, _dims, _mix
+from repro_torch.models.decoder import (
+    ATTN_AXES, FFN_AXES, Attention, SwiGLU, _param)
+from repro_torch.models.lm import LM, layer_axes, remat
+from repro_torch.models.ssm import (
+    MIXER_AXES, STATE_CACHE_AXES, Mixer, _dims, _mix)
 
 __all__ = ["Hybrid"]
 
@@ -73,6 +75,25 @@ class Hybrid(LM):
         for blk in self.layers:
             blk.init_weights(gen)
         ll.dense_init_(self.lm_head.data, gen)
+
+    def axes(self) -> dict:
+        """Logical axes of every parameter, keyed by state-dict name (the
+        reference's ``axes`` with the stack's ``"layers"`` entry dropped)."""
+        norms = dict.fromkeys(("ln1", "ln2", "norm_attn", "norm_ssm"),
+                              (None,))
+        return {"embed": ("vocab", "fsdp"),
+                "meta": (None, None),
+                **layer_axes("layers", self.cfg.n_layers, {
+                    **norms, "attn": ATTN_AXES, "ssm": MIXER_AXES,
+                    "ffn": FFN_AXES}),
+                "final_norm": (None,),
+                "lm_head": ("fsdp", "vocab")}
+
+    def cache_axes(self) -> dict:
+        """The window cache is small: its sequence is not split."""
+        window = ("layers", "cache_batch", None, None, None)
+        return {"k": window, "v": window, "slot_pos": (None,),
+                **STATE_CACHE_AXES}
 
     def _embed(self, tokens):
         return self.embed[tokens].to(getattr(torch, self.cfg.dtype))

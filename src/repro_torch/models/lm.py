@@ -1,7 +1,8 @@
 """What every family of the model zoo shares for training: ``loss`` (the
-reference's ``Model.loss``), ``param_count``, and ``remat``, which
-recomputes a block in the backward (the reference's ``jax.checkpoint`` per
-block under ``cfg.remat``)."""
+reference's ``Model.loss``), ``param_count``, ``remat``, which recomputes
+a block in the backward (the reference's ``jax.checkpoint`` per block
+under ``cfg.remat``), and ``layer_axes``, which spells a family's
+per-layer logical axes out over the port's state-dict names."""
 
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed.xent import cross_entropy
 
-__all__ = ["LM", "AUX_LOSS_WEIGHT", "remat"]
+__all__ = ["LM", "AUX_LOSS_WEIGHT", "remat", "layer_axes"]
 
 AUX_LOSS_WEIGHT = 0.01  # MoE load-balance loss weight
 
@@ -24,6 +25,23 @@ def remat(cfg, fn, *args):
     if cfg.remat and torch.is_grad_enabled():
         return checkpoint(fn, *args, use_reentrant=False)
     return fn(*args)
+
+
+def layer_axes(prefix: str, n: int, tree: dict) -> dict:
+    """The reference's axes of a scan-stacked subtree (``tree``: nested
+    dicts of logical-axis tuples, without the leading ``"layers"`` entry)
+    as the port's flat names: ``<prefix>.<l>.<path>`` for l < n."""
+    flat = {}
+
+    def walk(node, path):
+        for key, sub in node.items():
+            if isinstance(sub, dict):
+                walk(sub, path + (key,))
+            else:
+                flat[".".join(path + (key,))] = sub
+
+    walk(tree, ())
+    return {f"{prefix}.{i}.{k}": v for i in range(n) for k, v in flat.items()}
 
 
 class LM(nn.Module):

@@ -20,11 +20,28 @@ from torch import nn
 from repro_torch.models import layers as ll
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.decoder import _param
-from repro_torch.models.lm import LM, remat
+from repro_torch.models.lm import LM, layer_axes, remat
 
-__all__ = ["Mamba", "Mixer"]
+__all__ = ["Mamba", "Mixer", "MIXER_AXES", "STATE_CACHE_AXES"]
 
 G = 1  # SSD groups (mamba2 default ngroups=1)
+
+# The reference's per-layer logical axes of the mixer, without "layers".
+MIXER_AXES = {
+    "in_proj": ("fsdp", "d_ff"),     # wide dim TP-sharded
+    "conv_w": (None, "d_ff"),
+    "conv_b": ("d_ff",),
+    "A_log": (None,),
+    "D_skip": (None,),
+    "dt_bias": (None,),
+    "out_norm": ("d_ff",),
+    "out_proj": ("d_ff", "fsdp"),
+}
+# The (L, B, H, P, N) SSD and (L, B, K - 1, C) conv states.
+STATE_CACHE_AXES = {
+    "ssd": ("layers", "cache_batch", None, "ssm_p", None),
+    "conv": ("layers", "cache_batch", None, "conv_ch"),
+}
 
 
 def _dims(cfg: ModelConfig):
@@ -131,6 +148,18 @@ class Mamba(LM):
         for blk in self.layers:
             blk.init_weights(gen)
         ll.dense_init_(self.lm_head.data, gen)
+
+    def axes(self) -> dict:
+        """Logical axes of every parameter, keyed by state-dict name (the
+        reference's ``axes`` with the stack's ``"layers"`` entry dropped)."""
+        return {"embed": ("vocab", "fsdp"),
+                **layer_axes("layers", self.cfg.n_layers,
+                             {"ln": (None,), **MIXER_AXES}),
+                "final_norm": (None,),
+                "lm_head": ("fsdp", "vocab")}
+
+    def cache_axes(self) -> dict:
+        return dict(STATE_CACHE_AXES)
 
     def _embed(self, tokens):
         return self.embed[tokens].to(getattr(torch, self.cfg.dtype))

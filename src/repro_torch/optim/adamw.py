@@ -50,16 +50,27 @@ class AdamW:
         return OptState(step=torch.zeros((), dtype=torch.int32, device=dev),
                         m=zeros(), v=zeros())
 
+    @staticmethod
+    def global_norm(grads: dict) -> torch.Tensor:
+        """The global norm of ``grads`` (name -> tensor), summed in their
+        order: 0-d float32."""
+        return torch.sqrt(sum(g.float().square().sum()
+                              for g in grads.values()))
+
     @torch.no_grad()
     def update(self, grads: dict, state: OptState,
-               params: dict[str, torch.Tensor]):
+               params: dict[str, torch.Tensor], gnorm=None):
         """One step on ``params`` (name -> tensor) from ``grads`` (name ->
         tensor, or None for a parameter the loss did not reach: a zero
-        gradient). Parameters, moments and step update in place. Returns
-        (params, state, grad_norm): the global norm before clipping, 0-d."""
+        gradient). Parameters, moments and step update in place. ``gnorm``
+        is the global norm when ``params`` and ``grads`` are a rank's shards
+        of the whole (the meshed step takes it over the whole gradients);
+        None takes it over ``grads``. Returns (params, state, grad_norm):
+        the global norm before clipping, 0-d."""
         gs = {n: (torch.zeros_like(p) if grads.get(n) is None else grads[n])
               for n, p in params.items()}
-        gnorm = torch.sqrt(sum(g.float().square().sum() for g in gs.values()))
+        if gnorm is None:
+            gnorm = self.global_norm(gs)
         scale = torch.clamp(self.clip_norm / (gnorm + 1e-9), max=1.0)
         state.step.add_(1)
         step = state.step

@@ -218,9 +218,12 @@ def test_phi3_vision_serve_tensors_take_the_tensor_cores(monkeypatch):
     assert fa.tensor_core_route(q, k, v, torch.empty(q.shape, dtype=BF16))
 
 
-def test_tensor_core_route_launches_or_raises_off_the_cpu():
+def test_tensor_core_route_launches_or_raises_off_the_cpu(monkeypatch):
     """A call that the rule sends to the tensor cores, on a device with no
-    kernel, raises through every entry point, and no launch is counted."""
+    kernel, raises through every entry point, and no launch is counted.
+    Meta tensors stand for such a device: the launchers raise for them, and
+    so do the wrappers once meta is not a plain device; as a plain device
+    (the dry-run's shapes without data) meta takes the plain version."""
     LAUNCHES.clear()
     q = torch.zeros((1, 64, 8, 64), dtype=BF16, device="meta")
     k = torch.zeros((1, 64, 2, 64), dtype=BF16, device="meta")
@@ -228,9 +231,13 @@ def test_tensor_core_route_launches_or_raises_off_the_cpu():
     for call in (fa.flash_attention_strided, fa.launch_cuda_core):
         with pytest.raises(ValueError, match="no kernel"):
             call(q, k, k, torch.empty_like(q))
+    rows = q[0].transpose(0, 1), k[0].transpose(0, 1), k[0].transpose(0, 1)
+    assert ops.flash_attention(q, k, k).shape == q.shape
+    assert fa.flash_attention_fwd(*rows).shape == rows[0].shape
+    for mod in (ops, fa):
+        monkeypatch.setattr(mod, "PLAIN_DEVICES", ("cpu",))
     with pytest.raises(ValueError, match="no kernel"):
         ops.flash_attention(q, k, k)
     with pytest.raises(ValueError, match="no kernel"):
-        fa.flash_attention_fwd(q[0].transpose(0, 1), k[0].transpose(0, 1),
-                               k[0].transpose(0, 1))
+        fa.flash_attention_fwd(*rows)
     assert not LAUNCHES

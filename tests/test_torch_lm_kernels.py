@@ -4,6 +4,8 @@
 bfloat16, the SSD scan 1e-4. Inputs are made with numpy from a seed. The
 CUDA kernels themselves run only on the card (``chip_smoke.py``)."""
 
+import importlib
+
 import numpy as np
 import pytest
 
@@ -138,21 +140,28 @@ def test_ssd_init_state_on_the_cpu_matches_oracle():
     np.testing.assert_allclose(st.numpy(), _f32(sr), atol=1e-4, rtol=1e-4)
 
 
-def test_wrappers_launch_or_raise_off_the_cpu():
-    """Only CPU tensors take the plain versions; any other device launches
-    the kernel or raises (here: a device with no kernel at all). No plain
-    version runs and no launch is counted."""
+def test_wrappers_launch_or_raise_off_the_cpu(monkeypatch):
+    """Only CPU and meta tensors take the plain versions; any other device
+    launches the kernel or raises (here: meta tensors standing for a device
+    with no kernel at all, once meta is not a plain device). No plain
+    version runs there and no launch is counted."""
     LAUNCHES.clear()
     q = torch.zeros((2, 8, 16), device="meta")
-    with pytest.raises(ValueError, match="no kernel"):
-        flash_attention_fwd(q, q[:1], q[:1])
     x4 = torch.zeros((1, 8, 2, 16), device="meta")
-    with pytest.raises(ValueError, match="no kernel"):
-        ops.flash_attention(x4, x4[:, :, :1], x4[:, :, :1])
     x = torch.zeros((1, 8, 2, 4), device="meta")
     dt = torch.zeros((1, 8, 2), device="meta")
     A = torch.zeros((2,), device="meta")
     Bm = torch.zeros((1, 8, 1, 4), device="meta")
+    assert flash_attention_fwd(q, q[:1], q[:1]).device.type == "meta"
+    assert ssd_scan(x, dt, A, Bm, Bm)[0].shape == x.shape
+    for mod in ("ops", "flash_attention", "ssd_scan"):
+        # the modules (the package attributes of two names are functions)
+        monkeypatch.setattr(importlib.import_module(
+            f"repro_torch.kernels.{mod}"), "PLAIN_DEVICES", ("cpu",))
+    with pytest.raises(ValueError, match="no kernel"):
+        flash_attention_fwd(q, q[:1], q[:1])
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.flash_attention(x4, x4[:, :, :1], x4[:, :, :1])
     with pytest.raises(ValueError, match="no kernel"):
         ssd_scan(x, dt, A, Bm, Bm)
     with pytest.raises(NotImplementedError, match="zero state"):

@@ -217,7 +217,7 @@ def test_only_obs_trace_reads_a_clock(path):
 
 
 # ---------------------------------------------------------------------------
-# Every collective is one of engine/mesh.py's two counted helpers, so
+# Every collective is one of engine/mesh.py's three counted helpers, so
 # obs.compiled.collective_counts sees all that the port can issue
 # ---------------------------------------------------------------------------
 
@@ -298,7 +298,8 @@ def test_only_engine_mesh_issues_collectives(path):
         # other function of the module issues any
         assert _collective_calls(tree) == {
             "all_gather": {"all_gather", "all_gather_into_tensor"},
-            "all_reduce": {"all_reduce"}}
+            "all_reduce": {"all_reduce"},
+            "permute": {"batch_isend_irecv"}}
     else:
         lines = _dist_reach(tree)
         assert not lines, \
@@ -361,8 +362,10 @@ def test_every_bounded_cache_is_registered():
 OMITTED = {
     "analysis": set(),
     "ckpt": set(),
+    "configs": set(),
     "core": set(),
     "data": set(),
+    "distributed": set(),
     "engine": {"available_backends", "resolve_backend",
                "setup_persistent_cache"},
     "kernels": {"policy_cost_batch"},
@@ -370,12 +373,15 @@ OMITTED = {
     "optim": set(),
 }
 # Names the port adds: its own result types, the launch counter, the
-# launch-capture hook, and the engine's scenario batches and sources.
+# launch-capture hook, the engine's scenario batches and sources, and the
+# registry's list of ported architectures.
 ADDED = {
     "analysis": set(),
     "ckpt": set(),
+    "configs": {"PORTED"},
     "core": {"JobCost", "TaskCost", "TolaResult"},
     "data": set(),
+    "distributed": set(),
     "engine": {"MarketListBatch", "SCENARIO_KINDS", "ScenarioSource",
                "SynthBatch"},
     "kernels": {"LAUNCHES"},
@@ -411,3 +417,57 @@ def test_a13_names_are_the_port_s_own():
     assert kernels.ssd is ops.ssd
     q = torch.randn(1, 5, 2, 8, generator=torch.Generator().manual_seed(0))
     assert kernels.flash_attention(q, q, q).shape == q.shape
+
+
+# The reference's launch/ modules and their public names (its __all__, or
+# its public top-level definitions where it has none), and what the port
+# leaves out: hlo_analysis (the whole module: trip-count-aware FLOPs and
+# bytes of XLA HLO text) and the dry-run's collective_bytes, which parse
+# the HLO text that torch does not produce, and the dry-run's append_cache,
+# which writes benchmarks/roofline_cache.json (the port's dry-run writes
+# JSON lines under build/archive/ and never there). The port adds the
+# production mesh's abstract type, the dry-run's archive path, the fitted
+# shardings and the meshed train step.
+LAUNCH_OMITTED = {"dryrun": {"collective_bytes", "append_cache"},
+                  "hlo_analysis": None, "mesh": set(), "serve": set(),
+                  "steps": set(), "train": set(), "variants": set()}
+LAUNCH_ADDED = {"dryrun": {"ARCHIVE"}, "mesh": {"AbstractMesh"},
+                "serve": set(), "steps": {"fitted", "ShardedTrainStep"},
+                "train": set(), "variants": set()}
+
+
+def _public_names(path) -> set[str]:
+    """A module's ``__all__``, or its public top-level definitions, read
+    from its source (importing the reference's dry-run would set its
+    512-device XLA flag in this process)."""
+    tree = ast.parse(path.read_text())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(
+                isinstance(t, ast.Name) and t.id == "__all__"
+                for t in node.targets):
+            return set(ast.literal_eval(node.value))
+    return {n.name for n in tree.body
+            if isinstance(n, (ast.FunctionDef, ast.ClassDef))
+            and not n.name.startswith("_")}
+
+
+@pytest.mark.parametrize("module", sorted(LAUNCH_OMITTED))
+def test_launch_modules_match_the_reference(module):
+    import importlib
+
+    ref_path = REPO / "src" / "repro" / "launch" / f"{module}.py"
+    assert ref_path.is_file()
+    assert {p.stem for p in ref_path.parent.glob("*.py")} \
+        == set(LAUNCH_OMITTED)
+    port_path = REPO / "src" / "repro_torch" / "launch" / f"{module}.py"
+    if LAUNCH_OMITTED[module] is None:
+        assert not port_path.exists()
+        return
+    ref = _public_names(ref_path)
+    port_mod = importlib.import_module(f"repro_torch.launch.{module}")
+    assert LAUNCH_OMITTED[module] <= ref
+    assert not LAUNCH_ADDED[module] & ref
+    assert set(port_mod.__all__) \
+        == (ref - LAUNCH_OMITTED[module]) | LAUNCH_ADDED[module]
+    for name in port_mod.__all__:
+        assert hasattr(port_mod, name), name

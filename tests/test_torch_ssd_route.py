@@ -143,11 +143,16 @@ def test_vector_ok_needs_16_byte_rows():
     assert not ss.vector_ok(torch.empty((1, 8, 1, 18)), 18)
 
 
-def test_non_cuda_tensors_raise_and_count_nothing():
+def test_non_cuda_tensors_raise_and_count_nothing(monkeypatch):
+    """Meta tensors stand for a device with no kernel once meta is not a
+    plain device (as one, they take the plain version)."""
     LAUNCHES.clear()
     x = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16, device="meta")
     dt = torch.zeros((1, 8, 2), device="meta")
     Bm = torch.zeros((1, 8, 1, 16), device="meta")
+    y, _ = ss.ssd_scan(x, dt, torch.zeros((2,), device="meta"), Bm, Bm)
+    assert y.device.type == "meta" and y.shape == x.shape
+    monkeypatch.setattr(ss, "PLAIN_DEVICES", ("cpu",))
     with pytest.raises(ValueError, match="no kernel"):
         ss.ssd_scan(x, dt, torch.zeros((2,), device="meta"), Bm, Bm)
     with pytest.raises(ValueError, match="inconsistent"):
