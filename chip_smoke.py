@@ -151,7 +151,7 @@ Phases, each failing the run with a non-zero exit:
    scenario, built with the cache off on the card and on the CPU: starts,
    ends, z_t, d_eff and pins equal by ``torch.equal``, the self-owned sums
    equal; (c) ``table6.run`` on the regime and the adversarial families
-   (2000 jobs, cut from the Table 6 stream for the time limit and the cut
+   (1000 jobs, cut from the Table 6 stream for the time limit and the cut
    printed; S = 2, r in {0, 1200}, hedge), the launch counters set to
    0 before each and read after: both cost kernels launched, every alpha
    finite and in (0, p_od]; the groups its calls took from the plan cache
@@ -170,14 +170,14 @@ Phases, each failing the run with a non-zero exit:
    1e-5 of ``spec.materialize()`` through the list path (unit costs more
    than 1e-5 apart counted, not bounded), ``reduce="mean"`` within rtol
    1e-12 of the stacked mean; (c) ``replay_stream`` of exp4's 21
-   instances over a fresh spec with S = 64 in chunks of 8 at r = 1200 and
+   instances over a fresh spec with S = 32 in chunks of 8 at r = 1200 and
    r = 0, the launch counters set to 0 before each: the chain, Hedge and
    learner kernels once per chunk; at S = 16 its summary against
    ``replay`` over the monolithic tensor at the reference's bars; (d) the
    adaptive adversary (S = 64, chunks of 8, r = 1200) ends ``"locked"``,
    its issued chunks rebuilt give the host's availability on the card, its
    Hedge regret printed beside the fixed adversarial family's; (e)
-   ``table6.run`` on the adaptive family (2000 jobs, S = 16, chunk 8, r =
+   ``table6.run`` on the adaptive family (1000 jobs, S = 16, chunk 8, r =
    0) prints finite streamed rows;
 12. the cross-call caches and delta evaluation on Table 6's stream (the
    proposed r = 1200 round-0 grid, 175 policies in 65 groups; the fresh
@@ -300,20 +300,35 @@ Phases, each failing the run with a non-zero exit:
    memory it adds (at most two of the largest tensor), and ``train_loop``
    on the same NCCL group (the ``torchrun`` CLI's path) on the tinyllama
    float32 smoke config, preempted and resumed, bit for bit the card's
-   uninterrupted run; (b) a 2x2 mesh of four gloo ranks sharing the card, spawned with
-   a join timeout, each loading phase 1's libraries and building none: the
-   tinyllama and mamba2 float32 smoke configs' meshed steps (the CUDA-core
-   flash route and the SSD kernel, half the one-rank step's launches per
-   rank) bit for bit the card's one-rank steps with two microbatches, each
-   rank holding exactly three copies of its shard bytes between steps and
-   no whole parameter, two collectives a step; ``compressed_psum_tree`` bit
-   for bit its one-process emulation and within 2 % of the exact mean, and
-   ``pipeline_apply`` within 1e-5 of the sequential stages, over the four
-   ranks; ``train_loop`` preempted on the 2x2 mesh, the group shrunk to two
-   ranks (``engine.mesh.regroup``) and resumed on 1x2, bit for bit the
-   card's uninterrupted run. A rank on the CPU, or one that fails or hangs,
-   fails the run. Its time is printed against its 60 s budget; the kernels
-   line gains (a)'s flash launches per step and rank 0's launches in (b).
+   uninterrupted run; (b) a 2x2 mesh of four gloo ranks sharing the
+   card, spawned with a join timeout, each loading phase 1's libraries
+   and building none, the step split over ``"model"``
+   (``distributed/tensor_parallel.py``): the tinyllama, mamba2 and
+   olmoe float32 smoke configs' meshed steps (the CUDA-core flash route,
+   the SSD kernel and the split experts, half the one-rank step's
+   launches per rank), each step within 1e-5 of the card's one-rank step
+   from the same state (loss, grad norm, parameters but Adam's sign knife
+   edges, moments) and the losses within 1e-5 of the one-rank run's,
+   each rank holding exactly three copies of its shard bytes between
+   steps and no whole parameter, computing with less than the whole
+   model, and issuing the layer counts' all-reduces; ``compressed_psum_tree``
+   bit for bit its one-process emulation and within 2 % of the exact
+   mean, and ``pipeline_apply`` within 1e-5 of the sequential stages,
+   over the four ranks; ``train_loop`` preempted on the 2x2 mesh, the
+   group shrunk to two ranks (``engine.mesh.regroup``) and resumed on
+   1x2, within 1e-5 of the card's uninterrupted run; (c) on the same
+   ranks, tinyllama-1.1b and mamba2-2.7b at full width with the depth cut
+   to two layers, 2 x 1024 in two microbatches, two steps: the split
+   forward's first-batch logits within relative RMS 2e-2 of the one-rank
+   step's and each loss within 1e-2, every flash launch on
+   ``flash_fwd_tc`` at 16/2 heads and every SSD call at 40 heads (half
+   the one-rank step's launches a rank), the layer counts' all-reduces,
+   each rank's parameter bytes during the step against the one-rank
+   step's and its peak memory; then each kernel on rank 0's inputs
+   against its plain version, timed beside it and its bound. A rank on
+   the CPU, or one that fails or hangs, fails the run. Its time is
+   printed against its 120 s budget; the kernels line gains (a)'s flash
+   launches per step, rank 0's launches in (b) and (c)'s per-rank entry.
 
 Then one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` name and
 power-limit line, and last ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -348,7 +363,7 @@ PLAN_TOL = 1e-5      # absolute, on fixed alphas and unit costs, device vs host
 # Phase 10's families besides Table 6's fresh markets, and its grids: Table
 # 6's round-0 evaluations (label, grid, r, Even benchmark).
 PLAN_FAMILIES = ("regime", "adversarial")
-PLAN_FAMILY_JOBS = 2000  # (c)'s stream: phase 11 (e)'s driver depth
+PLAN_FAMILY_JOBS = 1000  # (c)'s stream: phase 11 (e)'s table6.run depth
 PLAN_GRIDS = [("proposed r=0", "spot_od", 0, False),
               ("proposed r=1200", "selfowned", 1200, False),
               ("even r=1200", "bench", 1200, True)]
@@ -361,9 +376,9 @@ PLAN_FIELDS = ("starts", "ends", "z_t", "d_eff", "pins")
 # against the monolithic replay (tests/test_scenarios.py:306-318) and its
 # reduce="mean" bar.
 STREAM_SEED = 1000
-STREAM_S = {"synth": 64, "eval": 16, "replay": 64, "adaptive": 64}
+STREAM_S = {"synth": 64, "eval": 16, "replay": 32, "adaptive": 64}
 STREAM_CHUNK = 8
-STREAM_DRIVER_JOBS = 2000
+STREAM_DRIVER_JOBS = 1000
 STREAM_C_TOL = 1e-4
 STREAM_REALIZED_RTOL, STREAM_REGRET_RTOL = 1e-12, 1e-9
 STREAM_MEAN_RTOL = 1e-12
@@ -400,12 +415,22 @@ MESH_KEYS = MESH_EVAL_KEYS + ("engine.gather:sharded", "learn.fold:sharded")
 # Phase 17, the mesh of the LM substrate: its budget, (a)'s store, (b)'s
 # smoke steps (shrink MESH_SMOKE_STEPS first if the script passes 1150 s),
 # preempted loop and compression and pipeline shapes (the CPU tests').
-MESH_TRAIN_BUDGET = 60.0     # seconds
+MESH_TRAIN_BUDGET = 120.0    # seconds
 MESH_TRAIN_DIR = pathlib.Path("build") / "archive" / "phase17"
-MESH_TRAIN_TIMEOUT = 240.0   # seconds for (b)'s four ranks, start to end
-MESH_SMOKE_ARCHS = ("tinyllama_1_1b", "mamba2_2_7b")
-MESH_SMOKE_BATCH, MESH_SMOKE_SEQ, MESH_SMOKE_STEPS = 4, 32, 3
+MESH_TRAIN_TIMEOUT = 400.0   # seconds for (b)/(c)'s four ranks, start to end
+MESH_SMOKE_ARCHS = ("tinyllama_1_1b", "mamba2_2_7b", "olmoe_1b_7b")
+MESH_SMOKE_BATCH, MESH_SMOKE_SEQ, MESH_SMOKE_STEPS = 4, 32, 2
 MESH_SMOKE_LR = 1e-2
+MESH_SPLIT_TOL = 1e-5        # relative, float32 split against one rank
+# (c): the split at full width, depth cut, against the one-rank steps.
+MESH_FULL_ARCHS = {"tinyllama_1_1b": "flash_attention",
+                   "mamba2_2_7b": "ssd_scan"}
+MESH_FULL_HEADS = {"tinyllama_1_1b": (16, 2), "mamba2_2_7b": (40,)}
+MESH_FULL_LAYERS = 2
+MESH_FULL_BATCH, MESH_FULL_SEQ, MESH_FULL_STEPS, MESH_FULL_MICRO = \
+    2, 1024, 2, 2
+MESH_FULL_LOGIT_TOL = 2e-2   # relative RMS, ROADMAP queue C's bf16 bar
+MESH_FULL_LOSS_TOL = 1e-2    # relative
 MESH_LOOP = dict(global_batch=4, seq_len=32, log_every=100, ckpt_every=2,
                  microbatches=2)
 MESH_LOOP_STEPS, MESH_LOOP_PREEMPT = 6, 4     # preempted at a checkpoint
@@ -4179,8 +4204,118 @@ def _smoke_config(arch: str):
     return dataclasses.replace(smoke_config(arch), dtype="float32")
 
 
+def split_reduces(cfg, m: int) -> int:
+    """All-reduces over ``"model"`` of one microbatch of a decoder, MoE or
+    Mamba-2 config on a ``"model"`` of ``m``, from its layer counts: the
+    lookup, the cross entropy's max and sums and the head's gradient, then
+    per block each split region's forward all-reduces (twice under remat)
+    and its backward ones (attention 1 and 1, SwiGLU 1 and 1, experts 1
+    and 2, the SSD mixer 2 and 2)."""
+    if m == 1:
+        return 0
+    top = 4 if cfg.vocab % m == 0 else 0
+    if cfg.kind == "ssm":
+        block = [(2, 2)] if cfg.n_ssm_heads % m == 0 else []
+    else:
+        block = [(1, 1)] if cfg.n_heads % m == 0 else []
+        if cfg.kind == "moe":
+            block += [(1, 2)] if cfg.n_experts % m == 0 else []
+        elif cfg.d_ff % m == 0:
+            block += [(1, 1)]
+    fwd = sum(f for f, _ in block) * cfg.n_layers
+    bwd = sum(b for _, b in block) * cfg.n_layers
+    return top + (2 if cfg.remat else 1) * fwd + bwd
+
+
+def _full_cut_config(arch: str):
+    """Phase 17 (c)'s config: ``arch`` at full width, depth cut."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), n_layers=MESH_FULL_LAYERS)
+
+
+def _full_batches(torch, cfg, rank: int = 0, count: int = 1) -> list:
+    from repro_torch.data import SyntheticTokens
+    ds = SyntheticTokens(cfg.vocab, MESH_FULL_BATCH, MESH_FULL_SEQ,
+                         host_rank=rank, host_count=count)
+    return [{k: torch.as_tensor(v, device="cuda")
+             for k, v in ds.batch(s).items()} for s in range(MESH_FULL_STEPS)]
+
+
+def mesh_full_rank(torch, mesh, arch: str, out: pathlib.Path,
+                   rank: int) -> dict:
+    """Phase 17 (c) on one rank of the 2x2 mesh: ``arch`` at full width
+    (depth cut), the split forward's logits of its rows, then its meshed
+    steps with the flash and SSD launches counted and their shapes seen;
+    rank 0 keeps one launch's inputs of each kernel."""
+    from repro_torch.kernels import LAUNCHES, ops
+    from repro_torch.launch.steps import ShardedTrainStep
+    from repro_torch.models import build
+    from repro_torch.obs import compiled
+    from repro_torch.optim import AdamW, cosine_schedule
+
+    cfg = _full_cut_config(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build(cfg, "cuda")
+    model.init_weights(torch.Generator("cuda").manual_seed(0))
+    whole_bytes = 4 * sum(p.numel() for p in model.parameters())
+    opt = AdamW(lr=cosine_schedule(3e-4, 10, 100))
+    step = ShardedTrainStep(model, opt, mesh, MESH_FULL_MICRO)
+    shards = step.shard(dict(model.named_parameters()))
+    step.release()
+    state = opt.init(shards)
+    data = _full_batches(torch, cfg, mesh.data_rank, mesh.data_shards)
+    seen = collections.Counter()
+    real = {"flash_attention": ops.flash_attention, "ssd": ops.ssd}
+
+    def keep(name, **tensors):
+        path = out / f"full_{arch}_{name}.pt"
+        if rank == 0 and not path.exists():
+            torch.save(tensors, path)
+
+    def flash(q, k, v, **kw):
+        seen[f"flash q {tuple(q.shape)} kv {tuple(k.shape)}"] += 1
+        keep("flash", q=q.detach(), k=k.detach(), v=v.detach(),
+             kw=torch.tensor([kw["causal"], kw["window"], kw["prefix"]]))
+        return real["flash_attention"](q, k, v, **kw)
+
+    def ssd(x, dt, A, B, C, *, chunk=128, init_state=None):
+        seen[f"ssd x {tuple(x.shape)} B {tuple(B.shape)}"] += 1
+        keep("ssd", x=x.detach(), dt=dt.detach(), A=A.detach(),
+             B=B.detach(), C=C.detach(), chunk=torch.tensor(chunk))
+        return real["ssd"](x, dt, A, B, C, chunk=chunk, init_state=init_state)
+
+    ops.flash_attention, ops.ssd = flash, ssd
+    rec = {"losses": [], "norms": [], "launches": [], "walls": [],
+           "counts": []}
+    try:
+        torch.save(step.logits(shards, data[0]).cpu(),
+                   out / f"full_{arch}_logits{rank}.pt")
+        for b in data:
+            seen.clear()
+            compiled.reset_collectives()
+            LAUNCHES.clear()
+            t0 = time.perf_counter()
+            state, m = step(shards, state, b)
+            torch.cuda.synchronize()
+            rec["walls"].append(time.perf_counter() - t0)
+            rec["launches"].append(dict(LAUNCHES))
+            rec["counts"].append(compiled.collective_counts(step.KEY))
+            rec["losses"].append(float(m["loss"]))
+            rec["norms"].append(float(m["grad_norm"]))
+    finally:
+        ops.flash_attention, ops.ssd = real["flash_attention"], real["ssd"]
+    rec.update(shapes=dict(seen), compute_bytes=step.compute_bytes(),
+               whole_bytes=whole_bytes, shard_bytes=step.shard_bytes(),
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    del model, step, shards, state, data
+    torch.cuda.empty_cache()
+    return rec
+
+
 def mesh_train_rank(rank: int, out_dir: str) -> None:
-    """One of phase 17 (b)'s four gloo ranks on the card (spawned)."""
+    """One of phase 17 (b) and (c)'s four gloo ranks on the card
+    (spawned)."""
     import datetime
     import os
 
@@ -4229,13 +4364,13 @@ def mesh_train_rank(rank: int, out_dir: str) -> None:
                                    for d in (shards, state.m, state.v)
                                    for t in d.values()),
                        "shard_bytes": step.shard_bytes(),
+                       "compute_bytes": step.compute_bytes(),
                        "whole_between": sum(p.numel()
                                             for p in model.parameters()),
-                       "allocated": torch.cuda.memory_allocated(),
                        "losses": [], "norms": [], "launches": [],
                        "counts": []}
-                for b in _smoke_batches(cfg, mesh.data_rank,
-                                        mesh.data_shards):
+                for s, b in enumerate(_smoke_batches(cfg, mesh.data_rank,
+                                                     mesh.data_shards)):
                     compiled.reset_collectives()
                     LAUNCHES.clear()
                     state, m = step(shards, state, {
@@ -4247,16 +4382,23 @@ def mesh_train_rank(rank: int, out_dir: str) -> None:
                         compiled.collective_counts(step.KEY)["total"])
                     rec["losses"].append(float(m["loss"]))
                     rec["norms"].append(float(m["grad_norm"]))
+                    got = step.gather_state(shards, state, keep=rank == 0)
+                    if got is not None:     # rank 0: the state after step s
+                        np.savez(out / f"smoke_{arch}_step{s + 1}.npz",
+                                 **{f"p.{n}": t.numpy()
+                                    for n, t in got[0].items()},
+                                 **{f"m.{n}": t.numpy()
+                                    for n, t in got[1].m.items()},
+                                 **{f"v.{n}": t.numpy()
+                                    for n, t in got[1].v.items()})
                 rec["whole_after"] = sum(p.numel()
                                          for p in model.parameters())
-                whole, whole_opt = step.gather_state(shards, state)
-                on_card = lambda d: {n: t.cuda() for n, t in d.items()}  # noqa: E731
-                rec["digests"] = state_digests(
-                    torch, on_card(whole), dataclasses.replace(
-                        whole_opt, m=on_card(whole_opt.m),
-                        v=on_card(whole_opt.v)))
                 meta[arch] = rec
-                del model, step, shards, state, whole, whole_opt
+                del model, step, shards, state
+
+            for arch in MESH_FULL_ARCHS:
+                meta[f"full {arch}"] = mesh_full_rank(torch, mesh, arch, out,
+                                                      rank)
 
             comp, w, x = _mesh_train_inputs(np)
             g = {"w": torch.from_numpy(comp[rank]).cuda()}
@@ -4314,10 +4456,187 @@ def mesh_loop_witness() -> list:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def smoke_step_from(torch, arch: str, s: int, before):
+    """One one-rank step of ``arch``'s float32 smoke config on the card, on
+    (b)'s global batch ``s`` with two microbatches, from the whole state
+    ``before`` (``p.``/``m.``/``v.`` arrays; None: the seeded init) ->
+    ((loss, grad norm), the state after it as arrays)."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build
+    from repro_torch.optim import AdamW, OptState
+
+    cfg = _smoke_config(arch)
+    model = build(cfg, "cuda")
+    model.init_weights(torch.Generator("cuda").manual_seed(0))
+    params = dict(model.named_parameters())
+    opt = AdamW(lr=MESH_SMOKE_LR)
+    state = opt.init(params)
+    if before is not None:
+        on = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
+        with torch.no_grad():
+            for n, p in params.items():
+                p.copy_(on(before[f"p.{n}"]))
+        state = OptState(step=torch.tensor(s, dtype=torch.int32,
+                                           device="cuda"),
+                         m={n: on(before[f"m.{n}"]) for n in params},
+                         v={n: on(before[f"v.{n}"]) for n in params})
+    b = _smoke_batches(cfg)[s]
+    state, m = make_train_step(model, opt, 2)(
+        state, {k: torch.as_tensor(v, device="cuda") for k, v in b.items()})
+    after = {f"p.{n}": p.detach().cpu().numpy() for n, p in params.items()}
+    after.update({f"m.{n}": t.cpu().numpy() for n, t in state.m.items()})
+    after.update({f"v.{n}": t.cpu().numpy() for n, t in state.v.items()})
+    return (float(m["loss"]), float(m["grad_norm"])), after
+
+
+def state_gap(np, got: dict, want: dict) -> tuple[float, float, int]:
+    """(the largest parameter gap but the sign knife edges of Adam's
+    update, entries whose first moment is below 1e-3 of its tensor's
+    largest; the largest moment gap over its tensor's largest entry; the
+    knife edges counted)."""
+    p_gap = m_gap = 0.0
+    edges = 0
+    for k, w in want.items():
+        if k.startswith("p."):
+            g = np.abs(want["m." + k[2:]])
+            edge = (g < 1e-3 * g.max()) & (g > 0)
+            edges += int(edge.sum())
+            p_gap = max(p_gap, float(np.where(edge, 0.0,
+                                              np.abs(got[k] - w)).max()))
+        else:
+            m_gap = max(m_gap, float(np.abs(got[k] - w).max())
+                        / max(float(np.abs(w).max()), 1e-30))
+    return p_gap, m_gap, edges
+
+
+def mesh_full_witness(torch) -> dict:
+    """Phase 17 (c)'s one-rank steps on the card at the same cut: per
+    arch the first batch's logits (on the host), the losses, launches,
+    walls, parameter bytes and peak memory of ``make_train_step`` with
+    the same two microbatches."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build
+    from repro_torch.optim import AdamW, cosine_schedule
+
+    out = {}
+    for arch in MESH_FULL_ARCHS:
+        cfg = _full_cut_config(arch)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = build(cfg, "cuda")
+        model.init_weights(torch.Generator("cuda").manual_seed(0))
+        data = _full_batches(torch, cfg)
+        with torch.no_grad():
+            logits = model(data[0])[0].cpu()
+        params = dict(model.named_parameters())
+        opt = AdamW(lr=cosine_schedule(3e-4, 10, 100))
+        state = opt.init(params)
+        step = make_train_step(model, opt, MESH_FULL_MICRO)
+        rec = {"logits": logits, "losses": [], "launches": [], "walls": [],
+               "bytes": 4 * sum(p.numel() for p in params.values())}
+        for b in data:
+            LAUNCHES.clear()
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            torch.cuda.synchronize()
+            rec["walls"].append(time.perf_counter() - t0)
+            rec["launches"].append(dict(LAUNCHES))
+            rec["losses"].append(float(m["loss"]))
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        out[arch] = rec
+        del model, params, opt, state, step, data
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_full_check(torch, out: pathlib.Path, metas: list, ref: dict):
+    """Phase 17 (c)'s checks on the four ranks' records against the
+    one-rank witness ``ref``; then each kernel on rank 0's launch inputs
+    against its plain version. Returns per kernel its (c) entry."""
+    entries = {}
+    for arch, kernel in MESH_FULL_ARCHS.items():
+        cfg, want = _full_cut_config(arch), ref[arch]
+        heads = MESH_FULL_HEADS[arch]
+        n_split = 2 + split_reduces(cfg, 2)
+        for r, meta in enumerate(metas):
+            got = meta[f"full {arch}"]
+            d = meta["coords"][0]
+            rows = MESH_FULL_BATCH // 2
+            logits = torch.load(out / f"full_{arch}_logits{r}.pt")
+            rms = _rel_rms(logits, want["logits"][d * rows:(d + 1) * rows])
+            gaps = [abs(a - b) / abs(b)
+                    for a, b in zip(got["losses"], want["losses"])]
+            per = [{k: n // 2 for k, n in w.items()}
+                   for w in want["launches"]]
+            launches = [{k: v for k, v in x.items() if k in per[0]}
+                        for x in got["launches"]]
+            print(f"  (c) rank {r} at {tuple(meta['coords'])}, {cfg.name} "
+                  f"({cfg.n_layers} layers at full width, {MESH_FULL_BATCH} "
+                  f"x {MESH_FULL_SEQ}, bf16): first-step logits rel. RMS "
+                  f"{rms:.3e} (bar {MESH_FULL_LOGIT_TOL}); losses "
+                  f"{got['losses']} against the one-rank "
+                  f"{want['losses']}, gaps {[f'{g:.2e}' for g in gaps]} (bar "
+                  f"{MESH_FULL_LOSS_TOL}); walls "
+                  f"{[round(w, 3) for w in got['walls']]} s (one rank "
+                  f"{[round(w, 3) for w in want['walls']]}); launches "
+                  f"{launches}; shapes {got['shapes']}; collectives "
+                  f"{[c['total'] for c in got['counts']]} (want {n_split}); "
+                  f"parameters during the step {got['compute_bytes']} B "
+                  f"against the one-rank {want['bytes']} B "
+                  f"({got['compute_bytes'] / want['bytes']:.4f}); peak "
+                  f"{got['peak_gib']:.3f} GiB (one rank "
+                  f"{want['peak_gib']:.3f})")
+            faults = []
+            if rms > MESH_FULL_LOGIT_TOL or max(gaps) > MESH_FULL_LOSS_TOL:
+                faults.append("off its bfloat16 bars")
+            if launches != per or not all(x.get(
+                    "flash_attention" if kernel == "flash_attention"
+                    else "ssd_scan") for x in launches):
+                faults.append(f"launches {launches}, want {per}")
+            if kernel == "flash_attention" and any(
+                    x.get("flash_attention_tc") != x.get("flash_attention")
+                    for x in got["launches"]):
+                faults.append("a flash launch off the tensor cores")
+            want_shape = "flash q (1, %d, %d, %d) kv (1, %d, %d, %d)" % (
+                MESH_FULL_SEQ, heads[0], cfg.dh, MESH_FULL_SEQ, heads[1],
+                cfg.dh) if kernel == "flash_attention" else \
+                "ssd x (1, %d, %d, %d) B (1, %d, 1, %d)" % (
+                    MESH_FULL_SEQ, heads[0], cfg.ssm_head_dim, MESH_FULL_SEQ,
+                    cfg.d_state)
+            if set(got["shapes"]) != {want_shape}:
+                faults.append(f"shapes {got['shapes']}, want {want_shape}")
+            if any(c["total"] != n_split for c in got["counts"]):
+                faults.append(f"collectives {got['counts']}")
+            if not got["compute_bytes"] < 0.6 * want["bytes"]:
+                faults.append("the rank computes with whole parameters")
+            if faults:
+                fail(f"phase 17 (c) rank {r} {arch}: {'; '.join(faults)}")
+        tag = "flash" if kernel == "flash_attention" else "ssd"
+        inputs = torch.load(out / f"full_{arch}_{tag}.pt",
+                            map_location="cuda")
+        per_rank = metas[0][f"full {arch}"]["launches"][0].get(kernel, 0)
+        if kernel == "flash_attention":
+            c, w, pre = inputs["kw"].tolist()
+            e = flash_entry(torch, ((inputs["q"], inputs["k"], inputs["v"],
+                                     None), {"causal": bool(c), "window": w,
+                                             "prefix": pre}),
+                            "phase 17 (c) rank 0", per_rank)
+        else:
+            e = ssd_entry(torch, ((inputs["x"], inputs["dt"], inputs["A"],
+                                   inputs["B"], inputs["C"],
+                                   int(inputs["chunk"])), {}),
+                          "phase 17 (c) rank 0", per_rank)
+        entries[kernel] = {k: e[k] for k in (
+            "launches", "shape", "ms", "device_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "max_abs_err")}
+    return entries
+
+
 def mesh_train_smoke(torch, np, whole: list) -> dict:
-    """Phase 17 (b): a 2x2 mesh of four gloo ranks sharing the card; the
-    card's one-rank steps first, as the witnesses (``whole``: the one-rank
-    ``train_loop``'s losses)."""
+    """Phase 17 (b) and (c): a 2x2 mesh of four gloo ranks sharing the
+    card; the card's one-rank runs first, as the witnesses (``whole``: the
+    one-rank ``train_loop``'s losses)."""
     import shutil
 
     from repro_torch.distributed.compression import dequantize, quantize_ef
@@ -4335,7 +4654,8 @@ def mesh_train_smoke(torch, np, whole: list) -> dict:
         params = dict(model.named_parameters())
         state = opt.init(params)
         step = make_train_step(model, opt, 2)
-        rec = {"losses": [], "norms": [], "launches": []}
+        rec = {"losses": [], "norms": [], "launches": [],
+               "bytes": 4 * sum(p.numel() for p in params.values())}
         for b in _smoke_batches(cfg):
             LAUNCHES.clear()
             state, m = step(state, {k: torch.as_tensor(v, device="cuda")
@@ -4344,10 +4664,9 @@ def mesh_train_smoke(torch, np, whole: list) -> dict:
             rec["launches"].append(dict(LAUNCHES))
             rec["losses"].append(float(m["loss"]))
             rec["norms"].append(float(m["grad_norm"]))
-        rec["digests"] = state_digests(
-            torch, {n: p.detach() for n, p in params.items()}, state)
         want[arch] = rec
         del model, params, state
+    full_want = mesh_full_witness(torch)
     comp, w, x = _mesh_train_inputs(np)
     qs = [quantize_ef(torch.from_numpy(c).cuda(),
                       torch.zeros(c.shape, device="cuda")) for c in comp]
@@ -4367,23 +4686,47 @@ def mesh_train_smoke(torch, np, whole: list) -> dict:
     out.mkdir(parents=True)
     t0 = time.perf_counter()
     spawn_ranks(mesh_train_rank, 4, (str(out),), MESH_TRAIN_TIMEOUT,
-                label="phase 17 (b)")
+                label="phase 17 (b)/(c)")
     t_ranks = time.perf_counter() - t0
-    print(f"  (b) 2x2 mesh, four gloo ranks on the card: {t_ranks:.3f}s "
+    print(f"  (b)/(c) 2x2 mesh, four gloo ranks on the card: {t_ranks:.3f}s "
           f"start to end")
+    metas = [json.loads((out / f"rank{r}.json").read_text())
+             for r in range(4)]
+
+    # (b): each split step against the one-rank step from the same state.
+    near = lambda a, b: abs(a - b) <= MESH_SPLIT_TOL * abs(b)  # noqa: E731
+    for arch in MESH_SMOKE_ARCHS:
+        before = None
+        for s in range(MESH_SMOKE_STEPS):
+            (loss, gn), ref_state = smoke_step_from(torch, arch, s, before)
+            with np.load(out / f"smoke_{arch}_step{s + 1}.npz") as z:
+                got = {k: z[k] for k in z.files}
+            p_gap, m_gap, edges = state_gap(np, got, ref_state)
+            print(f"  (b) {arch} step {s + 1}: the one-rank step from the "
+                  f"meshed state before it: loss {loss:.7f}, grad norm "
+                  f"{gn:.7f}; ranks' losses "
+                  f"{[m[arch]['losses'][s] for m in metas]}, grad norms "
+                  f"{[m[arch]['norms'][s] for m in metas]}; state after: "
+                  f"parameters {p_gap:.3e} off ({edges} knife edges "
+                  f"excluded), moments {m_gap:.3e} of their largest (bars "
+                  f"{MESH_SPLIT_TOL})")
+            if not all(near(m[arch]["losses"][s], loss)
+                       and near(m[arch]["norms"][s], gn) for m in metas) \
+                    or p_gap > MESH_SPLIT_TOL or m_gap > MESH_SPLIT_TOL:
+                fail(f"phase 17 (b) {arch} step {s + 1}: the split step is "
+                     "off the one-rank step from the same state")
+            before = got
     rank0 = {}
     n_stages, n_micro = MESH_PIPE[:2]
-    for r in range(4):
-        meta = json.loads((out / f"rank{r}.json").read_text())
+    for r, meta in enumerate(metas):
         faults = []
         if meta["backend"] != "gloo" or meta["compiles"]:
             faults.append(f"backend {meta['backend']}, {meta['compiles']} "
                           "kernel build(s)")
         for arch in MESH_SMOKE_ARCHS:
             got, ref = meta[arch], want[arch]
-            same = got["losses"] == ref["losses"] \
-                and got["norms"] == ref["norms"] \
-                and got["digests"] == ref["digests"]
+            traj = all(near(a, b) for a, b in zip(got["losses"],
+                                                  ref["losses"]))
             # a rank runs one of the two microbatches of each step
             halves = [{k: n // 2 for k, n in d.items()}
                       for d in ref["launches"]]
@@ -4391,26 +4734,30 @@ def mesh_train_smoke(torch, np, whole: list) -> dict:
                 d.get(k) for d in got["launches"]
                 for k in (("ssd_scan",) if "mamba" in arch
                           else ("flash_attention",)))
+            n_split = 2 + split_reduces(_smoke_config(arch), 2)
             print(f"  (b) rank {r} at {tuple(meta['coords'])}, {arch} "
-                  f"float32 smoke on {got['device']}: {len(got['losses'])} "
-                  f"steps {'bit for bit' if same else 'DIFFER from'} the "
-                  f"card's one-rank steps (losses {got['losses']}); held "
-                  f"between steps {got['held']} B = 3 x its shards "
-                  f"{got['shard_bytes']} B "
+                  f"float32 smoke on {got['device']}: losses "
+                  f"{got['losses']} ({'within' if traj else 'OFF'} "
+                  f"{MESH_SPLIT_TOL} of the one-rank run's "
+                  f"{ref['losses']}); held between steps {got['held']} B = "
+                  f"3 x its shards {got['shard_bytes']} B "
                   f"({'yes' if got['held'] == 3 * got['shard_bytes'] else 'NO'})"
                   f", whole parameters {got['whole_between']} and "
-                  f"{got['whole_after']} elements; launches per step "
-                  f"{got['launches']}; collectives per step {got['counts']}")
-            if not same:
-                faults.append(f"{arch} differs from the one-rank steps")
+                  f"{got['whole_after']} elements; parameters during the "
+                  f"step {got['compute_bytes']} B of the one-rank "
+                  f"{ref['bytes']}; launches per step {got['launches']}; "
+                  f"collectives per step {got['counts']} (want {n_split})")
+            if not traj:
+                faults.append(f"{arch}'s losses leave the one-rank run's")
             if not got["device"].startswith("cuda") or not ok_launch:
                 faults.append(f"{arch} ran on {got['device']} with launches "
                               f"{got['launches']} (want {halves})")
             if got["held"] != 3 * got["shard_bytes"] \
-                    or got["whole_between"] or got["whole_after"]:
+                    or got["whole_between"] or got["whole_after"] \
+                    or not got["compute_bytes"] < ref["bytes"]:
                 faults.append(f"{arch} holds {got['held']} B, not 3 x "
-                              f"{got['shard_bytes']}")
-            if got["counts"] != [2] * MESH_SMOKE_STEPS:
+                              f"{got['shard_bytes']}, or computes whole")
+            if got["counts"] != [n_split] * MESH_SMOKE_STEPS:
                 faults.append(f"{arch} collectives {got['counts']}")
             if r == 0:
                 for d in got["launches"]:
@@ -4433,35 +4780,39 @@ def mesh_train_smoke(torch, np, whole: list) -> dict:
                 or meta["comp_pipe_counts"] != [2, n_micro + n_stages]:
             faults.append("compression or pipeline off its bar")
         pre = meta["preempted"]
+        loop_near = lambda a, b: len(a) == len(b) and all(  # noqa: E731
+            near(x, y) for x, y in zip(a, b))
         if pre["status"] != "preempted" \
-                or pre["losses"] != whole[:MESH_LOOP_PREEMPT]:
+                or not loop_near(pre["losses"], whole[:MESH_LOOP_PREEMPT]):
             faults.append(f"the 2x2 run before the preemption: {pre}")
         if r < 2:
             res = meta["resumed"]
-            how = "bit for bit" if res["losses"] == \
-                whole[MESH_LOOP_PREEMPT:] else "DIFFERS"
+            how = "within %g of" % MESH_SPLIT_TOL if loop_near(
+                res["losses"], whole[MESH_LOOP_PREEMPT:]) else "OFF"
             print(f"  (b) rank {r}: train_loop preempted on 2x2 at step "
                   f"{MESH_LOOP_PREEMPT}, resumed on 1x2 at "
                   f"{tuple(meta['small_coords'])}: losses "
                   f"{pre['losses'] + res['losses']}, {how} the card's "
-                  f"uninterrupted run")
-            if res["status"] != "done" or how != "bit for bit":
+                  f"uninterrupted run {whole}")
+            if res["status"] != "done" or how == "OFF":
                 faults.append(f"the resumed run {res} leaves {whole}")
         if faults:
             fail(f"phase 17 (b) rank {r}: {'; '.join(faults)}")
-    return {"rank0_launches": rank0, "ranks_s": t_ranks}
+    full = mesh_full_check(torch, out, metas, full_want)
+    return {"rank0_launches": rank0, "ranks_s": t_ranks, "full": full}
 
 
 def mesh_train_phase(torch, np, ref: dict) -> dict:
-    """Phase 17: the mesh of the LM substrate, (a) and (b). Returns (a)'s
-    flash launches per step and rank 0's launches in (b)."""
+    """Phase 17: the mesh of the LM substrate, (a), (b) and (c). Returns
+    (a)'s flash launches per step, rank 0's launches in (b) and (c)'s
+    kernel entries."""
     loop_want = mesh_loop_witness()
     t0 = time.perf_counter()
     a = mesh_train_full_width(torch, np, ref, loop_want)
     print(f"  (a) {time.perf_counter() - t0:.3f}s")
     t0 = time.perf_counter()
     b = mesh_train_smoke(torch, np, loop_want)
-    print(f"  (b) {time.perf_counter() - t0:.3f}s")
+    print(f"  (b) and (c) {time.perf_counter() - t0:.3f}s")
     return {"a": a, "b": b}
 
 
@@ -5113,6 +5464,8 @@ def main() -> int:
                 meshed_lm["a"]["flash_launches_per_step"]
         k["mesh_train_rank0_launches"] = \
             meshed_lm["b"]["rank0_launches"].get(k["name"], 0)
+        if k["name"] in meshed_lm["b"]["full"]:
+            k["mesh_split_rank"] = meshed_lm["b"]["full"][k["name"]]
     t_phase = time.perf_counter() - t0
     print(f"[phase mesh of the LM substrate: {t_phase:.3f}s (budget "
           f"{MESH_TRAIN_BUDGET:.0f}s); (a) walls "

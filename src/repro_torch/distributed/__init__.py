@@ -1,6 +1,8 @@
 """Distribution substrate of the port (the reference's ``distributed/``):
-logical-axis sharding rules, the loss, int8 gradient compression and the
-GPipe pipeline. Its collectives go through ``engine/mesh.py``'s counted
+logical-axis sharding rules, the loss, int8 gradient compression, the
+GPipe pipeline and the tensor-parallel split over ``"model"``
+(``tensor_parallel``: its autograd collectives and the slicing rule of
+every family). Its collectives go through ``engine/mesh.py``'s counted
 helpers."""
 
 from repro_torch.distributed.compression import compressed_psum_tree, quantize_ef

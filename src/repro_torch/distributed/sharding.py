@@ -205,8 +205,9 @@ def constrain(x, rules: ShardingRules | None, *logical_axes: str | None):
     on or off a mesh. The port's models take no ``rules``: in the meshed
     train step (``launch/steps.py::ShardedTrainStep``) each rank runs the
     model on its own ``"data"`` rows of the batch, which is what the
-    reference's ``"batch"`` constraints ask for; its other constraints
-    (heads, d_ff, vocab over ``"model"``) name a tensor-parallel split
-    that the port does not make (compute is replicated over ``"model"``,
-    ROADMAP queue C)."""
+    reference's ``"batch"`` constraints ask for, and the tensor-parallel
+    split that its other constraints (heads, kv heads, d_ff, experts,
+    vocab over ``"model"``) ask for is written out by
+    ``distributed/tensor_parallel.py``: each module computes with its
+    rank's slice and all-reduces where GSPMD would."""
     return x

@@ -26,13 +26,16 @@ group: it is the unsharded computation, through the same code.
 Every collective of the port goes through this module's three counted
 helpers, each recorded under the running program key
 (``obs.compiled.collective_counts``): :func:`all_gather` (over the whole
-mesh), :func:`all_reduce` (SUM or MAX over one dim, ``"data"`` by
-default) and :func:`permute` (a ring's collective permute over one dim,
-the pipeline's). The process group's backend decides how a tensor on the
-card reaches the collective: NCCL takes it as it is; gloo, which has no
-collectives for CUDA tensors, gets a host copy. A gloo all-reduce or
-permute is copied back to the tensor's device; a gloo all-gather stays on
-the host, where the splice reads it. The helpers take a ``GridMesh`` or,
+mesh, or along one dim), :func:`all_reduce` (SUM or MAX over one dim,
+``"data"`` by default, or over several) and :func:`permute` (a ring's
+collective permute over one dim, the pipeline's). The process group's
+backend decides how a tensor on the card reaches the collective: NCCL
+takes it as it is; gloo, which has no collectives for CUDA tensors, gets
+a host copy. A gloo all-reduce, permute or one-dim all-gather is copied
+back to the tensor's device; a gloo all-gather over the whole mesh stays
+on the host, where the splice reads it. The tensor-parallel split's
+autograd-aware forms of these (``distributed/tensor_parallel.py``) call
+the same helpers. The helpers take a ``GridMesh`` or,
 for dims other than ``("data", "model")`` (the pipeline's ``"stage"``), a
 ``DeviceMesh`` from :func:`make_mesh`. The process group itself is
 joined, left and shrunk here too (:func:`start_process_group`,
@@ -362,12 +365,22 @@ def as_scenario_mesh(mesh) -> GridMesh | None:
 # The collectives
 # --------------------------------------------------------------------------
 
-def _group(mesh, dim: str):
+def _group(mesh, dim: str | tuple[str, ...]):
     """The process group of ``mesh``'s dim ``dim`` for this rank, or None
-    when the dim is this process alone (one rank wide, or no mesh)."""
-    if dim_size(mesh, dim) == 1:
+    when the dim is this process alone (one rank wide, or no mesh). Of a
+    tuple of dims: the one dim among them wider than one rank, or the
+    world's group when several are (a ``GridMesh`` spans it)."""
+    dims = (dim,) if isinstance(dim, str) else tuple(dim)
+    wide = [d for d in dims if dim_size(mesh, d) > 1]
+    if not wide:
         return None
-    return (mesh.mesh if isinstance(mesh, GridMesh) else mesh).get_group(dim)
+    if len(wide) == 1:
+        return (mesh.mesh if isinstance(mesh, GridMesh)
+                else mesh).get_group(wide[0])
+    if not isinstance(mesh, GridMesh) or set(wide) != set(_DIMS):
+        raise ValueError(f"a reduction over {dims} of a mesh with dims "
+                         f"{mesh_axes(mesh)} must span the whole GridMesh")
+    return _dist().group.WORLD
 
 
 def mesh_axes(mesh) -> tuple[str, ...]:
@@ -411,14 +424,32 @@ def dim_rank(mesh, dim: str) -> int:
     return int(mesh.get_local_rank(dim))
 
 
-def all_gather(mesh, t: torch.Tensor) -> torch.Tensor:
+def all_gather(mesh, t: torch.Tensor, dim: str | None = None
+               ) -> torch.Tensor:
     """Gather ``t`` (the same shape on every rank) from the whole mesh (a
     ``GridMesh`` spanning the process group): ``(n_shards, *t.shape)`` in
     rank order, on ``t``'s device under NCCL and on the host under gloo
     (which stages through it; the engine's splice reads the blocks there,
-    and a caller that wants them on the card copies them back). Recorded
-    as one ``all-gather`` of the running program."""
+    and a caller that wants them on the card copies them back). With
+    ``dim``, from the ranks along that dim alone: ``(dim_size, *t.shape)``
+    in their order along it, on ``t``'s device under either backend.
+    Recorded as one ``all-gather`` of the running program."""
     note_collective("all-gather")
+    if dim is not None:
+        group = _group(mesh, dim)
+        if group is None:
+            return t[None]
+        import torch.distributed as dist
+
+        n, t = dim_size(mesh, dim), t.contiguous()
+        if dist.get_backend(group) == "nccl":
+            out = torch.empty((n,) + tuple(t.shape), dtype=t.dtype,
+                              device=t.device)
+            dist.all_gather_into_tensor(out, t, group=group)
+            return out
+        parts = [torch.empty_like(t, device="cpu") for _ in range(n)]
+        dist.all_gather(parts, t.cpu(), group=group)
+        return torch.stack(parts).to(t.device)
     dist = _dist()
     if mesh.mesh is None or dist is None:
         return t[None]
@@ -434,12 +465,22 @@ def all_gather(mesh, t: torch.Tensor) -> torch.Tensor:
     return torch.stack(parts)
 
 
-def all_reduce(mesh, t: torch.Tensor, dim: str = "data",
-               op: str = "sum") -> torch.Tensor:
+# Elements of a gloo ordered sum's chunk: every rank holds the group's
+# parts of one chunk (4 MiB of float32 each) at a time, not of ``t``.
+_ORDERED_CHUNK = 1 << 20
+
+
+def all_reduce(mesh, t: torch.Tensor, dim: str | tuple[str, ...] = "data",
+               op: str = "sum", ordered: bool = False) -> torch.Tensor:
     """Reduce ``t`` over the dim ``dim`` of ``mesh`` (a ``GridMesh`` or a
     ``DeviceMesh``), in place (every line along the other dims reduces on
-    its own). ``op`` is ``"sum"`` or ``"max"``. Recorded as one
-    ``all-reduce`` of the running program."""
+    its own); a tuple of dims reduces over all of them (a ``GridMesh``'s
+    ``("data", "model")``: the whole mesh). ``op`` is ``"sum"`` or
+    ``"max"``. ``ordered`` sums under gloo as a left fold in rank order
+    (the parts all-gathered to the host a chunk at a time), so a sum of
+    more than two ranks is the one a single process adds up in that order
+    (gloo's own ring adds each chunk in another order); NCCL reduces as it
+    does. Recorded as one ``all-reduce`` of the running program."""
     note_collective("all-reduce")
     group = _group(mesh, dim)
     if group is None:
@@ -449,6 +490,16 @@ def all_reduce(mesh, t: torch.Tensor, dim: str = "data",
     red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
     if dist.get_backend(group) == "nccl":
         dist.all_reduce(t, op=red, group=group)
+        return t
+    if ordered and op == "sum":     # each chunk's parts, then a left fold
+        flat, n = t.view(-1), dist.get_world_size(group)
+        for at in range(0, flat.numel(), _ORDERED_CHUNK):
+            part = flat[at:at + _ORDERED_CHUNK].cpu()
+            got = [torch.empty_like(part) for _ in range(n)]
+            dist.all_gather(got, part, group=group)
+            for g in got[1:]:
+                got[0] += g
+            flat[at:at + _ORDERED_CHUNK].copy_(got[0])
         return t
     host = t.cpu()
     dist.all_reduce(host, op=red, group=group)

@@ -14,10 +14,13 @@ steps.
 
 from __future__ import annotations
 
+import contextlib
+import itertools
 import math
 
 import torch
 
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.distributed.sharding import (
     NamedSharding, P, ShardingRules, logical_to_spec)
 from repro_torch.engine.mesh import all_gather, all_reduce, mesh_shape
@@ -188,37 +191,53 @@ class ShardedTrainStep:
     shard dicts), and the model's parameters are empty. A step:
 
     1. gathers the parameters: one all-gather of the rank's shards, flat,
-       from which every whole parameter is assembled (whole parameters
-       exist only during the step's forward and backward);
+       from which the rank assembles only the slices it computes with
+       (``tensor_parallel.plan``; whole parameters where nothing splits);
     2. runs the model's forward and backward on the rank's own ``"data"``
        rows of the global batch (``batch``: those rows; the reference's
-       ``"batch"`` constraints) in contiguous slices, accumulating into one
-       flat float32 buffer of the whole gradients with the loss in its
-       last slot. ``n_microbatches`` counts the global batch's slices, as
-       the reference's does: a multiple of ``"data"``, each rank taking
-       ``n_microbatches // data`` of them (one each when it is smaller);
-    3. sums that buffer over ``"data"``: one all-reduce; divides it by the
-       global microbatch count;
+       ``"batch"`` constraints) in contiguous slices, split over
+       ``"model"`` as the reference's rules split it: each ``"model"``
+       rank computes with its heads, ``d_ff`` columns, experts and vocab
+       rows wherever the fitted specs split them (the flash and SSD
+       kernels on its heads), with the layers' all-reduces over
+       ``"model"`` between. ``n_microbatches`` counts the global batch's
+       slices, as the reference's does: a multiple of ``"data"``, each
+       rank taking ``n_microbatches // data`` of them (one each when it is
+       smaller);
+    3. writes the gradients into one flat float32 buffer of the whole
+       gradients, the loss in its last slot, and sums that buffer over the
+       whole mesh (one all-reduce; on a ``"model"`` of 1, under gloo, a
+       left fold in rank order); divides it by the global microbatch
+       count;
     4. takes the grad norm over the whole gradients in the one-card order
        and updates only the rank's shards with the elementwise AdamW.
 
-    So a step issues exactly two collectives (one all-gather, one
-    all-reduce), recorded under ``KEY``. Compute over ``"model"`` is
-    replicated, not split tensor-parallel (torch has no GSPMD; ROADMAP
-    queue C): the ranks of a ``"data"`` row compute the same gradients.
-    With ``data`` = 2 and two microbatches (one a rank) a step is the
-    one-card step with two microbatches bit for bit (float addition of two
-    terms commutes; the divisions are by powers of two); a ``data`` of 1 is
-    the one-card step with the same microbatches.
+    The gradient rule (``tensor_parallel.plan``'s modes): a rank writes a
+    *disjoint* gradient (its own heads, columns, experts or vocab rows)
+    and a *partial* one (kv heads that several ranks' q heads share,
+    Mamba's B and C columns: each rank holds part of the sum) at its
+    slice, and an *identical* one (a parameter used whole outside every
+    split region: norms, the router, every product whose axis does not
+    divide) only from ``"model"`` rank 0, which alone writes the loss; the
+    all-reduce then sums each gradient exactly once. So a step issues one
+    all-gather and one all-reduce of its own, recorded under ``KEY``, plus
+    the split's all-reduces over ``"model"``. With a ``"model"`` of 1
+    nothing splits and the ranks' sum is the one-card step's left fold
+    of its microbatches: a step is the one-card step with the same
+    microbatches bit for bit (the divisions are by powers of two). On a
+    wider ``"model"`` the split reorders partial sums, as the reference's
+    GSPMD step does against its single-device step.
 
     ``shard`` cuts this rank's shards from whole tensors (the seeded init
     or a restored checkpoint; ``release`` then empties the model's
     parameters); ``gather_state`` is the inverse, for a checkpoint (one
     all-gather a tensor under ``CKPT_KEY``, whole tensors on the host).
+    ``logits`` runs the split forward alone, for a check.
     """
 
     KEY = "train.step:sharded"
     CKPT_KEY = "train.ckpt:sharded"
+    LOGITS_KEY = "train.logits:sharded"
 
     def __init__(self, model, optimizer: AdamW, mesh,
                  n_microbatches: int = 1):
@@ -249,6 +268,22 @@ class ShardedTrainStep:
             self.tiles[n] = [(r, s.block(self.shapes[n], c))
                              for r, c in enumerate(coords)
                              if all(c[a] == 0 for a in c if a not in used)]
+        self.plan = tp.plan(model, {n: s.spec for n, s in
+                                    self.shardings.items()}, mesh)
+        self.compute_shapes = {n: self.plan.shape(n) for n in self.shapes}
+        lead = mesh.model_rank == 0
+        # How each gradient reaches the flat buffer: accumulated in place
+        # into its whole slot ("view"), copied into its slice after the
+        # backward ("slice"), or computed and dropped (an identical one
+        # off "model" rank 0).
+        self.route = {}
+        for n, shape in self.shapes.items():
+            if self.plan.modes[n] == "identical" and not lead:
+                self.route[n] = "drop"
+            elif self.compute_shapes[n] == shape:
+                self.route[n] = "view"
+            else:
+                self.route[n] = "slice"
         self.grad_at, at = {}, 0
         for n, shape in self.shapes.items():
             self.grad_at[n] = at
@@ -274,27 +309,43 @@ class ShardedTrainStep:
         """Bytes of one copy of this rank's shards."""
         return sum(math.prod(s) for s in self.shard_shapes.values()) * 4
 
-    def _assemble(self, n: str, got: torch.Tensor, at: int, device):
-        """Parameter ``n`` whole on ``device``, from the all-gathered
-        shards ``got`` (rank, flat), its own starting at ``at``."""
-        t = torch.empty(self.shapes[n], dtype=torch.float32, device=device)
+    def compute_bytes(self) -> int:
+        """Bytes of the parameters this rank holds during a step: the
+        slices it computes with (float32)."""
+        return sum(math.prod(s) for s in self.compute_shapes.values()) * 4
+
+    def _assemble(self, n: str, got: torch.Tensor, at: int, device,
+                  runs=None):
+        """Parameter ``n``, or its slice given by ``runs`` (per dim, index
+        runs), on ``device``, from the all-gathered shards ``got`` (rank,
+        flat), its own starting at ``at``: each tile's overlap with the
+        slice is copied once."""
+        if runs is None:
+            runs = tuple(((0, w),) for w in self.shapes[n])
+        t = torch.empty(tuple(sum(b - a for a, b in d) for d in runs),
+                        dtype=torch.float32, device=device)
         size = math.prod(self.shard_shapes[n])
         for r, blk in self.tiles[n]:
-            t[blk] = got[r, at:at + size].view(self.shard_shapes[n])
+            pieces = [_overlaps(d, b.start, b.stop) for d, b in zip(runs, blk)]
+            src = got[r, at:at + size].view(self.shard_shapes[n])
+            for combo in itertools.product(*pieces):
+                t[tuple(c[1] for c in combo)] = src[tuple(c[0] for c in combo)]
         return t
 
     @torch.no_grad()
     def _gather(self, shards: dict) -> dict:
-        """Whole parameters on the model's device from every rank's
-        ``shards`` (this rank's given): one all-gather of them all, flat."""
+        """The parameters this rank computes with on the model's device,
+        from every rank's ``shards`` (this rank's given): one all-gather
+        of them all, flat."""
         flat = torch.cat([shards[n].reshape(-1) for n in self.shapes])
         got = all_gather(self.mesh, flat).to(self.device)
         del flat
-        whole, at = {}, 0
+        mine, at = {}, 0
         for n in self.shapes:
-            whole[n] = self._assemble(n, got, at, self.device)
+            mine[n] = self._assemble(n, got, at, self.device,
+                                     self.plan.runs[n])
             at += math.prod(self.shard_shapes[n])
-        return whole
+        return mine
 
     @torch.no_grad()
     def gather_state(self, shards: dict, opt_state: OptState,
@@ -327,23 +378,32 @@ class ShardedTrainStep:
         in place) on its ``batch`` rows -> (opt_state, metrics), metrics as
         ``make_train_step``'s."""
         with program(self.KEY):
-            whole = self._gather(shards)
+            mine = self._gather(shards)
             grads = torch.zeros(self.grad_size, device=self.device)
             views = {}
             for n, p in self.params.items():
-                p.data = whole[n]
+                p.data = mine[n]
                 views[n] = grads[self.grad_at[n]:self.grad_at[n]
-                                 + p.numel()].view(p.shape)
-                p.grad = views[n]
-            del whole
+                                 + math.prod(self.shapes[n])] \
+                    .view(self.shapes[n])
+                p.grad = views[n] if self.route[n] == "view" else None
+            del mine
             loss = torch.zeros((), device=self.device)
-            for mb in _microbatches(batch, self.n):
-                mb_loss = self.model.loss(mb)
-                mb_loss.backward()
-                loss = loss + mb_loss.detach()
+            with tp.applied(self.model, self.plan.splits), \
+                    _replay_whole(self.plan.splits):
+                for mb in _microbatches(batch, self.n):
+                    mb_loss = self.model.loss(mb)
+                    mb_loss.backward()
+                    loss = loss + mb_loss.detach()
+            with torch.no_grad():
+                for n, p in self.params.items():
+                    if self.route[n] == "slice" and p.grad is not None:
+                        _scatter(views[n], p.grad, self.plan.runs[n])
             self.release()
-            grads[-1] = loss
-            all_reduce(self.mesh, grads)
+            if self.mesh.model_rank == 0:
+                grads[-1] = loss
+            all_reduce(self.mesh, grads, ("data", "model"),
+                       ordered=self.mesh.model_shards == 1)
             grads.div_(torch.tensor(self.div, device=self.device))
             gnorm = self.opt.global_norm(views)
             self.opt.update({n: views[n][self.blocks[n]] for n in views},
@@ -351,6 +411,55 @@ class ShardedTrainStep:
             loss = grads[-1].clone()
         return opt_state, {"loss": loss, "grad_norm": gnorm,
                            "step": opt_state.step.clone()}
+
+    @torch.no_grad()
+    def logits(self, shards: dict, batch: dict):
+        """The split forward alone on this rank's ``batch`` rows -> their
+        logits over the whole vocab (gathered over ``"model"``: a check's,
+        never the step's), under ``LOGITS_KEY``."""
+        with program(self.LOGITS_KEY):
+            for n, t in self._gather(shards).items():
+                self.params[n].data = t
+            try:
+                with tp.applied(self.model, self.plan.splits):
+                    out = self.model(batch)[0]
+            finally:
+                self.release()
+            vocab = self.plan.splits.get("")
+            if vocab is not None:
+                out = tp.gather_from_model(out, self.mesh, -1)
+        return out
+
+
+def _replay_whole(splits):
+    """Under a split, a rematerialised block replays its whole forward in
+    the backward (torch's early stop would skip its last all-reduce or not
+    depending on what the block saved): every rank issues the same,
+    countable all-reduces. Without one, torch's default."""
+    if not splits:
+        return contextlib.nullcontext()
+    from torch.utils import checkpoint
+    return checkpoint.set_checkpoint_early_stop(False)
+
+
+def _overlaps(runs, a: int, b: int) -> list[tuple[slice, slice]]:
+    """Where the index runs ``runs`` (in order) meet the block ``[a, b)``
+    of one dim: (slice of the block, slice of the runs' concatenation)."""
+    out, at = [], 0
+    for s, e in runs:
+        lo, hi = max(s, a), min(e, b)
+        if lo < hi:
+            out.append((slice(lo - a, hi - a), slice(at + lo - s, at + hi - s)))
+        at += e - s
+    return out
+
+
+def _scatter(whole: torch.Tensor, part: torch.Tensor, runs) -> None:
+    """Copy ``part`` (the concatenation of ``runs`` per dim) into its
+    places in ``whole``."""
+    pieces = [_overlaps(d, 0, w) for d, w in zip(runs, whole.shape)]
+    for combo in itertools.product(*pieces):
+        whole[tuple(c[0] for c in combo)] = part[tuple(c[1] for c in combo)]
 
 
 # ---------------------------------------------------------------------------

@@ -19,7 +19,18 @@ On a mesh (``mesh=``: a ``GridMesh``, or a rank count for ``_mesh_for``;
 under ``torchrun`` one rank a card over NCCL, the reference's
 ``_mesh_for`` shape) each step is ``launch.steps.ShardedTrainStep``: every
 rank keeps only its shards of the masters and moments and trains on its
-``"data"`` rows of the global batch. Checkpoints keep the one-card flat
+``"data"`` rows of the global batch, and the ranks of a ``"data"`` row
+split each product over ``"model"`` as the reference's rules split it
+(heads, kv heads, ``d_ff``, experts and vocab, the flash and SSD kernels
+on the rank's heads; ``distributed/tensor_parallel.py``). A rank writes
+each gradient into the step's whole flat buffer by its rule: a disjoint
+one (its own heads, columns, experts or vocab rows) and a partial one
+(kv heads or Mamba's B and C columns that several ranks read, each rank
+holding part of the sum) at its slice, an identical one (a parameter
+used whole, outside every split region) only from ``"model"`` rank 0;
+one all-reduce over the mesh then gives every rank the whole
+gradients, so the update, the state between steps and the checkpoints
+are those of the unsplit step. Checkpoints keep the one-card flat
 tree (``_state_tree``): the ranks gather it to rank 0's host a tensor at
 a time, rank 0 writes it, and every rank restores the whole tree and
 keeps its shard, so a run preempted on one mesh resumes on a smaller one,

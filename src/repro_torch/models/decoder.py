@@ -184,7 +184,7 @@ class Decoder(LM):
     def _embed(self, tokens, vision=None):
         """Token embeddings; a vlm prepends the projected patches."""
         dt = getattr(torch, self.cfg.dtype)
-        x = self.embed[tokens].to(dt)
+        x = self._lookup(tokens).to(dt)
         if self.vision_proj is not None and vision is not None:
             v = torch.einsum("bpd,de->bpe", vision.to(dt),
                              self.vision_proj.to(dt))
@@ -192,9 +192,8 @@ class Decoder(LM):
         return x
 
     def _logits(self, x):
-        x = ll.rms_norm(x, self.final_norm)
         head = self.embed.T if self.lm_head is None else self.lm_head
-        return torch.einsum("bsd,dv->bsv", x, head.to(x.dtype))
+        return self._head(ll.rms_norm(x, self.final_norm), head)
 
     def _ffn(self, x, blk):
         """The block's FFN on the residual: (x + f, the MoE's aux or 0)."""

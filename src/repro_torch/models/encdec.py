@@ -104,8 +104,7 @@ class EncDec(LM):
         return getattr(torch, self.cfg.dtype)
 
     def _logits(self, x):
-        x = ll.rms_norm(x, self.final_norm)
-        return torch.einsum("bsd,dv->bsv", x, self.lm_head.to(x.dtype))
+        return self._head(ll.rms_norm(x, self.final_norm), self.lm_head)
 
     def encode(self, frames):
         """(B, F, D) frame embeddings -> the encoder's output (B, F, D)."""
@@ -135,7 +134,7 @@ class EncDec(LM):
         encoder and decoder block is recomputed in the backward under
         ``cfg.remat``."""
         enc_out = self.encode(batch["frames"])
-        x = self.embed[batch["tokens"]].to(self._dtype())
+        x = self._lookup(batch["tokens"]).to(self._dtype())
         for blk in self.dec_layers:
             x = remat(self.cfg,
                       lambda x, blk, e: self._dec_block(x, blk, e)[0],

@@ -96,7 +96,7 @@ class Hybrid(LM):
                 **STATE_CACHE_AXES}
 
     def _embed(self, tokens):
-        return self.embed[tokens].to(getattr(torch, self.cfg.dtype))
+        return self._lookup(tokens).to(getattr(torch, self.cfg.dtype))
 
     def _with_meta(self, tokens):
         x = self._embed(tokens)
@@ -104,8 +104,7 @@ class Hybrid(LM):
         return torch.cat([meta, x], dim=1)
 
     def _logits(self, x):
-        x = ll.rms_norm(x, self.final_norm)
-        return torch.einsum("bsd,dv->bsv", x, self.lm_head.to(x.dtype))
+        return self._head(ll.rms_norm(x, self.final_norm), self.lm_head)
 
     @staticmethod
     def _fuse(x, a, s, blk):

@@ -15,6 +15,14 @@ blockwise; the kernel replaces both paths. Decode attention, ``ssd_step``,
 the convolutions and the MoE's routing and expert products stay plain
 torch, as the reference leaves them to XLA.
 
+In the meshed train step a module may carry a ``Split``
+(``distributed/tensor_parallel.py``): attention then computes the rank's
+q heads (and the kv heads they read), the SwiGLU its ``d_ff`` columns, the
+MoE its experts and the SSD mixer its heads, each entering through
+``copy_to_model`` and leaving through one ``reduce_from_model``. Without
+one (serving, one card, a product whose axis does not divide) each
+computes whole, as before.
+
 Decode updates the KV cache in place (the reference returns a new one), and
 writes the new key and value in the cache's dtype: the decoder's and the
 encoder-decoder's caches are bfloat16 even for a float32 model, where the
@@ -28,6 +36,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
 
@@ -55,10 +64,17 @@ def dense_init_(w: torch.Tensor, generator: torch.Generator,
 # norms / rotary
 # --------------------------------------------------------------------------
 
-def rms_norm(x, scale, eps: float = 1e-6):
+def rms_norm(x, scale, eps: float = 1e-6, split=None):
+    """RMS norm over the last dim; with a ``split`` that dim is the rank's
+    slice of one ``split.size`` times as wide, whose sum of squares is
+    all-reduced over ``"model"``."""
     dt = x.dtype
     x = x.float()
-    var = x.square().mean(dim=-1, keepdim=True)
+    if split is None:
+        var = x.square().mean(dim=-1, keepdim=True)
+    else:
+        var = tp.sum_over_model(x.square().sum(dim=-1, keepdim=True),
+                                split.mesh) / (x.shape[-1] * split.size)
     return ((x * torch.rsqrt(var + eps)) * scale.float()).to(dt)
 
 
@@ -109,8 +125,13 @@ def attention(x, p, cfg: ModelConfig, causal: bool = True,
     behind the query, and ``prefix_len`` keys stay visible outside it
     (Hymba's meta tokens). ``kv_source``: cross-attention memory (B, Sk, D):
     no rotary, not causal, no window. ``return_kv`` also returns the (k, v)
-    tensors for the cache."""
+    tensors for the cache (the rank's heads under a split)."""
     win = cfg.window if window is None else window
+    split = tp.split_of(p)
+    if split is not None:
+        x = tp.copy_to_model(x, split.mesh)
+        if kv_source is not None:
+            kv_source = tp.copy_to_model(kv_source, split.mesh)
     q, k, v = _qkv(x, p, kv_source)
     if kv_source is None:
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
@@ -119,9 +140,14 @@ def attention(x, p, cfg: ModelConfig, causal: bool = True,
         k = apply_rope(k, cos, sin)
     else:
         causal, win = False, 0
+    if split is not None and split.kv_index is not None:
+        at = torch.tensor(split.kv_index, device=k.device)
+        k, v = k.index_select(2, at), v.index_select(2, at)
     out = ops.flash_attention(q, k, v, causal=causal, window=win,
                               prefix=prefix_len)
     y = torch.einsum("bshk,hkd->bsd", out, p.wo.to(x.dtype))
+    if split is not None:
+        y = tp.reduce_from_model(y, split.mesh)
     if return_kv:
         return y, (k, v)
     return y
@@ -176,6 +202,16 @@ def attention_decode(x, p, cache_k, cache_v, pos: int, cfg: ModelConfig,
 # --------------------------------------------------------------------------
 
 def swiglu(x, p):
+    """SwiGLU; under a split, the rank's ``d_ff`` columns and one
+    all-reduce of the output."""
+    split = tp.split_of(p)
+    if split is None:
+        return _swiglu(x, p)
+    return tp.reduce_from_model(
+        _swiglu(tp.copy_to_model(x, split.mesh), p), split.mesh)
+
+
+def _swiglu(x, p):
     h = torch.einsum("bsd,df->bsf", x, p.w_gate.to(x.dtype))
     u = torch.einsum("bsd,df->bsf", x, p.w_up.to(x.dtype))
     return torch.einsum("bsf,fd->bsd", F.silu(h) * u, p.w_down.to(x.dtype))
@@ -205,7 +241,13 @@ def moe_ffn(x, p, cfg: ModelConfig):
     once), the experts run on it, and each token sums its k gated outputs
     in ascending expert order, the order of the reference's scatter-add,
     with no atomics: the same bits on every run. Shared experts are a dense
-    SwiGLU beside them; ``aux`` is the Switch-style load-balance value."""
+    SwiGLU beside them; ``aux`` is the Switch-style load-balance value.
+
+    With the experts split over ``"model"`` the routing, slots and drops
+    are computed whole on every rank; each rank fills and runs only its
+    experts' (G, E/m, cap, D) buffers, with its tokens and gates entering
+    through ``copy_to_model``, and the combine (with the shared experts'
+    columns, when they split too) is summed by one all-reduce."""
     B, S, D = x.shape
     E, k = cfg.n_experts, cfg.top_k
     T = B * S
@@ -227,12 +269,23 @@ def moe_ffn(x, p, cfg: ModelConfig):
     chose = (flat_e == torch.arange(E, device=x.device)[None, :, None]).int()
     slot = (chose.cumsum(-1).gather(1, flat_e) - 1).reshape(G, Tg, k)
     keep = slot < cap
-    base = (torch.arange(G, device=x.device)[:, None, None] * E + eidx) * cap
+    groups = torch.arange(G, device=x.device)[:, None, None]
+    split = tp.split_of(p.experts)
+    shared = tp.split_of(p.shared) if cfg.n_shared_experts > 0 else None
+    if split is None:
+        El = E
+        base = (groups * E + eidx) * cap
+    else:               # this rank's experts; the others' entries drop here
+        El = split.hi - split.lo
+        xt = tp.copy_to_model(xt, split.mesh)
+        gate = tp.copy_to_model(gate, split.mesh)
+        keep = keep & (eidx >= split.lo) & (eidx < split.hi)
+        base = (groups * El + (eidx - split.lo).clamp(0, El - 1)) * cap
     # Dropped entries go to a spare last row that the experts never read.
-    buf = x.new_zeros(G * E * cap + 1, D)
-    buf[torch.where(keep, base + slot, G * E * cap)] = xt[:, :, None, :]
-    out = _expert_swiglu(buf[:-1].view(G, E, cap, D), p.experts) \
-        .reshape(G * E * cap, D)
+    buf = x.new_zeros(G * El * cap + 1, D)
+    buf[torch.where(keep, base + slot, G * El * cap)] = xt[:, :, None, :]
+    out = _expert_swiglu(buf[:-1].view(G, El, cap, D), p.experts) \
+        .reshape(G * El * cap, D)
 
     asc = eidx.argsort(dim=-1)                  # each token's experts, ascending
     rows = (base + slot.clamp(max=cap - 1)).gather(-1, asc)
@@ -241,7 +294,11 @@ def moe_ffn(x, p, cfg: ModelConfig):
     for j in range(1, k):
         yt = yt + out[rows[..., j]] * w[..., j, :]
     y = yt.reshape(B, S, D)
-    if cfg.n_shared_experts > 0:
+    if split is not None and shared is not None:   # one region, one reduce
+        y = y + _swiglu(xt.reshape(B, S, D), p.shared)
+    if split is not None:
+        y = tp.reduce_from_model(y, split.mesh)
+    if cfg.n_shared_experts > 0 and (split is None or shared is None):
         y = y + swiglu(x, p.shared)
     me = chose.sum(dim=(0, 2)).float() / T                    # tokens/expert
     pe = probs.mean(dim=(0, 1))

@@ -1,8 +1,15 @@
 """What every family of the model zoo shares for training: ``loss`` (the
-reference's ``Model.loss``), ``param_count``, ``remat``, which recomputes
-a block in the backward (the reference's ``jax.checkpoint`` per block
-under ``cfg.remat``), and ``layer_axes``, which spells a family's
-per-layer logical axes out over the port's state-dict names."""
+reference's ``Model.loss``), the embedding lookup and the LM head
+(``_lookup``, ``_head``), ``param_count``, ``remat``, which recomputes a
+block in the backward (the reference's ``jax.checkpoint`` per block under
+``cfg.remat``), and ``layer_axes``, which spells a family's per-layer
+logical axes out over the port's state-dict names.
+
+Under a vocab split (the meshed train step; the model's own ``Split``,
+``distributed/tensor_parallel.py``) the embedding and the head hold the
+rank's vocab rows: the lookup is masked to them and all-reduced, the
+logits stay split into the vocab-parallel cross entropy and are never
+gathered whole."""
 
 from __future__ import annotations
 
@@ -10,6 +17,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.distributed.xent import cross_entropy
 
 __all__ = ["LM", "AUX_LOSS_WEIGHT", "remat", "layer_axes"]
@@ -56,7 +64,29 @@ class LM(nn.Module):
         labels = batch["labels"]
         if logits.shape[1] != labels.shape[1]:
             logits = logits[:, -labels.shape[1]:, :]
-        return cross_entropy(logits, labels) + AUX_LOSS_WEIGHT * aux
+        return cross_entropy(logits, labels, split=tp.split_of(self)) \
+            + AUX_LOSS_WEIGHT * aux
+
+    def _lookup(self, tokens):
+        """The float32 embedding rows of ``tokens``; under a vocab split
+        each rank looks up the tokens in its rows, zero elsewhere, and the
+        ranks' rows are summed."""
+        split = tp.split_of(self)
+        if split is None:
+            return self.embed[tokens]
+        local = tokens.long() - split.lo
+        mine = (local >= 0) & (local < split.hi - split.lo)
+        x = self.embed[local.clamp(0, split.hi - split.lo - 1)] \
+            * mine[..., None]
+        return tp.reduce_from_model(x, split.mesh)
+
+    def _head(self, x, head):
+        """Logits of the normed ``x`` against ``head`` (D, V); the rank's
+        vocab columns under a split."""
+        split = tp.split_of(self)
+        if split is not None:
+            x = tp.copy_to_model(x, split.mesh)
+        return torch.einsum("bsd,dv->bsv", x, head.to(x.dtype))
 
     def param_count(self) -> int:
         return sum(p.numel() for p in self.parameters())

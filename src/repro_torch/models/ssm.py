@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import layers as ll
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.decoder import _param
@@ -87,8 +88,19 @@ def _mix(x, lp, cfg: ModelConfig, conv_state=None, ssd_state=None,
          step=False):
     """The SSD mixer of ``cfg``'s dims with the parameters ``lp``. Prefill
     (step=False) takes (B, S, D); decode takes (B, 1, D) plus the carried
-    states. Returns (out, conv, ssd)."""
+    states. Returns (out, conv, ssd).
+
+    Under a split (the meshed train step) ``lp`` holds the rank's heads:
+    its z, x and dt columns of ``in_proj`` with the whole B and C, the
+    conv's x channels with B and C, its heads' ``A_log``, ``D_skip`` and
+    ``dt_bias``, its rows of ``out_norm`` and ``out_proj``; the gated
+    norm's sum of squares and the output are all-reduced over
+    ``"model"``."""
     di, H, N, P, _ = _dims(cfg)
+    split = tp.split_of(lp)
+    if split is not None:
+        di, H = di // split.size, H // split.size
+        x = tp.copy_to_model(x, split.mesh)
     zxbcdt = torch.einsum("bsd,de->bse", x, lp.in_proj.to(x.dtype))
     z = zxbcdt[..., :di]
     xbc = zxbcdt[..., di:2 * di + 2 * G * N]
@@ -120,8 +132,10 @@ def _mix(x, lp, cfg: ModelConfig, conv_state=None, ssd_state=None,
         y = yt.to(x.dtype) + lp.D_skip.to(x.dtype)[None, :, None] * xh
         y = y.reshape(-1, 1, di)
 
-    y = ll.rms_norm(y * F.silu(z), lp.out_norm)
+    y = ll.rms_norm(y * F.silu(z), lp.out_norm, split=split)
     out = torch.einsum("bse,ed->bsd", y, lp.out_proj.to(x.dtype))
+    if split is not None:
+        out = tp.reduce_from_model(out, split.mesh)
     return out, new_conv, final
 
 
@@ -162,11 +176,10 @@ class Mamba(LM):
         return dict(STATE_CACHE_AXES)
 
     def _embed(self, tokens):
-        return self.embed[tokens].to(getattr(torch, self.cfg.dtype))
+        return self._lookup(tokens).to(getattr(torch, self.cfg.dtype))
 
     def _logits(self, x):
-        x = ll.rms_norm(x, self.final_norm)
-        return torch.einsum("bsd,dv->bsv", x, self.lm_head.to(x.dtype))
+        return self._head(ll.rms_norm(x, self.final_norm), self.lm_head)
 
     def _block(self, x, blk):
         return x + _mix(ll.rms_norm(x, blk.ln), blk, self.cfg)[0]

@@ -346,6 +346,11 @@ _PROGRAM: ContextVar["str | None"] = ContextVar(
     "repro_torch_obs_program", default=None)
 _COLLECTIVES: dict[str, dict[str, int]] = {}
 _RUNS: dict[str, int] = {}
+# The process's open program blocks, innermost last: what a thread that a
+# block sets working without a context of its own (autograd's device
+# thread, which runs a backward on the card and the forwards it
+# rematerialises) records under.
+_OPEN: list[str] = []
 
 
 @contextmanager
@@ -355,18 +360,22 @@ def program(key: str):
     _RUNS[key] = _RUNS.get(key, 0) + 1
     _COLLECTIVES.setdefault(key, dict.fromkeys(COLLECTIVE_KINDS, 0))
     token = _PROGRAM.set(key)
+    _OPEN.append(key)
     try:
         yield
     finally:
+        _OPEN.pop()
         _PROGRAM.reset(token)
 
 
 def note_collective(kind: str) -> None:
     """Record one collective of ``kind`` under the running program (the
-    mesh helpers call this once per collective they issue)."""
+    mesh helpers call this once per collective they issue): the block's
+    own, or on a thread with no context of its own the process's
+    innermost open one."""
     if kind not in COLLECTIVE_KINDS:
         raise ValueError(f"unknown collective kind {kind!r}")
-    key = _PROGRAM.get()
+    key = _PROGRAM.get() or (_OPEN[-1] if _OPEN else None)
     if key is None:
         raise RuntimeError(
             f"a {kind} was issued outside any program(key) block: every "

@@ -294,11 +294,12 @@ def test_only_engine_mesh_issues_collectives(path):
     tree = ast.parse(path.read_text())
     if path.relative_to(REPO / "src" / "repro_torch").as_posix() \
             == "engine/mesh.py":
-        # each helper issues its own kind (gloo and NCCL forms) and no
-        # other function of the module issues any
+        # each helper issues its own kind (gloo and NCCL forms; the
+        # ordered gloo sum gathers each chunk's parts) and no other
+        # function of the module issues any
         assert _collective_calls(tree) == {
             "all_gather": {"all_gather", "all_gather_into_tensor"},
-            "all_reduce": {"all_reduce"},
+            "all_reduce": {"all_reduce", "all_gather"},
             "permute": {"batch_isend_irecv"}}
     else:
         lines = _dist_reach(tree)

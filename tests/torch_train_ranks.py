@@ -2,13 +2,16 @@
 
 ``substrate_rank`` is what each of four gloo ranks runs for
 ``tests/test_torch_train_mesh.py``, all in one spawn: the meshed train
-step on a 2x2 mesh for three smoke architectures, ``compressed_psum_tree``
-and ``pipeline_apply`` over the four ranks, a ``train_loop`` preempted on
-the 2x2 mesh; then the process group shrinks to its first two ranks
-(``engine.mesh.regroup``), which resume that run on a 1x2 mesh and run the
-three architectures' steps there. Ranks write what they saw under the
-test's directory. This module imports only the standard library, numpy,
-torch and ``repro_torch`` (each rank records what it imported).
+step on a 2x2 mesh for three smoke architectures (with the split forward's
+logits), ``compressed_psum_tree`` and ``pipeline_apply`` over the four
+ranks, a ``train_loop`` preempted on the 2x2 mesh, the three
+architectures on a 1x4 and a 4x1 mesh; then the process group shrinks to
+its first two ranks (``engine.mesh.regroup``), which resume that run on a
+1x2 mesh and run the three architectures' steps there, and one step of
+every other family. Ranks write what they saw under the test's
+directory; rank 0 keeps the gathered state after every step. This module
+imports only the standard library, numpy, torch and ``repro_torch`` (each
+rank records what it imported).
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ import sys
 import numpy as np
 
 ARCHS = ("tinyllama_1_1b", "olmoe_1b_7b", "mamba2_2_7b")
+OTHERS = ("seamless_m4t_medium", "granite_3_8b", "qwen2_5_32b", "llama3_8b",
+          "phi_3_vision_4_2b", "deepseek_moe_16b", "hymba_1_5b")
 B, S, SEED = 4, 32, 5     # global batch, sequence, data seed
 STEPS = 3
 LR = 1e-2                 # tests/test_torch_train_loop.py's
@@ -72,12 +77,16 @@ def stage_fn(w, a):
     return torch.tanh(a @ w)
 
 
-def _meshed_steps(mesh, arch, n_micro, out, tag, rank):
-    """STEPS meshed steps of ``arch`` from the whole initial parameters in
-    ``out``; records losses, grad norms, the collectives of each step,
-    the shards' shapes and bytes, the size of each all-gather of the
-    checkpoint gathers, and (rank 0, which alone keeps it) the gathered
-    state after the first and the last step."""
+def _meshed_steps(mesh, arch, n_micro, out, tag, rank, steps=STEPS,
+                  logits=False):
+    """``steps`` meshed steps of ``arch`` from the whole initial
+    parameters in ``out``; records losses, grad norms, the collectives of
+    each step, the shards' shapes and bytes, the parameters held during
+    the step (elements, read as the forward starts, and the step's own
+    count of bytes), the size of each all-gather of the checkpoint
+    gathers, and (rank 0, which alone keeps it) the gathered state after
+    every step. With ``logits`` each rank first saves the split forward's
+    logits of its rows."""
     import torch
 
     from repro_torch.launch import steps as steps_mod
@@ -95,7 +104,20 @@ def _meshed_steps(mesh, arch, n_micro, out, tag, rank):
     shards = step.shard(init)
     step.release()
     state = opt.init(shards)
-    rec = {"losses": [], "gnorms": [], "counts": [],
+    held = []
+    model.register_forward_pre_hook(
+        lambda mod, args: held.append(sum(p.numel()
+                                          for p in mod.parameters())))
+    if logits:
+        compiled.reset_collectives()
+        b0 = batches(cfg, mesh.data_rank, mesh.data_shards)[0]
+        got = step.logits(shards, {k: torch.as_tensor(v)
+                                   for k, v in b0.items()})
+        np.save(out / f"{tag}_{arch}_logits{rank}.npy", got.numpy())
+        held.clear()
+    rec = {"losses": [], "gnorms": [], "counts": [], "held_numel": held,
+           "compute_bytes": step.compute_bytes(),
+           "modes": step.plan.modes,
            "shard_shapes": {n: list(t.shape) for n, t in shards.items()},
            "m_shapes": {n: list(t.shape) for n, t in state.m.items()},
            "v_shapes": {n: list(t.shape) for n, t in state.v.items()},
@@ -110,30 +132,30 @@ def _meshed_steps(mesh, arch, n_micro, out, tag, rank):
         return real_all_gather(mesh, t)
 
     real_all_gather = steps_mod.all_gather
-    for s, b in enumerate(batches(cfg, mesh.data_rank, mesh.data_shards)):
+    for s, b in enumerate(batches(cfg, mesh.data_rank,
+                                  mesh.data_shards)[:steps]):
         compiled.reset_collectives()
         state, m = step(shards, state, {k: torch.as_tensor(v)
                                         for k, v in b.items()})
         rec["counts"].append(compiled.collective_counts(step.KEY))
         rec["losses"].append(m["loss"].item())
         rec["gnorms"].append(m["grad_norm"].item())
-        if s in (0, STEPS - 1):
-            compiled.reset_collectives()
-            gathered.clear()
-            steps_mod.all_gather = all_gather
-            try:
-                got = step.gather_state(shards, state, keep=rank == 0)
-            finally:
-                steps_mod.all_gather = real_all_gather
-            rec["ckpt_counts"] = compiled.collective_counts(step.CKPT_KEY)
-            rec["ckpt_gathered"] = list(gathered)
-            rec["ckpt_kept"] = got is not None
-            if rank == 0:
-                whole, whole_opt = got
-                np.savez(out / f"{tag}_{arch}_step{s + 1}.npz",
-                         **{f"p.{n}": t.numpy() for n, t in whole.items()},
-                         **{f"m.{n}": t.numpy() for n, t in whole_opt.m.items()},
-                         **{f"v.{n}": t.numpy() for n, t in whole_opt.v.items()})
+        compiled.reset_collectives()
+        gathered.clear()
+        steps_mod.all_gather = all_gather
+        try:
+            got = step.gather_state(shards, state, keep=rank == 0)
+        finally:
+            steps_mod.all_gather = real_all_gather
+        rec["ckpt_counts"] = compiled.collective_counts(step.CKPT_KEY)
+        rec["ckpt_gathered"] = list(gathered)
+        rec["ckpt_kept"] = got is not None
+        if rank == 0:
+            whole, whole_opt = got
+            np.savez(out / f"{tag}_{arch}_step{s + 1}.npz",
+                     **{f"p.{n}": t.numpy() for n, t in whole.items()},
+                     **{f"m.{n}": t.numpy() for n, t in whole_opt.m.items()},
+                     **{f"v.{n}": t.numpy() for n, t in whole_opt.v.items()})
     rec["param_numel_after"] = sum(p.numel() for p in model.parameters())
     return rec
 
@@ -157,8 +179,8 @@ def substrate_rank(rank: int, out_dir: str) -> None:
     try:
         mesh = GridMesh.create(2, 2)
         meta["coords"] = [mesh.data_rank, mesh.model_rank]
-        meta["2x2"] = {a: _meshed_steps(mesh, a, 2, out, "2x2", rank)
-                       for a in ARCHS}
+        meta["2x2"] = {a: _meshed_steps(mesh, a, 2, out, "2x2", rank,
+                                        logits=True) for a in ARCHS}
 
         g = {k: torch.from_numpy(v) for k, v in comp_inputs(rank).items()}
         e = {k: torch.zeros_like(v) for k, v in g.items()}
@@ -188,6 +210,12 @@ def substrate_rank(rank: int, out_dir: str) -> None:
         if rank == 0:      # the same checkpoint, for a one-process resume
             shutil.copytree(cut, out / "ckpt_single")
 
+        for tag, (d, m), n_micro in (("1x4", (1, 4), 2), ("4x1", (4, 1), 4)):
+            other = GridMesh.create(d, m)
+            meta[f"{tag}_coords"] = [other.data_rank, other.model_rank]
+            meta[tag] = {a: _meshed_steps(other, a, n_micro, out, tag, rank)
+                         for a in ARCHS}
+
         if regroup(2, f"file://{out / 'store2'}"):
             small = GridMesh.create(1, 2)
             meta["small_coords"] = [small.data_rank, small.model_rank]
@@ -196,6 +224,9 @@ def substrate_rank(rank: int, out_dir: str) -> None:
                                          mesh=small, **LOOP)
             meta["1x2"] = {a: _meshed_steps(small, a, 2, out, "1x2",
                                             rank) for a in ARCHS}
+            meta["1x2"].update({a: _meshed_steps(small, a, 2, out, "1x2",
+                                                 rank, steps=1)
+                                for a in OTHERS})
             import torch.distributed as dist
             dist.barrier()
         meta["modules"] = sorted({m.split(".")[0] for m in sys.modules})
@@ -207,11 +238,15 @@ def substrate_rank(rank: int, out_dir: str) -> None:
 def spawn(out_dir, timeout: float) -> None:
     """Run ``substrate_rank`` in four spawned gloo ranks; raise if one
     fails or they are not all done within ``timeout`` seconds."""
+    _spawn(substrate_rank, 4, out_dir, timeout)
+
+
+def _spawn(fn, nprocs: int, out_dir, timeout: float) -> None:
     import time
 
     import torch.multiprocessing as mp
 
-    ctx = mp.start_processes(substrate_rank, args=(str(out_dir),), nprocs=4,
+    ctx = mp.start_processes(fn, args=(str(out_dir),), nprocs=nprocs,
                              join=False, start_method="spawn")
     deadline = time.monotonic() + timeout
     try:
@@ -223,3 +258,141 @@ def spawn(out_dir, timeout: float) -> None:
             if p.is_alive():
                 p.kill()
             p.join()
+
+
+# --------------------------------------------------------------------------
+# tests/test_torch_tensor_parallel.py: two gloo ranks on a 1x2 mesh
+# --------------------------------------------------------------------------
+
+XENT_SHAPE = (3, 7, 50)     # tests/test_torch_train.py's, the vocab last
+
+
+def uneven_gqa_config():
+    """A dense smoke config whose 6 q heads over 3 kv heads split over a
+    ``"model"`` of 2 as q heads 0-2 and 3-5, reading kv heads 0, 0, 1
+    and 1, 2, 2: no uniform GQA ratio on a rank."""
+    import dataclasses
+    return dataclasses.replace(arch_config("granite_3_8b"), n_heads=6,
+                               n_kv_heads=3, head_dim=8)
+
+
+def tp_inputs() -> dict:
+    """Seeded inputs of every rank: per-rank parts stacked on a leading
+    axis of 2 where the ranks differ."""
+    rng = np.random.default_rng(7)
+    f = lambda *s: rng.normal(size=s).astype(np.float32)  # noqa: E731
+    V = XENT_SHAPE[-1]
+    return {"x": f(3, 4), "w": f(2, 3, 4), "parts": f(2, 3, 4), "u": f(3, 4),
+            "narrow": f(2, 3, 2),
+            "logits": (rng.normal(size=XENT_SHAPE) * 4).astype(np.float32),
+            "labels": rng.integers(0, V, XENT_SHAPE[:2]).astype(np.int32),
+            "mask": (rng.random(XENT_SHAPE[:2]) < 0.6).astype(np.float32)}
+
+
+def tp_rank(rank: int, out_dir: str) -> None:
+    """One of the two ranks: each autograd collective's value and
+    gradient, the vocab-parallel cross entropy on the rank's half of the
+    vocab (and its gradient), and one meshed step of
+    ``uneven_gqa_config``, each counted."""
+    os.environ["GLOO_SOCKET_IFNAME"] = "lo"
+    import torch
+
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.distributed.xent import cross_entropy
+    from repro_torch.engine.mesh import (
+        GridMesh, end_process_group, start_process_group)
+    from repro_torch.launch.steps import ShardedTrainStep
+    from repro_torch.models import build
+    from repro_torch.obs import compiled
+    from repro_torch.optim import AdamW
+
+    torch.set_num_threads(1)
+    out = pathlib.Path(out_dir)
+    start_process_group("gloo", f"file://{out / 'store'}", 2, rank)
+    try:
+        mesh = GridMesh.create(1, 2)
+        r = mesh.model_rank
+        a = {k: torch.from_numpy(v) for k, v in tp_inputs().items()}
+        got, counts = {}, {}
+
+        def run(name, fn):
+            compiled.reset_collectives()
+            with compiled.program(name):
+                fn()
+            counts[name] = compiled.collective_counts(name)
+
+        def copy():
+            x = a["x"].clone().requires_grad_()
+            y = tp.copy_to_model(x, mesh)
+            (y * a["w"][r]).sum().backward()
+            got["copy.y"], got["copy.grad"] = y.detach(), x.grad
+
+        def reduce():
+            x = a["parts"][r].clone().requires_grad_()
+            y = tp.reduce_from_model(x, mesh)
+            (y * a["u"]).sum().backward()
+            got["reduce.y"], got["reduce.grad"] = y.detach(), x.grad
+
+        def total():
+            x = a["parts"][r].clone().requires_grad_()
+            y = tp.sum_over_model(x, mesh)
+            (y * a["w"][r]).sum().backward()
+            got["sum.y"], got["sum.grad"] = y.detach(), x.grad
+
+        def largest():
+            x = a["parts"][r].clone().requires_grad_()
+            y = tp.max_over_model(x, mesh)
+            got["max.y"] = y
+            got["max.requires_grad"] = torch.tensor(y.requires_grad)
+
+        def gather():
+            x = a["narrow"][r].clone().requires_grad_()
+            y = tp.gather_from_model(x, mesh, 1)
+            (y * a["u"]).sum().backward()
+            got["gather.y"], got["gather.grad"] = y.detach(), x.grad
+
+        def xent(masked):
+            def fn():
+                half = XENT_SHAPE[-1] // 2
+                split = tp.Split(mesh, 2, r * half, (r + 1) * half)
+                x = a["logits"][..., r * half:(r + 1) * half].clone() \
+                    .requires_grad_()
+                loss = cross_entropy(x, a["labels"],
+                                     a["mask"] if masked else None, split)
+                loss.backward()
+                got[f"xent{int(masked)}.loss"] = loss.detach()
+                got[f"xent{int(masked)}.grad"] = x.grad
+            return fn
+
+        for name, fn in (("copy", copy), ("reduce", reduce), ("sum", total),
+                         ("max", largest), ("gather", gather),
+                         ("xent0", xent(False)), ("xent1", xent(True))):
+            run(name, fn)
+
+        cfg = uneven_gqa_config()
+        model = build(cfg, "cpu")
+        model.init_weights(torch.Generator().manual_seed(0))
+        opt = AdamW(lr=LR)
+        step = ShardedTrainStep(model, opt, mesh, 2)
+        shards = step.shard(dict(model.named_parameters()))
+        step.release()
+        state = opt.init(shards)
+        b = batches(cfg)[0]
+        state, m = step(shards, state, {k: torch.as_tensor(v)
+                                        for k, v in b.items()})
+        meta = {"counts": counts, "loss": m["loss"].item(),
+                "gnorm": m["grad_norm"].item(),
+                "kv_index": step.plan.splits["layers.0.attn"].kv_index,
+                "modes": step.plan.modes}
+        whole = step.gather_state(shards, state)[0]
+        np.savez(out / f"tp{rank}.npz",
+                 **{k: v.numpy() for k, v in got.items()},
+                 **{f"p.{n}": t.numpy() for n, t in whole.items()})
+        (out / f"tp{rank}.json").write_text(json.dumps(meta))
+    finally:
+        end_process_group()
+
+
+def spawn_tp(out_dir, timeout: float) -> None:
+    """``tp_rank`` in two spawned gloo ranks, as ``spawn`` runs its four."""
+    _spawn(tp_rank, 2, out_dir, timeout)
