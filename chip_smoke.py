@@ -151,7 +151,7 @@ Phases, each failing the run with a non-zero exit:
    scenario, built with the cache off on the card and on the CPU: starts,
    ends, z_t, d_eff and pins equal by ``torch.equal``, the self-owned sums
    equal; (c) ``table6.run`` on the regime and the adversarial families
-   (1000 jobs, cut from the Table 6 stream for the time limit and the cut
+   (500 jobs, cut from the Table 6 stream for the time limit and the cut
    printed; S = 2, r in {0, 1200}, hedge), the launch counters set to
    0 before each and read after: both cost kernels launched, every alpha
    finite and in (0, p_od]; the groups its calls took from the plan cache
@@ -170,14 +170,14 @@ Phases, each failing the run with a non-zero exit:
    1e-5 of ``spec.materialize()`` through the list path (unit costs more
    than 1e-5 apart counted, not bounded), ``reduce="mean"`` within rtol
    1e-12 of the stacked mean; (c) ``replay_stream`` of exp4's 21
-   instances over a fresh spec with S = 32 in chunks of 8 at r = 1200 and
+   instances over a fresh spec with S = 16 in chunks of 8 at r = 1200 and
    r = 0, the launch counters set to 0 before each: the chain, Hedge and
-   learner kernels once per chunk; at S = 16 its summary against
+   learner kernels once per chunk; its summary against
    ``replay`` over the monolithic tensor at the reference's bars; (d) the
-   adaptive adversary (S = 64, chunks of 8, r = 1200) ends ``"locked"``,
+   adaptive adversary (S = 32, chunks of 8, r = 1200) ends ``"locked"``,
    its issued chunks rebuilt give the host's availability on the card, its
    Hedge regret printed beside the fixed adversarial family's; (e)
-   ``table6.run`` on the adaptive family (1000 jobs, S = 16, chunk 8, r =
+   ``table6.run`` on the adaptive family (500 jobs, S = 16, chunk 8, r =
    0) prints finite streamed rows;
 12. the cross-call caches and delta evaluation on Table 6's stream (the
    proposed r = 1200 round-0 grid, 175 policies in 65 groups; the fresh
@@ -271,8 +271,14 @@ Phases, each failing the run with a non-zero exit:
    counted, the parameters moved, then one step from the first state in
    one batch within the reference's 5e-3 of the first step's loss; wall
    per step, tokens/s, the idle share of a third step under torch.profiler
-   and the peak memory, within 0.9 of the card; (c) mamba2-2.7b at full
-   width, one step of 2 x 4096: exactly 128 SSD calls, the same prints and
+   and the peak memory, within 0.9 of the card; then one more step under
+   ``launch.op_analysis`` (the dry-run's per-rank roofline on the card):
+   its FLOPs and collective bytes equal to a meta trace of the same step,
+   its compute and memory terms at or under the measured wall of a step,
+   its peak live bytes plus what the card held before it within 10 % of
+   ``max_memory_allocated`` over it; (c) mamba2-2.7b at full
+   width with its depth cut to 32 of 64 layers, one step of 2 x 4096:
+   exactly 64 SSD calls, the same prints and
    memory bar; (d) one step of every architecture's float32 smoke config
    on the card against the CPU (loss and grad norm within 1e-5 relative,
    each first-moment leaf within 1e-4 of its max abs, the kernels
@@ -325,10 +331,24 @@ Phases, each failing the run with a non-zero exit:
    the one-rank step's launches a rank), the layer counts' all-reduces,
    each rank's parameter bytes during the step against the one-rank
    step's and its peak memory; then each kernel on rank 0's inputs
-   against its plain version, timed beside it and its bound. A rank on
-   the CPU, or one that fails or hangs, fails the run. Its time is
-   printed against its 120 s budget; the kernels line gains (a)'s flash
-   launches per step, rank 0's launches in (b) and (c)'s per-rank entry.
+   against its plain version, timed beside it and its bound; rank 0 runs
+   its last step of each under ``launch.op_analysis``, whose collective
+   bytes equal, kind by kind, what its counted helpers recorded in that
+   step and a meta trace of the same step at rank 0's position of a 2x2
+   ``StandInMesh``; then on the same ranks the split serve
+   (``ShardedServeStep``): phase 5's first group of requests (batch 4
+   over ``"data"``, 1024-token prompts, 16 new) for tinyllama-1.1b at full
+   width and depth against phase 5's tokens, and for mamba2-2.7b at the
+   two-layer cut against the one-rank serve there: tokens equal up to
+   each request's first knife edge, logits within relative RMS 2e-2,
+   every flash launch on ``flash_fwd_tc`` at (2, 1024, 16/2, 64) and
+   every SSD call at 40 heads, launches and all-reduces exact from the
+   layer counts, each rank's cache of its kv or SSD heads, its parameter
+   bytes half the model's; rank 0's launches against their plain
+   versions. A rank on the CPU, or one that fails or hangs, fails the
+   run. Its time is printed against its 120 s budget; the kernels line
+   gains (a)'s flash launches per step, rank 0's launches in (b), (c)'s
+   per-rank entry and the split serve's.
 
 Then one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` name and
 power-limit line, and last ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -363,7 +383,7 @@ PLAN_TOL = 1e-5      # absolute, on fixed alphas and unit costs, device vs host
 # Phase 10's families besides Table 6's fresh markets, and its grids: Table
 # 6's round-0 evaluations (label, grid, r, Even benchmark).
 PLAN_FAMILIES = ("regime", "adversarial")
-PLAN_FAMILY_JOBS = 1000  # (c)'s stream: phase 11 (e)'s table6.run depth
+PLAN_FAMILY_JOBS = 500   # (c)'s stream: phase 11 (e)'s table6.run depth
 PLAN_GRIDS = [("proposed r=0", "spot_od", 0, False),
               ("proposed r=1200", "selfowned", 1200, False),
               ("even r=1200", "bench", 1200, True)]
@@ -376,9 +396,9 @@ PLAN_FIELDS = ("starts", "ends", "z_t", "d_eff", "pins")
 # against the monolithic replay (tests/test_scenarios.py:306-318) and its
 # reduce="mean" bar.
 STREAM_SEED = 1000
-STREAM_S = {"synth": 64, "eval": 16, "replay": 32, "adaptive": 64}
+STREAM_S = {"synth": 64, "eval": 16, "replay": 16, "adaptive": 32}
 STREAM_CHUNK = 8
-STREAM_DRIVER_JOBS = 1000
+STREAM_DRIVER_JOBS = 500
 STREAM_C_TOL = 1e-4
 STREAM_REALIZED_RTOL, STREAM_REGRET_RTOL = 1e-12, 1e-9
 STREAM_MEAN_RTOL = 1e-12
@@ -431,6 +451,18 @@ MESH_FULL_BATCH, MESH_FULL_SEQ, MESH_FULL_STEPS, MESH_FULL_MICRO = \
     2, 1024, 2, 2
 MESH_FULL_LOGIT_TOL = 2e-2   # relative RMS, ROADMAP queue C's bf16 bar
 MESH_FULL_LOSS_TOL = 1e-2    # relative
+# (c)'s split serve on the same ranks (ShardedServeStep): phase 5's first
+# group of requests (batch 4 over "data", 1024-token prompts, 16 new), for
+# tinyllama-1.1b at full width and depth against phase 5's tokens, and for
+# mamba2-2.7b at the two-layer cut against the one-rank serve at that cut;
+# each with its flash or SSD launches a rank (prefill only).
+MESH_SERVE_DEPTH = {"tinyllama_1_1b": None, "mamba2_2_7b": MESH_FULL_LAYERS}
+MESH_SERVE_LAUNCHES = {"tinyllama_1_1b": {"flash_attention": 22},
+                       "mamba2_2_7b": {"ssd_scan": MESH_FULL_LAYERS}}
+MESH_SERVE_LOGIT_TOL = 2e-2  # relative RMS, the bf16 bar
+# Phase 16 (b)'s analysed step: its peak live bytes against the allocator's
+# peak over that step (relative).
+TRAIN_PEAK_TOL = 0.1
 MESH_LOOP = dict(global_batch=4, seq_len=32, log_every=100, ckpt_every=2,
                  microbatches=2)
 MESH_LOOP_STEPS, MESH_LOOP_PREEMPT = 6, 4     # preempted at a checkpoint
@@ -454,6 +486,7 @@ TRAIN_SSD_TOL = 1e-4     # relative to each gradient's max abs
 TRAIN_SEQ = 4096
 TRAIN_BATCH, TRAIN_MICRO = 8, 2
 MAMBA_TRAIN_BATCH = 2
+MAMBA_TRAIN_LAYERS = 32  # of 64, at full width: cut for the time limit
 TRAIN_MICRO_TOL = 5e-3   # the reference's bar (tests/test_arch_smoke.py)
 TRAIN_MEM_SHARE = 0.9
 TRAIN_TRACE = pathlib.Path("build") / "archive" / "train_trace.json"
@@ -545,6 +578,9 @@ MOE_CHECK_SHAPE = (4, 256)
 MOE_ARCHS = ("deepseek_moe_16b", "olmoe_1b_7b")
 SERVE_REQUESTS, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 4, 1024, 16
 SERVE_TRACE = pathlib.Path("build") / "archive" / "serve_trace.json"
+# Phase 5's tokens of the architectures phase 17 (c) serves split at full
+# depth.
+SERVED: dict = {}
 # Chain cases off Table 6's path: a synthetic horizon at the shared-memory
 # route's last slot count and one beyond it (the global route), with
 # (B, S, R, L) and the seed of their data.
@@ -1029,6 +1065,8 @@ def serve_phases(torch, np) -> tuple[dict, dict]:
         torch.cuda.synchronize()
         t_phase = time.perf_counter() - t0
         label[0] = None
+        if arch in MESH_SERVE_DEPTH and MESH_SERVE_DEPTH[arch] is None:
+            SERVED[arch] = out      # (c) serves it at full depth too
         counts[arch] = launches = dict(LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
         print(f"[phase serve {cfg.name}: {cfg.n_layers} layers, d_model "
@@ -3777,12 +3815,81 @@ def state_digests(torch, params: dict, state) -> dict:
     return out
 
 
+def analysed_step(torch, cfg, step, state, batch: dict, n_micro: int,
+                  wall: float) -> dict:
+    """Phase 16 (b)'s analysis: one more step under ``op_analysis`` on the
+    card, its FLOPs and collectives against a meta trace of the same step,
+    its compute and memory terms against the measured wall of a step, and
+    its peak live bytes (plus what the card held before it) against the
+    allocator's peak over it."""
+    from repro_torch.launch.mesh import HW
+    from repro_torch.launch.op_analysis import analyze
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build
+    from repro_torch.optim import AdamW
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    card = analyze(step, state, batch)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    model = build(cfg, "meta")
+    opt = AdamW(lr=3e-4)
+    meta = analyze(make_train_step(model, opt, n_micro),
+                   opt.init(dict(model.named_parameters())),
+                   {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+                    for k, v in batch.items()})
+    t_meta = time.perf_counter() - t0
+    terms = {"compute_s": card["flops"] / HW.PEAK_FLOPS_BF16,
+             "memory_s": card["bytes"] / HW.HBM_BW,
+             "collective_s": card["collectives"]["total"] / HW.NVLINK_BW}
+    live = held + card["peak_bytes"]
+    gap = abs(live - peak) / peak
+    calls = {k: v["calls"] for k, v in card["kernels"].items()}
+    same = meta["flops"] == card["flops"] \
+        and meta["collectives"] == card["collectives"]
+    print(f"  analysed step (op_analysis on the card, {t_card:.3f}s with the "
+          f"analysis; not counted): {card['flops']:.6e} FLOPs, "
+          f"{card['bytes']:.6e} bytes, collectives "
+          f"{card['collectives']['total']} B, kernel calls {calls}; the meta "
+          f"trace of the same step ({t_meta:.3f}s): {meta['flops']:.6e} "
+          f"FLOPs, collectives {meta['collectives']['total']} B "
+          f"({'equal' if same else 'DIFFER'});"
+          f" compute_s {terms['compute_s']:.6f}, memory_s "
+          f"{terms['memory_s']:.6f}, collective_s {terms['collective_s']:.6f}"
+          f" against the measured wall {wall:.6f} s; peak live "
+          f"{card['peak_bytes']} B + {held} B held before = {live} B against "
+          f"max_memory_allocated {peak} B ({gap:.4f} off, bar "
+          f"{TRAIN_PEAK_TOL}); warnings {card['warnings']}")
+    faults = []
+    if not same:
+        faults.append("the card's counts differ from the meta trace's")
+    if not card["flops"] > 0 or max(terms["compute_s"],
+                                    terms["memory_s"]) > wall:
+        faults.append(f"terms {terms} over the wall {wall}")
+    if gap > TRAIN_PEAK_TOL:
+        faults.append(f"peak live bytes {live} off the allocator's {peak}")
+    if faults:
+        fail(f"phase 16 (b) analysis: {'; '.join(faults)}")
+    return {"flops": card["flops"], "bytes": card["bytes"],
+            "collectives": card["collectives"], **terms, "wall_s": wall,
+            "peak_live": live, "max_memory_allocated": peak,
+            "meta_flops": meta["flops"]}
+
+
 def train_full_width(torch, np, arch: str, batch: int, n_micro: int,
-                     steps: int, expect: dict) -> dict:
+                     steps: int, expect: dict, analyse: bool = False,
+                     layers: int | None = None) -> dict:
     """Phase 16 (b)/(c): ``make_train_step`` on ``arch`` at full width, bf16
     activations and float32 masters from the port's seeded init, on the
     trainer's synthetic batches of ``batch`` x TRAIN_SEQ; ``expect`` holds
-    each kernel's launches per step."""
+    each kernel's launches per step; ``layers`` cuts the depth. With
+    ``analyse`` one more step runs under ``op_analysis``
+    (``analysed_step``)."""
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticTokens
     from repro_torch.kernels import LAUNCHES
@@ -3792,6 +3899,8 @@ def train_full_width(torch, np, arch: str, batch: int, n_micro: int,
 
     total = torch.cuda.get_device_properties(0).total_memory
     cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3848,6 +3957,9 @@ def train_full_width(torch, np, arch: str, batch: int, n_micro: int,
                                             params.items()}, state)}
     idle = _idle_share(torch, lambda: step(state, data[-1]), walls[-1])
     out["idle_share"] = idle
+    if analyse:
+        out["analysis"] = analysed_step(torch, cfg, step, state, data[-1],
+                                        n_micro, walls[-1])
     if first is not None:
         moved = max(float((p.detach() - first[n]).abs().max())
                     for n, p in params.items())
@@ -3989,11 +4101,13 @@ def train_phase(torch, np) -> dict:
     t0 = time.perf_counter()
     tiny = train_full_width(torch, np, "tinyllama_1_1b", TRAIN_BATCH,
                             TRAIN_MICRO, 2,
-                            {"flash_attention": 22 * TRAIN_MICRO * 2})
+                            {"flash_attention": 22 * TRAIN_MICRO * 2},
+                            analyse=True)
     print(f"  (b) {time.perf_counter() - t0:.3f}s")
     t0 = time.perf_counter()
     mamba = train_full_width(torch, np, "mamba2_2_7b", MAMBA_TRAIN_BATCH, 1,
-                             1, {"ssd_scan": 64 * 2})
+                             1, {"ssd_scan": MAMBA_TRAIN_LAYERS * 2},
+                             layers=MAMBA_TRAIN_LAYERS)
     print(f"  (c) {time.perf_counter() - t0:.3f}s")
     t0 = time.perf_counter()
     train_smoke_parity(torch, np)
@@ -4246,8 +4360,10 @@ def mesh_full_rank(torch, mesh, arch: str, out: pathlib.Path,
     """Phase 17 (c) on one rank of the 2x2 mesh: ``arch`` at full width
     (depth cut), the split forward's logits of its rows, then its meshed
     steps with the flash and SSD launches counted and their shapes seen;
-    rank 0 keeps one launch's inputs of each kernel."""
+    rank 0 keeps one launch's inputs of each kernel and runs its last step
+    under ``op_analysis`` beside its helpers' own byte counts."""
     from repro_torch.kernels import LAUNCHES, ops
+    from repro_torch.launch.op_analysis import analyze
     from repro_torch.launch.steps import ShardedTrainStep
     from repro_torch.models import build
     from repro_torch.obs import compiled
@@ -4291,12 +4407,22 @@ def mesh_full_rank(torch, mesh, arch: str, out: pathlib.Path,
     try:
         torch.save(step.logits(shards, data[0]).cpu(),
                    out / f"full_{arch}_logits{rank}.pt")
-        for b in data:
+        for i, b in enumerate(data):
             seen.clear()
             compiled.reset_collectives()
             LAUNCHES.clear()
             t0 = time.perf_counter()
-            state, m = step(shards, state, b)
+            if rank == 0 and i == len(data) - 1:   # (b): analysed
+                ana = analyze(step, shards, state, b)
+                state, m = ana["result"]
+                rec["analysis"] = {
+                    "flops": ana["flops"], "bytes": ana["bytes"],
+                    "collectives": ana["collectives"],
+                    "helpers": compiled.collective_bytes(step.KEY),
+                    "batch": {k: [list(v.shape), str(v.dtype)]
+                              for k, v in b.items()}}
+            else:
+                state, m = step(shards, state, b)
             torch.cuda.synchronize()
             rec["walls"].append(time.perf_counter() - t0)
             rec["launches"].append(dict(LAUNCHES))
@@ -4309,6 +4435,128 @@ def mesh_full_rank(torch, mesh, arch: str, out: pathlib.Path,
                whole_bytes=whole_bytes, shard_bytes=step.shard_bytes(),
                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
     del model, step, shards, state, data
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _serve_split_config(arch: str):
+    """(c)'s serve config: ``arch`` at full width, at its depth cut."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    depth = MESH_SERVE_DEPTH[arch]
+    return dataclasses.replace(cfg, n_layers=depth) if depth else cfg
+
+
+def _serve_prompts(np, cfg):
+    """Phase 5's first group of prompts."""
+    return np.random.default_rng(0).integers(
+        0, cfg.vocab, (SERVE_REQUESTS, SERVE_PROMPT),
+        dtype=np.int32)[:SERVE_BATCH]
+
+
+def serve_reduces(cfg) -> int:
+    """All-reduces over ``"model"`` (2 wide) of one split prefill or decode
+    step of a decoder or Mamba-2 config, from its layer counts: the
+    lookup and greedy's two maxima where the vocab splits, then per layer
+    attention's and the SwiGLU's one each, or the SSD mixer's two (its
+    gated norm's sum and its output)."""
+    top = 3 if cfg.vocab % 2 == 0 else 0
+    if cfg.kind == "ssm":
+        return top + 2 * cfg.n_layers * (cfg.n_ssm_heads % 2 == 0)
+    return top + cfg.n_layers * ((cfg.n_heads % 2 == 0) + (cfg.d_ff % 2 == 0))
+
+
+def mesh_serve_rank(torch, np, mesh, arch: str, out: pathlib.Path,
+                    rank: int) -> dict:
+    """Phase 17 (c)'s split serve on one rank: ``ShardedServeStep`` with the
+    rank's slices of the seeded init, one prefill and ``SERVE_NEW - 1``
+    decodes of its ``"data"`` rows of phase 5's first group; its launches,
+    their shapes, its cache and collectives; each step's logits, kept as
+    the model returns them to the step and gathered over ``"model"`` for
+    the check afterwards (under a program key of their own). Rank 0 keeps
+    one launch's inputs."""
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.kernels import LAUNCHES, ops
+    from repro_torch.launch.steps import ShardedServeStep
+    from repro_torch.models import build
+    from repro_torch.obs import compiled
+
+    cfg = _serve_split_config(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    whole = build(cfg, "cuda")
+    whole.init_weights(torch.Generator("cuda").manual_seed(0))
+    whole_bytes = 4 * sum(p.numel() for p in whole.parameters())
+    step = ShardedServeStep(build(cfg, "meta"), mesh,
+                            SERVE_PROMPT + SERVE_NEW)
+    step.load(dict(whole.named_parameters()), "cuda")
+    del whole
+    torch.cuda.empty_cache()
+    rows = SERVE_BATCH // mesh.data_shards
+    at = slice(mesh.data_rank * rows, (mesh.data_rank + 1) * rows)
+    batch = {"tokens": torch.as_tensor(_serve_prompts(np, cfg)[at],
+                                       device="cuda")}
+    seen = collections.Counter()
+    real = {"flash_attention": ops.flash_attention, "ssd": ops.ssd}
+
+    def keep(name, **tensors):
+        path = out / f"serve_{arch}_{name}.pt"
+        if rank == 0 and not path.exists():
+            torch.save(tensors, path)
+
+    def flash(q, k, v, **kw):
+        seen[f"flash q {tuple(q.shape)} kv {tuple(k.shape)}"] += 1
+        keep("flash", q=q, k=k, v=v,
+             kw=torch.tensor([kw["causal"], kw["window"], kw["prefix"]]))
+        return real["flash_attention"](q, k, v, **kw)
+
+    def ssd(x, dt, A, B, C, *, chunk=128, init_state=None):
+        seen[f"ssd x {tuple(x.shape)} B {tuple(B.shape)}"] += 1
+        keep("ssd", x=x, dt=dt, A=A, B=B, C=C, chunk=torch.tensor(chunk))
+        return real["ssd"](x, dt, A, B, C, chunk=chunk, init_state=init_state)
+
+    model, kept = step.model, []
+
+    def keeping(fn):
+        def call(*a, **k):
+            lg, cache = fn(*a, **k)
+            kept.append(lg[:, -1])
+            return lg, cache
+        return call
+
+    ops.flash_attention, ops.ssd = flash, ssd
+    model.prefill, model.decode = keeping(model.prefill), \
+        keeping(model.decode)
+    try:
+        compiled.reset_collectives()
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        tok, cache = step.prefill(batch)
+        toks = [tok]
+        for t in range(SERVE_NEW - 1):
+            tok, cache = step.decode(cache, tok, SERVE_PROMPT + t)
+            toks.append(tok)
+        tokens = torch.cat(toks, 1).cpu().numpy()
+        wall = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+    finally:
+        ops.flash_attention, ops.ssd = real["flash_attention"], real["ssd"]
+        del model.prefill, model.decode
+    rec = {"tokens": tokens.tolist(), "wall": wall, "launches": launches,
+           "shapes": dict(seen),
+           "cache": {k: list(v.shape) for k, v in cache.items()},
+           "counts": [compiled.collective_counts(k)["total"] for k in
+                      (step.PREFILL_KEY, step.DECODE_KEY)],
+           "param_bytes": step.param_bytes(), "whole_bytes": whole_bytes}
+    del cache
+    vocab = step.plan.splits.get("")
+    with compiled.program("phase17.serve.check"), torch.inference_mode():
+        got = [(tp.gather_from_model(lg, mesh, -1) if vocab else lg)
+               .float().cpu() for lg in kept]
+    np.save(out / f"serve_{arch}_logits{rank}.npy",
+            torch.stack(got, 1).numpy())
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del step, model, kept
     torch.cuda.empty_cache()
     return rec
 
@@ -4399,6 +4647,9 @@ def mesh_train_rank(rank: int, out_dir: str) -> None:
             for arch in MESH_FULL_ARCHS:
                 meta[f"full {arch}"] = mesh_full_rank(torch, mesh, arch, out,
                                                       rank)
+            for arch in MESH_SERVE_DEPTH:
+                meta[f"serve {arch}"] = mesh_serve_rank(torch, np, mesh,
+                                                        arch, out, rank)
 
             comp, w, x = _mesh_train_inputs(np)
             g = {"w": torch.from_numpy(comp[rank]).cuda()}
@@ -4633,6 +4884,198 @@ def mesh_full_check(torch, out: pathlib.Path, metas: list, ref: dict):
     return entries
 
 
+def mesh_serve_witness(torch, np) -> dict:
+    """Phase 17 (c)'s one-rank serves at the split serve's configs: per
+    arch the tokens (tinyllama-1.1b: phase 5's own; mamba2-2.7b:
+    ``serve_requests`` at the cut) and the logits of each step teacher-
+    forced on them (``model.prefill`` and ``model.decode``, the steps'
+    own calls), float32 on the host."""
+    from repro_torch.launch.serve import serve_requests
+    from repro_torch.models import build
+
+    out = {}
+    for arch in MESH_SERVE_DEPTH:
+        cfg = _serve_split_config(arch)
+        prompts = _serve_prompts(np, cfg)
+        if arch in SERVED:
+            tokens = SERVED[arch][:SERVE_BATCH]
+        else:
+            tokens = serve_requests(cfg, prompts, SERVE_BATCH, SERVE_NEW,
+                                    device="cuda")[0]
+        model = build(cfg, "cuda")
+        model.init_weights(torch.Generator("cuda").manual_seed(0))
+        ref = torch.as_tensor(tokens, device="cuda")
+        lg, cache = model.prefill(
+            {"tokens": torch.as_tensor(prompts, device="cuda")},
+            max_len=SERVE_PROMPT + SERVE_NEW)
+        got = [lg[:, -1].float().cpu()]
+        for t in range(SERVE_NEW - 1):
+            lg, cache = model.decode(cache, ref[:, t:t + 1], SERVE_PROMPT + t)
+            got.append(lg[:, -1].float().cpu())
+        out[arch] = {"tokens": np.asarray(tokens),
+                     "logits": torch.stack(got, 1).numpy(),
+                     "from": "phase 5" if arch in SERVED else "serve_requests"}
+        del model, cache, lg
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_serve_check(torch, np, out: pathlib.Path, metas: list,
+                     want: dict) -> dict:
+    """Phase 17 (c)'s split serve against the one-rank witness: tokens
+    equal up to each request's first knife edge (a step whose one-rank
+    top two logits lie within two bfloat16 ulps, or where the split's own
+    logit deviations could reorder the one-rank pick), the logits of every step
+    whose inputs equal the witness's (up to each request's first
+    differing token) within relative RMS 2e-2, exact launches (all
+    tensor-core) and all-reduces from the layer counts, the rank's cache
+    of its heads; then rank 0's launches against their plain versions.
+    Returns per kernel its entry."""
+    entries = {}
+    for arch in MESH_SERVE_DEPTH:
+        cfg, ref = _serve_split_config(arch), want[arch]
+        n_red = serve_reduces(cfg)
+        rows = SERVE_BATCH // 2
+        for r, meta in enumerate(metas):
+            got = meta[f"serve {arch}"]
+            d = meta["coords"][0]
+            at = slice(d * rows, (d + 1) * rows)
+            lg = np.load(out / f"serve_{arch}_logits{r}.npy")
+            wl, wt = ref["logits"][at], ref["tokens"][at]
+            toks = np.asarray(got["tokens"])
+            # step t's inputs are the tokens before t: equal to the
+            # witness's through the first differing token
+            first = [int(np.argmax(toks[i] != wt[i])) if (toks[i] != wt[i])
+                     .any() else SERVE_NEW for i in range(rows)]
+            same_in = np.arange(SERVE_NEW)[None, :] <= np.minimum(
+                np.array(first)[:, None], SERVE_NEW - 1)
+            d2 = ((lg - wl) ** 2).mean(axis=-1)[same_in]
+            rms = float(np.sqrt(d2.mean())
+                        / np.sqrt((wl ** 2).mean(axis=-1)[same_in].mean()))
+            # a knife edge: a step where the split's own deviation could
+            # reorder the one-rank pick a with some c (l_a - l_c within
+            # |d_a| + |d_c|), or the one-rank top two lie within two
+            # bfloat16 ulps
+            a = wl.argmax(axis=-1)[..., None]
+            dev = np.abs(lg - wl)
+            margin = np.take_along_axis(wl, a, -1) - wl \
+                - np.take_along_axis(dev, a, -1) - dev
+            np.put_along_axis(margin, a, np.inf, -1)
+            top2 = np.sort(wl, axis=-1)[..., -2:]
+            ulp = 2.0 ** (np.floor(np.log2(np.abs(top2[..., 1]))) - 7)
+            edge = (margin.min(axis=-1) <= 0) \
+                | (top2[..., 1] - top2[..., 0] <= 2 * ulp)
+            knife = [int(np.argmax(e)) if e.any() else SERVE_NEW
+                     for e in edge]
+            equal = all(np.array_equal(toks[i, :knife[i]], wt[i, :knife[i]])
+                        for i in range(rows))
+            same = int((toks == wt).all(axis=1).sum())
+            print(f"  (c) split serve, rank {r} at {tuple(meta['coords'])}, "
+                  f"{cfg.name} ({cfg.n_layers} layers at full width, rows "
+                  f"{at.start}-{at.stop - 1} of {SERVE_BATCH} x "
+                  f"{SERVE_PROMPT}, {SERVE_NEW} new): tokens "
+                  f"{'equal' if equal else 'DIFFER from'} the one-rank "
+                  f"serve's ({ref['from']}) up to the knife edges {knife} "
+                  f"({same} of {rows} equal throughout); logits of the "
+                  f"steps with the witness's inputs rel. RMS {rms:.3e} (bar "
+                  f"{MESH_SERVE_LOGIT_TOL}); "
+                  f"serve wall {got['wall']:.3f}s; launches "
+                  f"{got['launches']}; shapes {got['shapes']}; cache "
+                  f"{got['cache']}; all-reduces {got['counts']} (want "
+                  f"[{n_red}, {n_red * (SERVE_NEW - 1)}]); parameters held "
+                  f"{got['param_bytes']} B of {got['whole_bytes']} B "
+                  f"({got['param_bytes'] / got['whole_bytes']:.4f}); peak "
+                  f"{got['peak_gib']:.3f} GiB")
+            faults = []
+            if not equal or rms > MESH_SERVE_LOGIT_TOL:
+                faults.append("off the one-rank serve")
+            expect = MESH_SERVE_LAUNCHES[arch]
+            if {k: got["launches"].get(k, 0) for k in expect} != expect:
+                faults.append(f"launches {got['launches']}, want {expect}")
+            if "flash_attention" in expect and got["launches"].get(
+                    "flash_attention_tc") != expect["flash_attention"]:
+                faults.append("a flash launch off the tensor cores")
+            if cfg.kind == "ssm":
+                want_shape = "ssd x (%d, %d, %d, %d) B (%d, %d, 1, %d)" % (
+                    rows, SERVE_PROMPT, cfg.n_ssm_heads // 2,
+                    cfg.ssm_head_dim, rows, SERVE_PROMPT, cfg.d_state)
+                heads = got["cache"]["ssd"][2] == cfg.n_ssm_heads // 2
+            else:
+                want_shape = "flash q (%d, %d, %d, %d) kv (%d, %d, %d, %d)" \
+                    % (rows, SERVE_PROMPT, cfg.n_heads // 2, cfg.dh, rows,
+                       SERVE_PROMPT, cfg.n_kv_heads // 2, cfg.dh)
+                heads = got["cache"]["k"][3] == cfg.n_kv_heads // 2
+            if set(got["shapes"]) != {want_shape} or not heads:
+                faults.append(f"shapes {got['shapes']} (want {want_shape}),"
+                              f" cache {got['cache']}")
+            if got["counts"] != [n_red, n_red * (SERVE_NEW - 1)]:
+                faults.append(f"all-reduces {got['counts']}")
+            if not got["param_bytes"] < 0.6 * got["whole_bytes"]:
+                faults.append("the rank holds whole parameters")
+            if faults:
+                fail(f"phase 17 (c) split serve rank {r} {arch}: "
+                     f"{'; '.join(faults)}")
+        kernel = next(iter(MESH_SERVE_LAUNCHES[arch]))
+        tag = "flash" if kernel == "flash_attention" else "ssd"
+        inputs = torch.load(out / f"serve_{arch}_{tag}.pt",
+                            map_location="cuda")
+        per_rank = metas[0][f"serve {arch}"]["launches"].get(kernel, 0)
+        if kernel == "flash_attention":
+            c, w, pre = inputs["kw"].tolist()
+            e = flash_entry(torch, ((inputs["q"], inputs["k"], inputs["v"],
+                                     None), {"causal": bool(c), "window": w,
+                                             "prefix": pre}),
+                            "phase 17 (c) split serve, rank 0", per_rank)
+        else:
+            e = ssd_entry(torch, ((inputs["x"], inputs["dt"], inputs["A"],
+                                   inputs["B"], inputs["C"],
+                                   int(inputs["chunk"])), {}),
+                          "phase 17 (c) split serve, rank 0", per_rank)
+        entries[kernel] = {k: e[k] for k in (
+            "launches", "shape", "ms", "device_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "max_abs_err")}
+    return entries
+
+
+def mesh_analysis_check(torch, metas: list) -> dict:
+    """Phase 17 (c)'s analysed split step of rank 0 (``op_analysis`` on
+    the card): its collective bytes against what its counted helpers
+    recorded in that step, kind by kind, and against a meta trace of the
+    same step on a 2x2 ``StandInMesh`` at rank 0's position."""
+    from repro_torch.engine.mesh import StandInMesh
+    from repro_torch.launch.op_analysis import analyze
+    from repro_torch.launch.steps import ShardedTrainStep
+    from repro_torch.models import build
+    from repro_torch.optim import AdamW
+
+    out = {}
+    for arch in MESH_FULL_ARCHS:
+        got = metas[0][f"full {arch}"]["analysis"]
+        model = build(_full_cut_config(arch), "meta")
+        opt = AdamW(lr=3e-4)
+        step = ShardedTrainStep(model, opt, StandInMesh(
+            ("data", "model"), (2, 2), 0), MESH_FULL_MICRO)
+        shards = step.shard({n: p.detach()
+                             for n, p in model.named_parameters()})
+        step.release()
+        batch = {k: torch.empty(shape, dtype=getattr(torch, dt.split(".")[-1]),
+                                device="meta")
+                 for k, (shape, dt) in got["batch"].items()}
+        meta = analyze(step, shards, opt.init(shards), batch)
+        same = got["collectives"] == got["helpers"] == meta["collectives"]
+        print(f"  (c) rank 0's analysed split step of {arch}: collectives "
+              f"{got['collectives']} B; its helpers recorded "
+              f"{got['helpers']} B; the meta trace on a 2x2 stand-in "
+              f"{meta['collectives']} B ({'equal' if same else 'DIFFER'}); "
+              f"{got['flops']:.6e} FLOPs (meta {meta['flops']:.6e}), "
+              f"{got['bytes']:.6e} bytes")
+        if not same or got["flops"] != meta["flops"]:
+            fail(f"phase 17 (c) {arch}: the analysed collectives or FLOPs "
+                 "differ from the helpers' or the meta trace's")
+        out[arch] = {"collectives": got["collectives"], "flops": got["flops"]}
+    return out
+
+
 def mesh_train_smoke(torch, np, whole: list) -> dict:
     """Phase 17 (b) and (c): a 2x2 mesh of four gloo ranks sharing the
     card; the card's one-rank runs first, as the witnesses (``whole``: the
@@ -4667,6 +5110,7 @@ def mesh_train_smoke(torch, np, whole: list) -> dict:
         want[arch] = rec
         del model, params, state
     full_want = mesh_full_witness(torch)
+    serve_want = mesh_serve_witness(torch, np)
     comp, w, x = _mesh_train_inputs(np)
     qs = [quantize_ef(torch.from_numpy(c).cuda(),
                       torch.zeros(c.shape, device="cuda")) for c in comp]
@@ -4684,6 +5128,8 @@ def mesh_train_smoke(torch, np, whole: list) -> dict:
     out = (MESH_TRAIN_DIR / "ranks").resolve()
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
+    for arch, ref in serve_want.items():
+        np.save(out / f"serve_{arch}_tokens.npy", ref["tokens"])
     t0 = time.perf_counter()
     spawn_ranks(mesh_train_rank, 4, (str(out),), MESH_TRAIN_TIMEOUT,
                 label="phase 17 (b)/(c)")
@@ -4799,7 +5245,10 @@ def mesh_train_smoke(torch, np, whole: list) -> dict:
         if faults:
             fail(f"phase 17 (b) rank {r}: {'; '.join(faults)}")
     full = mesh_full_check(torch, out, metas, full_want)
-    return {"rank0_launches": rank0, "ranks_s": t_ranks, "full": full}
+    analysed = mesh_analysis_check(torch, metas)
+    served = mesh_serve_check(torch, np, out, metas, serve_want)
+    return {"rank0_launches": rank0, "ranks_s": t_ranks, "full": full,
+            "analysis": analysed, "serve": served}
 
 
 def mesh_train_phase(torch, np, ref: dict) -> dict:
@@ -5466,6 +5915,8 @@ def main() -> int:
             meshed_lm["b"]["rank0_launches"].get(k["name"], 0)
         if k["name"] in meshed_lm["b"]["full"]:
             k["mesh_split_rank"] = meshed_lm["b"]["full"][k["name"]]
+        if k["name"] in meshed_lm["b"]["serve"]:
+            k["mesh_serve_split_rank"] = meshed_lm["b"]["serve"][k["name"]]
     t_phase = time.perf_counter() - t0
     print(f"[phase mesh of the LM substrate: {t_phase:.3f}s (budget "
           f"{MESH_TRAIN_BUDGET:.0f}s); (a) walls "

@@ -1,7 +1,7 @@
 """Tensor parallelism over a mesh's ``"model"`` dim: what the reference's
 GSPMD makes of its rule table (``DEFAULT_RULES``: ``heads``, ``kv_heads``,
-``d_ff``, ``vocab`` and ``experts`` over ``"model"``) in the meshed train
-step, written out.
+``d_ff``, ``vocab`` and ``experts`` over ``"model"``) in the meshed train,
+prefill and decode steps, written out.
 
 The residual stream is whole on every ``"model"`` rank. Each split product
 is a region: its input enters through :func:`copy_to_model` (identity
@@ -178,6 +178,18 @@ class Plan:
     def shape(self, name: str) -> tuple[int, ...]:
         """The shape of the slice ``name`` computes with."""
         return tuple(sum(b - a for a, b in dim) for dim in self.runs[name])
+
+    def take(self, name: str, whole: torch.Tensor) -> torch.Tensor:
+        """The slice of ``name`` this rank computes with, cut from the
+        whole tensor ``whole`` (its runs concatenated along each dim; a
+        view where every dim is one run)."""
+        out = whole
+        for d, dim_runs in enumerate(self.runs[name]):
+            if dim_runs == ((0, whole.shape[d]),):
+                continue
+            parts = [out.narrow(d, a, b - a) for a, b in dim_runs]
+            out = parts[0] if len(parts) == 1 else torch.cat(parts, dim=d)
+        return out
 
 
 def _over_model(spec, i: int) -> bool:

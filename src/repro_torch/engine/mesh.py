@@ -24,11 +24,16 @@ reduction, and are dropped at the splice. A 1x1 mesh needs no process
 group: it is the unsharded computation, through the same code.
 
 Every collective of the port goes through this module's three counted
-helpers, each recorded under the running program key
-(``obs.compiled.collective_counts``): :func:`all_gather` (over the whole
-mesh, or along one dim), :func:`all_reduce` (SUM or MAX over one dim,
-``"data"`` by default, or over several) and :func:`permute` (a ring's
-collective permute over one dim, the pipeline's). The process group's
+helpers, each recorded with its operand bytes under the running program
+key (``obs.compiled.collective_counts`` and ``collective_bytes``):
+:func:`all_gather` (over the whole mesh, or along one dim),
+:func:`all_reduce` (SUM or MAX over one dim, ``"data"`` by default, or
+over several) and :func:`permute` (a ring's collective permute over one
+dim, the pipeline's). On a :class:`StandInMesh` (a mesh's shape seen
+from one of its positions, with no process group: the dry-run's
+production meshes) each records what that rank would move and returns an
+output of the right shape without communicating, so one rank's step
+traces on meta tensors. The process group's
 backend decides how a tensor on the card reaches the collective: NCCL
 takes it as it is; gloo, which has no collectives for CUDA tensors, gets
 a host copy. A gloo all-reduce, permute or one-dim all-gather is copied
@@ -53,10 +58,11 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.obs.compiled import note_collective
+from repro_torch.obs.compiled import collective
 
 __all__ = [
-    "GridMesh", "ScenarioMesh", "as_scenario_mesh", "pad_to", "edge_repeat",
+    "GridMesh", "StandInMesh", "ScenarioMesh", "as_scenario_mesh", "pad_to",
+    "edge_repeat",
     "scen_rows", "all_gather", "all_reduce", "permute", "mesh_axes",
     "mesh_shape", "dim_size", "dim_rank", "make_mesh", "start_process_group",
     "end_process_group", "process_rank", "regroup",
@@ -256,6 +262,13 @@ class GridMesh:
         :func:`all_gather` stacks its parts in."""
         return [self.coords(r) for r in range(self.n_shards)]
 
+    def position(self, rank: int | None = None) -> dict[str, int]:
+        """``{"data": d, "model": m}`` of process-group rank ``rank``
+        (default: this process's): the coordinates a ``NamedSharding``'s
+        ``block`` takes."""
+        d, m = self._here() if rank is None else self.coords(rank)
+        return {"data": d, "model": m}
+
     @property
     def data_rank(self) -> int:
         return self._here()[0]
@@ -336,6 +349,80 @@ class GridMesh:
 
 # The 1-D scenario mesh is a GridMesh with a 1-wide (absent) "model" dim.
 ScenarioMesh = GridMesh
+
+
+@dataclasses.dataclass(frozen=True)
+class StandInMesh:
+    """A mesh's axes and sizes seen from one position, ``rank`` (row-major
+    over the axes, as a ``DeviceMesh`` numbers its ranks), with no process
+    group behind it: the shape of ``launch.mesh.make_production_mesh``
+    (16x16 or 2x16x16) or of a small test mesh. The sharding rules fit
+    specs against it, ``tensor_parallel.plan`` splits for its position,
+    and the collective helpers record the bytes that position would move
+    and return outputs of the right shape: an all-gather's other parts are
+    zeros, a reduction leaves the rank's own tensor, a permute returns a
+    copy. So a rank's step runs (on meta tensors, for its shapes) without
+    its peers. Its ``"data"`` is every axis but ``"model"``, the first
+    major, as the batch rules (``("pod", "data")``) order them."""
+
+    axis_names: tuple[str, ...]
+    sizes: tuple[int, ...]
+    rank: int = 0
+
+    @classmethod
+    def of(cls, mesh, rank: int = 0) -> "StandInMesh":
+        """The stand-in of an abstract mesh (``axis_names``, ``sizes``)."""
+        return cls(tuple(mesh.axis_names), tuple(mesh.sizes), rank)
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def size(self) -> int:
+        return int(np.prod(self.sizes))
+
+    n_shards = size
+
+    @property
+    def model_shards(self) -> int:
+        return self.shape.get("model", 1)
+
+    @property
+    def data_shards(self) -> int:
+        return self.size // self.model_shards
+
+    def position(self, rank: int | None = None) -> dict[str, int]:
+        """Axis name -> index of ``rank`` (default: the stand-in's own)."""
+        idx = np.unravel_index(self.rank if rank is None else rank,
+                               self.sizes)
+        return {a: int(i) for a, i in zip(self.axis_names, idx)}
+
+    @property
+    def model_rank(self) -> int:
+        return self.position().get("model", 0)
+
+    @property
+    def data_rank(self) -> int:
+        at = self.position()
+        i = 0
+        for a, n in zip(self.axis_names, self.sizes):
+            if a != "model":
+                i = i * n + at[a]
+        return i
+
+    def dim_rank(self, dims) -> int:
+        """The position along ``dims`` (one name or several, the first
+        major)."""
+        at = self.position()
+        i = 0
+        for a in ((dims,) if isinstance(dims, str) else dims):
+            i = i * self.shape.get(a, 1) + at.get(a, 0)
+        return i
+
+    def dim_size(self, dims) -> int:
+        return int(np.prod([self.shape.get(a, 1) for a in (
+            (dims,) if isinstance(dims, str) else dims)]))
 
 
 def as_scenario_mesh(mesh) -> GridMesh | None:
@@ -421,6 +508,8 @@ def dim_rank(mesh, dim: str) -> int:
         return 0
     if isinstance(mesh, GridMesh):
         return {"data": mesh.data_rank, "model": mesh.model_rank}[dim]
+    if isinstance(mesh, StandInMesh):
+        return mesh.dim_rank(dim)
     return int(mesh.get_local_rank(dim))
 
 
@@ -433,36 +522,52 @@ def all_gather(mesh, t: torch.Tensor, dim: str | None = None
     and a caller that wants them on the card copies them back). With
     ``dim``, from the ranks along that dim alone: ``(dim_size, *t.shape)``
     in their order along it, on ``t``'s device under either backend.
-    Recorded as one ``all-gather`` of the running program."""
-    note_collective("all-gather")
-    if dim is not None:
-        group = _group(mesh, dim)
-        if group is None:
-            return t[None]
-        import torch.distributed as dist
+    Recorded as one ``all-gather`` of the running program, its operand
+    bytes ``t``'s."""
+    with collective("all-gather", _nbytes(t)):
+        if isinstance(mesh, StandInMesh):
+            return _stand_in_gather(mesh, t, dim)
+        if dim is not None:
+            group = _group(mesh, dim)
+            if group is None:
+                return t[None]
+            import torch.distributed as dist
 
-        n, t = dim_size(mesh, dim), t.contiguous()
-        if dist.get_backend(group) == "nccl":
-            out = torch.empty((n,) + tuple(t.shape), dtype=t.dtype,
+            n, t = dim_size(mesh, dim), t.contiguous()
+            if dist.get_backend(group) == "nccl":
+                out = torch.empty((n,) + tuple(t.shape), dtype=t.dtype,
+                                  device=t.device)
+                dist.all_gather_into_tensor(out, t, group=group)
+                return out
+            parts = [torch.empty_like(t, device="cpu") for _ in range(n)]
+            dist.all_gather(parts, t.cpu(), group=group)
+            return torch.stack(parts).to(t.device)
+        dist = _dist()
+        if mesh.mesh is None or dist is None:
+            return t[None]
+        t = t.contiguous()
+        if dist.get_backend() == "nccl":
+            out = torch.empty((mesh.n_shards,) + tuple(t.shape), dtype=t.dtype,
                               device=t.device)
-            dist.all_gather_into_tensor(out, t, group=group)
+            dist.all_gather_into_tensor(out, t)
             return out
-        parts = [torch.empty_like(t, device="cpu") for _ in range(n)]
-        dist.all_gather(parts, t.cpu(), group=group)
-        return torch.stack(parts).to(t.device)
-    dist = _dist()
-    if mesh.mesh is None or dist is None:
-        return t[None]
-    t = t.contiguous()
-    if dist.get_backend() == "nccl":
-        out = torch.empty((mesh.n_shards,) + tuple(t.shape), dtype=t.dtype,
-                          device=t.device)
-        dist.all_gather_into_tensor(out, t)
-        return out
-    host = t.cpu()
-    parts = [torch.empty_like(host) for _ in range(mesh.n_shards)]
-    dist.all_gather(parts, host)
-    return torch.stack(parts)
+        host = t.cpu()
+        parts = [torch.empty_like(host) for _ in range(mesh.n_shards)]
+        dist.all_gather(parts, host)
+        return torch.stack(parts)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _stand_in_gather(mesh, t, dim):
+    """A stand-in's all-gather: the rank's part at its place, zeros at the
+    others'."""
+    n = mesh.n_shards if dim is None else mesh.dim_size(dim)
+    out = t.new_zeros((n,) + tuple(t.shape))
+    out[mesh.rank if dim is None else mesh.dim_rank(dim)] = t
+    return out
 
 
 # Elements of a gloo ordered sum's chunk: every rank holds the group's
@@ -480,31 +585,34 @@ def all_reduce(mesh, t: torch.Tensor, dim: str | tuple[str, ...] = "data",
     (the parts all-gathered to the host a chunk at a time), so a sum of
     more than two ranks is the one a single process adds up in that order
     (gloo's own ring adds each chunk in another order); NCCL reduces as it
-    does. Recorded as one ``all-reduce`` of the running program."""
-    note_collective("all-reduce")
-    group = _group(mesh, dim)
-    if group is None:
-        return t
-    import torch.distributed as dist
+    does. Recorded as one ``all-reduce`` of the running program, its
+    operand bytes ``t``'s."""
+    with collective("all-reduce", _nbytes(t)):
+        if isinstance(mesh, StandInMesh):
+            return t
+        group = _group(mesh, dim)
+        if group is None:
+            return t
+        import torch.distributed as dist
 
-    red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
-    if dist.get_backend(group) == "nccl":
-        dist.all_reduce(t, op=red, group=group)
+        red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+        if dist.get_backend(group) == "nccl":
+            dist.all_reduce(t, op=red, group=group)
+            return t
+        if ordered and op == "sum":     # each chunk's parts, then a left fold
+            flat, n = t.view(-1), dist.get_world_size(group)
+            for at in range(0, flat.numel(), _ORDERED_CHUNK):
+                part = flat[at:at + _ORDERED_CHUNK].cpu()
+                got = [torch.empty_like(part) for _ in range(n)]
+                dist.all_gather(got, part, group=group)
+                for g in got[1:]:
+                    got[0] += g
+                flat[at:at + _ORDERED_CHUNK].copy_(got[0])
+            return t
+        host = t.cpu()
+        dist.all_reduce(host, op=red, group=group)
+        t.copy_(host)
         return t
-    if ordered and op == "sum":     # each chunk's parts, then a left fold
-        flat, n = t.view(-1), dist.get_world_size(group)
-        for at in range(0, flat.numel(), _ORDERED_CHUNK):
-            part = flat[at:at + _ORDERED_CHUNK].cpu()
-            got = [torch.empty_like(part) for _ in range(n)]
-            dist.all_gather(got, part, group=group)
-            for g in got[1:]:
-                got[0] += g
-            flat[at:at + _ORDERED_CHUNK].copy_(got[0])
-        return t
-    host = t.cpu()
-    dist.all_reduce(host, op=red, group=group)
-    t.copy_(host)
-    return t
 
 
 def permute(mesh, t: torch.Tensor, dim: str) -> torch.Tensor:
@@ -512,23 +620,25 @@ def permute(mesh, t: torch.Tensor, dim: str) -> torch.Tensor:
     rank sends ``t`` to the next rank (the last to the first) and returns
     what the one before it sent (same shape and dtype), on ``t``'s device;
     a paired send and receive, staged through the host under gloo.
-    Recorded as one ``collective-permute``."""
-    note_collective("collective-permute")
-    group = _group(mesh, dim)
-    if group is None:
-        return t
-    import torch.distributed as dist
+    Recorded as one ``collective-permute``, its operand bytes ``t``'s."""
+    with collective("collective-permute", _nbytes(t)):
+        if isinstance(mesh, StandInMesh):
+            return t.clone()
+        group = _group(mesh, dim)
+        if group is None:
+            return t
+        import torch.distributed as dist
 
-    ranks = dist.get_process_group_ranks(group)
-    i, n = dist.get_rank(group), len(ranks)
-    nccl = dist.get_backend(group) == "nccl"
-    send = t.contiguous() if nccl else t.cpu()
-    recv = torch.empty_like(send)
-    for req in dist.batch_isend_irecv([
-            dist.P2POp(dist.isend, send, ranks[(i + 1) % n], group),
-            dist.P2POp(dist.irecv, recv, ranks[(i - 1) % n], group)]):
-        req.wait()
-    return recv if nccl else recv.to(t.device)
+        ranks = dist.get_process_group_ranks(group)
+        i, n = dist.get_rank(group), len(ranks)
+        nccl = dist.get_backend(group) == "nccl"
+        send = t.contiguous() if nccl else t.cpu()
+        recv = torch.empty_like(send)
+        for req in dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, send, ranks[(i + 1) % n], group),
+                dist.P2POp(dist.irecv, recv, ranks[(i - 1) % n], group)]):
+            req.wait()
+        return recv if nccl else recv.to(t.device)
 
 
 # --------------------------------------------------------------------------

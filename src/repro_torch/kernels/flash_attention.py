@@ -50,13 +50,14 @@ import torch
 
 from repro_torch.device import PLAIN_DEVICES, kernel_library
 from repro_torch.kernels import LAUNCHES
-from repro_torch.obs.compiled import record_launch
+from repro_torch.obs.compiled import kernel_call, record_launch
 
 __all__ = ["flash_attention_fwd", "flash_attention_strided",
            "launch_cuda_core", "tensor_core_route",
            "tma_layout", "bshd_view", "attention_plain", "attn_pairs",
            "flash_work", "NEG_INF", "FlashAttention", "flash_forward_lse",
-           "flash_backward", "flash_backward_work", "BLOCK_Q", "BLOCK_K"]
+           "flash_backward", "flash_backward_work", "BLOCK_Q", "BLOCK_K",
+           "call_work", "backward_call_work"]
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -256,6 +257,25 @@ def flash_backward_work(q, k, v, causal: bool, window: int,
             "ops": {"bf16" if q.dtype == torch.bfloat16 else "f32": n_ops}}
 
 
+def call_work(q, k, v, causal: bool, window: int, prefix: int,
+              lse: bool = False) -> dict:
+    """``{"flops", "bytes"}`` of one attention call, for the op analysis
+    (``obs.compiled.kernel_call``): ``flash_work``'s operations and bytes
+    (the output shaped as q, the log-sum-exp when the call writes it)."""
+    w = flash_work(q, k, v, q, causal, window, prefix)
+    B, Sq, H, _ = q.shape
+    return {"flops": sum(w["ops"].values()),
+            "bytes": w["bytes"] + (B * H * Sq * 4 if lse else 0)}
+
+
+def backward_call_work(q, k, v, causal: bool, window: int,
+                       prefix: int) -> dict:
+    """``{"flops", "bytes"}`` of one attention backward:
+    ``flash_backward_work``'s."""
+    w = flash_backward_work(q, k, v, causal, window, prefix)
+    return {"flops": sum(w["ops"].values()), "bytes": w["bytes"]}
+
+
 def _launch_cuda_core(q, k, v, out, causal, window, prefix,
                       lse=None) -> None:
     B, Sq, H, dh = q.shape
@@ -438,8 +458,16 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window, prefix, bq=BLOCK_Q,
                 bk=BLOCK_K):
-        out, lse = flash_forward_lse(q, k, v, causal=causal, window=window,
-                                     prefix=prefix)
+        with kernel_call("flash_attention", lambda: call_work(
+                q, k, v, causal, window, prefix, lse=True), q, k, v) as call:
+            if call.shapes_only:
+                B, Sq, H, _ = q.shape
+                out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+                lse = torch.empty((B, H, Sq), dtype=torch.float32,
+                                  device=q.device)
+            else:
+                out, lse = flash_forward_lse(q, k, v, causal=causal,
+                                             window=window, prefix=prefix)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.args = (causal, window, prefix, bq, bk)
         return out
@@ -448,7 +476,13 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         causal, window, prefix, bq, bk = ctx.args
-        dq, dk, dv = flash_backward(q, k, v, out, lse, dout, causal=causal,
-                                    window=window, prefix=prefix, bq=bq,
-                                    bk=bk)
+        with kernel_call("flash_attention_backward",
+                         lambda: backward_call_work(q, k, v, causal, window,
+                                                    prefix), q, k, v) as call:
+            if call.shapes_only:
+                dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+            else:
+                dq, dk, dv = flash_backward(q, k, v, out, lse, dout,
+                                            causal=causal, window=window,
+                                            prefix=prefix, bq=bq, bk=bk)
         return dq, dk, dv, None, None, None, None, None

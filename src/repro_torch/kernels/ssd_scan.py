@@ -45,12 +45,13 @@ from repro_torch.kernels import LAUNCHES
 from repro_torch.obs.compiled import (
     HBM_BYTES_PER_S,
     PEAK_OPS_PER_S,
+    kernel_call,
     record_launch,
 )
 
 __all__ = ["ssd_scan", "ssd_scan_plain", "ssd_plan", "smem_bytes",
            "vector_ok", "ssd_ops", "ssd_bounds", "ssd_work",
-           "ssd_backward_work", "SSDScan"]
+           "ssd_backward_work", "SSDScan", "call_work", "empty_outputs"]
 
 GRID_X_LIMIT = 2 ** 31 - 1   # largest x grid dimension
 GRID_LIMIT = 65535           # largest y and z grid dimension
@@ -264,6 +265,32 @@ def ssd_backward_work(x, dt, A, B, C, chunk: int) -> dict:
             + Bb * H * P * N * 4, "ops": ops}
 
 
+def call_work(x, dt, A, B, C, chunk: int, backward: bool = False) -> dict:
+    """``{"flops", "bytes"}`` of one scan call (or its backward), for the
+    op analysis (``obs.compiled.kernel_call``): the bytes of ``ssd_work``
+    (``ssd_backward_work``) and the products of ``ssd_ops`` once (twice),
+    each counted once and not as the three tensor-core products that
+    carry it to f32 accuracy."""
+    Bb, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    flops = sum(ssd_ops(Bb, S, H, P, G, N, min(chunk, S)))
+    if backward:
+        return {"flops": 2 * flops,
+                "bytes": ssd_backward_work(x, dt, A, B, C, chunk)["bytes"]}
+    ins = sum(t.numel() * t.element_size() for t in (x, dt, A, B, C))
+    return {"flops": flops, "bytes": ins + x.numel() * x.element_size()
+            + Bb * H * P * N * 4}
+
+
+def empty_outputs(x, B):
+    """Empty (y, final state) of a scan of x and B: what a call under a
+    meta trace returns (``kernel_call``'s ``shapes_only``)."""
+    Bb, _, H, P = x.shape
+    return (torch.empty(x.shape, dtype=x.dtype, device=x.device),
+            torch.empty((Bb, H, P, B.shape[3]), dtype=torch.float32,
+                        device=x.device))
+
+
 def ssd_scan(x, dt, A, B, C, chunk: int = 128):
     """x: (Bb, S, H, P) float32 or bfloat16; dt: (Bb, S, H); A: (H,);
     B/C: (Bb, S, G, N), float32. Returns (y, final_state): y (Bb, S, H, P)
@@ -319,16 +346,26 @@ class SSDScan(torch.autograd.Function):
     def forward(ctx, x, dt, A, B, C, chunk):
         ctx.save_for_backward(x, dt, A, B, C)
         ctx.chunk = chunk
-        return ssd_scan(x, dt, A, B, C, chunk)
+        with kernel_call("ssd_scan", lambda: call_work(x, dt, A, B, C, chunk),
+                         x, dt, A, B, C) as call:
+            if call.shapes_only:
+                return empty_outputs(x, B)
+            return ssd_scan(x, dt, A, B, C, chunk)
 
     @staticmethod
     def backward(ctx, dy, dstate):
         saved = ctx.saved_tensors
         needs = ctx.needs_input_grad[:5]
-        with torch.enable_grad():
-            ins = [t.detach().requires_grad_(n) for t, n in zip(saved, needs)]
-            y, state = ssd_scan_plain(*ins, ctx.chunk)
-            wrt = [t for t in ins if t.requires_grad]
-            got = iter(torch.autograd.grad((y, state), wrt, (dy, dstate),
-                                           allow_unused=True))
-        return (*(next(got) if n else None for n in needs), None)
+        with kernel_call("ssd_scan_backward", lambda: call_work(
+                *saved, ctx.chunk, backward=True), *saved) as call:
+            if call.shapes_only:
+                return (*(torch.empty_like(t) if n else None
+                          for t, n in zip(saved, needs)), None)
+            with torch.enable_grad():
+                ins = [t.detach().requires_grad_(n)
+                       for t, n in zip(saved, needs)]
+                y, state = ssd_scan_plain(*ins, ctx.chunk)
+                wrt = [t for t in ins if t.requires_grad]
+                got = iter(torch.autograd.grad((y, state), wrt, (dy, dstate),
+                                               allow_unused=True))
+            return (*(next(got) if n else None for n in needs), None)

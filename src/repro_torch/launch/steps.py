@@ -9,7 +9,12 @@ live mesh holds. The dry-run, the trainer and the server share these.
 
 ``make_train_step`` is the one-card step; ``ShardedTrainStep`` the meshed
 one, which keeps each rank's shards of the masters and moments between
-steps.
+steps. ``make_prefill_step`` and ``make_decode_step`` are the one-card
+serve steps, and with a rank's ``tensor_parallel`` plan the reference's
+meshed ones; ``ShardedServeStep`` holds a rank's slices for them. The
+meshed steps take a ``GridMesh`` of live ranks or an
+``engine.mesh.StandInMesh`` (one position of a mesh with no ranks behind
+it: the dry-run's production meshes, on meta tensors).
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ __all__ = [
     "make_train_step", "make_prefill_step", "make_decode_step",
     "train_shardings", "prefill_shardings", "decode_shardings",
     "named", "fitted", "batch_axes_tree", "ShardedTrainStep",
+    "ShardedServeStep",
 ]
 
 
@@ -253,8 +259,8 @@ class ShardedTrainStep:
         self.device = next(iter(self.params.values())).device
         self.shardings = fitted(mesh, _param_specs(
             model, ShardingRules.create(mesh), self.shapes), self.shapes)
-        coords = [{"data": d, "model": m} for d, m in mesh.rank_coords]
-        here = {"data": mesh.data_rank, "model": mesh.model_rank}
+        coords = [mesh.position(r) for r in range(mesh.n_shards)]
+        here = mesh.position()
         self.blocks = {n: s.block(self.shapes[n], here)
                        for n, s in self.shardings.items()}
         self.shard_shapes = {n: s.shard_shape(self.shapes[n])
@@ -466,15 +472,45 @@ def _scatter(whole: torch.Tensor, part: torch.Tensor, runs) -> None:
 # serve: prefill + decode
 # ---------------------------------------------------------------------------
 
-def _greedy(logits):
-    return logits[:, -1, :].argmax(dim=-1, keepdim=True).to(torch.int32)
+def _applied(model, splits):
+    """``tensor_parallel.applied`` where something splits."""
+    return tp.applied(model, splits) if splits else contextlib.nullcontext()
 
 
-def make_prefill_step(model, max_len: int | None = None):
-    """(batch) -> (next_token (B, 1) int32, cache)."""
+def _greedy(logits, split=None):
+    """The greedy next token of the last position, (B, 1) int32: the first
+    maximum, as ``argmax`` takes it. Over vocab-parallel logits (``split``:
+    the model's vocab split) each rank holds its vocab columns: the
+    maximum is ``max_over_model`` of the ranks' maxima, and the index of
+    its first occurrence the least over the ranks of each one's first
+    index of it (the vocab's size where a rank has none; a max of the
+    negated indices), so ties break as on one device and the whole logits
+    are never gathered."""
+    last = logits[:, -1, :]
+    if split is None:
+        return last.argmax(dim=-1, keepdim=True).to(torch.int32)
+    top = tp.max_over_model(last.max(dim=-1, keepdim=True).values,
+                            split.mesh)
+    hit = last == top
+    first = hit.to(torch.uint8).argmax(dim=-1, keepdim=True) + split.lo
+    idx = torch.where(hit.any(dim=-1, keepdim=True), first,
+                      split.size * (split.hi - split.lo))
+    return (-tp.max_over_model(-idx, split.mesh)).to(torch.int32)
+
+
+def make_prefill_step(model, max_len: int | None = None, plan=None):
+    """(batch) -> (next_token (B, 1) int32, cache). With ``plan`` (this
+    ``"model"`` rank's ``tensor_parallel.Plan``, the model holding its
+    slices) the step is split over ``"model"`` as the reference's meshed
+    prefill: the rank's heads, ``d_ff`` columns, experts and vocab
+    columns, a cache of its kv or SSD heads, greedy over the split logits;
+    without one (or with no split in it) the one-card step."""
+    splits = {} if plan is None else plan.splits
+
     def prefill_step(batch):
-        logits, cache = model.prefill(batch, max_len=max_len)
-        return _greedy(logits), cache
+        with _applied(model, splits):
+            logits, cache = model.prefill(batch, max_len=max_len)
+            return _greedy(logits, splits.get("")), cache
 
     return prefill_step
 
@@ -492,12 +528,16 @@ def prefill_shardings(model, rules: ShardingRules, mesh, params_shapes,
     return in_s, out_s
 
 
-def make_decode_step(model):
+def make_decode_step(model, plan=None):
     """One-token greedy serve step: (cache, token, pos) -> (next_token,
-    cache)."""
+    cache); split over ``"model"`` with a rank's ``plan`` as
+    ``make_prefill_step``, against that rank's cache."""
+    splits = {} if plan is None else plan.splits
+
     def decode_step(cache, token, pos: int):
-        logits, cache = model.decode(cache, token, pos)
-        return _greedy(logits), cache
+        with _applied(model, splits):
+            logits, cache = model.decode(cache, token, pos)
+            return _greedy(logits, splits.get("")), cache
 
     return decode_step
 
@@ -513,3 +553,72 @@ def decode_shardings(model, rules: ShardingRules, mesh, params_shapes,
     in_s = (p_sh, c_sh, tok, pos)
     out_s = (tok, c_sh)
     return in_s, out_s
+
+
+class ShardedServeStep:
+    """The reference's meshed serve steps (its ``make_prefill_step`` and
+    ``make_decode_step`` run under ``prefill_shardings`` and
+    ``decode_shardings``) on one rank of a ``("data", "model")`` mesh: a
+    ``GridMesh`` of live ranks or a ``StandInMesh``.
+
+    ``plan`` is the rank's split (``tensor_parallel.plan`` of the fitted
+    parameter specs, as ``ShardedTrainStep``'s): its q and kv heads (with
+    ``kv_index``), ``d_ff`` columns, experts, SSD heads and vocab rows,
+    where the specs split them over ``"model"``. ``load`` puts the rank's
+    slices of whole parameters into the model, which then holds nothing
+    else; ``prefill`` and ``decode`` run the split steps on the rank's
+    ``"data"`` rows of the batch (the caller's), each under its program
+    key, and the rank's cache holds only its kv heads, or its SSD heads'
+    state and its conv channels (its x channels with the whole B and C):
+    the same bytes a rank of the fitted cache specs holds for the kv cache,
+    whose reference layout splits the sequence instead. Greedy sampling
+    takes the first maximum over the split logits (``_greedy``). A
+    ``"model"`` of 1 splits nothing: the one-card steps, bit for bit.
+    """
+
+    PREFILL_KEY = "serve.prefill:sharded"
+    DECODE_KEY = "serve.decode:sharded"
+
+    def __init__(self, model, mesh, max_len: int | None = None):
+        self.model, self.mesh = model, mesh
+        shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
+        specs = fitted(mesh, _param_specs(
+            model, ShardingRules.create(mesh), shapes), shapes)
+        self.plan = tp.plan(model, {n: s.spec for n, s in specs.items()},
+                            mesh)
+        self._prefill = make_prefill_step(model, max_len, self.plan)
+        self._decode = make_decode_step(model, self.plan)
+
+    @torch.no_grad()
+    def load(self, whole: dict, device) -> None:
+        """The rank's float32 slices of the whole parameters ``whole``
+        (name -> tensor, any device) on ``device``, as the model's
+        parameters (copies: ``whole`` may be freed; a model built on
+        ``meta`` takes them too)."""
+        for n, p in list(self.model.named_parameters()):
+            part = self.plan.take(n, whole[n])
+            mod, _, leaf = n.rpartition(".")
+            self.model.get_submodule(mod)._parameters[leaf] = \
+                torch.nn.Parameter(torch.empty(
+                    part.shape, dtype=torch.float32, device=device)
+                    .copy_(part), requires_grad=p.requires_grad)
+
+    def param_bytes(self) -> int:
+        """Bytes of the parameters the rank holds."""
+        return sum(p.numel() * p.element_size()
+                   for p in self.model.parameters())
+
+    def init_cache(self, *args):
+        """The rank's zero cache (``model.init_cache``'s arguments)."""
+        with tp.applied(self.model, self.plan.splits):
+            return self.model.init_cache(*args)
+
+    def prefill(self, batch: dict):
+        """(next token (B, 1) int32, the rank's cache) of the rank's rows."""
+        with program(self.PREFILL_KEY):
+            return self._prefill(batch)
+
+    def decode(self, cache: dict, token, pos: int):
+        """One greedy decode step of the rank's rows against its cache."""
+        with program(self.DECODE_KEY):
+            return self._decode(cache, token, pos)

@@ -219,8 +219,10 @@ class Decoder(LM):
         return self._logits(x), aux
 
     def init_cache(self, batch: int, max_len: int):
-        shape = (self.cfg.n_layers, batch, max_len, self.cfg.n_kv_heads,
-                 self.cfg.dh)
+        """Zero key and value caches: every kv head, or under a split the
+        rank's (``layers.kv_heads``)."""
+        shape = (self.cfg.n_layers, batch, max_len,
+                 ll.kv_heads(self.layers[0].attn, self.cfg), self.cfg.dh)
         dev = self.embed.device
         return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
                 "v": torch.zeros(shape, dtype=torch.bfloat16, device=dev)}

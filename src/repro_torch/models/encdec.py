@@ -142,12 +142,16 @@ class EncDec(LM):
         return self._logits(x), torch.zeros((), device=x.device)
 
     def init_cache(self, batch: int, max_len: int, enc_len: int):
-        L, K, dh = self.cfg.n_layers, self.cfg.n_kv_heads, self.cfg.dh
-        dev = self.embed.device
-        zeros = lambda S: torch.zeros((L, batch, S, K, dh),  # noqa: E731
-                                      dtype=torch.bfloat16, device=dev)
-        return {"k": zeros(max_len), "v": zeros(max_len),
-                "cross_k": zeros(enc_len), "cross_v": zeros(enc_len)}
+        """Zero self and cross caches: every kv head, or under a split the
+        rank's (``layers.kv_heads``)."""
+        L, dh = self.cfg.n_layers, self.cfg.dh
+        dev, blk = self.embed.device, self.dec_layers[0]
+        zeros = lambda S, p: torch.zeros(  # noqa: E731
+            (L, batch, S, ll.kv_heads(p, self.cfg), dh),
+            dtype=torch.bfloat16, device=dev)
+        return {"k": zeros(max_len, blk.attn), "v": zeros(max_len, blk.attn),
+                "cross_k": zeros(enc_len, blk.cross),
+                "cross_v": zeros(enc_len, blk.cross)}
 
     @torch.inference_mode()
     def prefill(self, batch: dict, max_len: int | None = None):
@@ -156,7 +160,7 @@ class EncDec(LM):
         enc_out = self.encode(batch["frames"])
         tokens = batch["tokens"]
         B, S = tokens.shape
-        x = self.embed[tokens].to(self._dtype())
+        x = self._lookup(tokens).to(self._dtype())
         cache = self.init_cache(B, max(max_len or S, S), enc_out.shape[1])
         for i, blk in enumerate(self.dec_layers):
             x, (k, v), (ck, cv) = self._dec_block(x, blk, enc_out)
@@ -170,7 +174,7 @@ class EncDec(LM):
     def decode(self, cache: dict, token, pos: int):
         """One decode step of the decoder. token: (B, 1) int; pos: position
         index. The self-attention cache updates in place."""
-        x = self.embed[token].to(self._dtype())
+        x = self._lookup(token).to(self._dtype())
         for i, blk in enumerate(self.dec_layers):
             x = x + ll.attention_decode(
                 ll.rms_norm(x, blk.ln1), blk.attn, cache["k"][i],

@@ -133,10 +133,11 @@ class Hybrid(LM):
         return logits, torch.zeros((), device=x.device)
 
     def init_cache(self, batch: int, max_len: int):
-        """Meta block + ring window (attention) + SSD/conv states."""
+        """Meta block + ring window (attention) + SSD/conv states (the
+        rank's kv and SSD heads under a split)."""
         cfg, dev = self.cfg, self.embed.device
-        L, K, dh = cfg.n_layers, cfg.n_kv_heads, cfg.dh
-        di, H, N, P, conv_ch = _dims(cfg)
+        L, K, dh = cfg.n_layers, ll.kv_heads(self.layers[0].attn, cfg), cfg.dh
+        di, H, N, P, conv_ch = _dims(cfg, self.layers[0].ssm)
         Sc = cfg.n_meta_tokens + min(cfg.window, max_len)
         kv = (L, batch, Sc, K, dh)
         return {

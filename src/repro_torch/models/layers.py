@@ -15,13 +15,13 @@ blockwise; the kernel replaces both paths. Decode attention, ``ssd_step``,
 the convolutions and the MoE's routing and expert products stay plain
 torch, as the reference leaves them to XLA.
 
-In the meshed train step a module may carry a ``Split``
-(``distributed/tensor_parallel.py``): attention then computes the rank's
-q heads (and the kv heads they read), the SwiGLU its ``d_ff`` columns, the
-MoE its experts and the SSD mixer its heads, each entering through
-``copy_to_model`` and leaving through one ``reduce_from_model``. Without
-one (serving, one card, a product whose axis does not divide) each
-computes whole, as before.
+In the meshed train, prefill and decode steps a module may carry a
+``Split`` (``distributed/tensor_parallel.py``): attention then computes
+the rank's q heads (and the kv heads they read, which are all its cache
+holds), the SwiGLU its ``d_ff`` columns, the MoE its experts and the SSD
+mixer its heads, each entering through ``copy_to_model`` and leaving
+through one ``reduce_from_model``. Without one (one card, a product whose
+axis does not divide) each computes whole, as before.
 
 Decode updates the KV cache in place (the reference returns a new one), and
 writes the new key and value in the cache's dtype: the decoder's and the
@@ -42,7 +42,7 @@ from repro_torch.models.config import ModelConfig
 
 __all__ = [
     "dense_init_", "rms_norm", "rotary", "apply_rope",
-    "attention", "attention_decode", "swiglu", "moe_ffn",
+    "attention", "attention_decode", "kv_heads", "swiglu", "moe_ffn",
     "ssd", "ssd_step", "causal_conv1d", "conv1d_step",
 ]
 
@@ -125,7 +125,8 @@ def attention(x, p, cfg: ModelConfig, causal: bool = True,
     behind the query, and ``prefix_len`` keys stay visible outside it
     (Hymba's meta tokens). ``kv_source``: cross-attention memory (B, Sk, D):
     no rotary, not causal, no window. ``return_kv`` also returns the (k, v)
-    tensors for the cache (the rank's heads under a split)."""
+    tensors for the cache (the kv heads the rank's q heads read, under a
+    split)."""
     win = cfg.window if window is None else window
     split = tp.split_of(p)
     if split is not None:
@@ -140,6 +141,7 @@ def attention(x, p, cfg: ModelConfig, causal: bool = True,
         k = apply_rope(k, cos, sin)
     else:
         causal, win = False, 0
+    kv = (k, v)
     if split is not None and split.kv_index is not None:
         at = torch.tensor(split.kv_index, device=k.device)
         k, v = k.index_select(2, at), v.index_select(2, at)
@@ -149,8 +151,18 @@ def attention(x, p, cfg: ModelConfig, causal: bool = True,
     if split is not None:
         y = tp.reduce_from_model(y, split.mesh)
     if return_kv:
-        return y, (k, v)
+        return y, kv
     return y
+
+
+def kv_heads(p, cfg: ModelConfig) -> int:
+    """The kv heads an attention layer's cache holds: all of them, or
+    under a split those the rank's q heads read."""
+    split = tp.split_of(p)
+    if split is None:
+        return cfg.n_kv_heads
+    g = cfg.n_heads // cfg.n_kv_heads
+    return (split.hi - 1) // g - split.lo // g + 1
 
 
 def attention_decode(x, p, cache_k, cache_v, pos: int, cfg: ModelConfig,
@@ -163,9 +175,16 @@ def attention_decode(x, p, cache_k, cache_v, pos: int, cfg: ModelConfig,
     sees the ``valid`` slots (default 0..pos): the hybrid passes its
     ``[meta | ring]`` slot and mask. ``cross=True``: the cache holds the
     encoder's keys and values, is not written, and every key is valid.
-    Returns y (B, 1, D)."""
+    Under a split the rank computes its q heads against the kv heads its
+    cache holds (``kv_heads``; through ``kv_index`` where the GQA ratio is
+    not uniform on the rank) and its output is all-reduced over
+    ``"model"``. Returns y (B, 1, D)."""
     B = x.shape[0]
     H, K, dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
+    split = tp.split_of(p)
+    if split is not None:
+        x = tp.copy_to_model(x, split.mesh)
+        H, K = split.hi - split.lo, kv_heads(p, cfg)
     S_max = cache_k.shape[1]
     if cross:
         q = torch.einsum("bsd,dhk->bshk", x, p.wq.to(x.dtype))
@@ -184,6 +203,11 @@ def attention_decode(x, p, cache_k, cache_v, pos: int, cfg: ModelConfig,
         if valid is None:
             valid = torch.arange(S_max, device=x.device) <= pos
 
+    if split is not None and split.kv_index is not None:
+        at = torch.tensor(split.kv_index, device=x.device)
+        cache_k, cache_v = cache_k.index_select(2, at), \
+            cache_v.index_select(2, at)
+        K = H
     g = H // K
     ct = torch.promote_types(x.dtype, cache_k.dtype)
     qg = q.reshape(B, 1, K, g, dh).to(ct)
@@ -193,8 +217,11 @@ def attention_decode(x, p, cache_k, cache_v, pos: int, cfg: ModelConfig,
     probs = torch.softmax(scores.float(), dim=-1).to(x.dtype)
     ct = torch.promote_types(probs.dtype, cache_v.dtype)
     out = torch.einsum("bkgst,btkh->bskgh", probs.to(ct), cache_v.to(ct))
-    return torch.einsum("bshk,hkd->bsd", out.reshape(B, 1, H, dh),
-                        p.wo.to(out.dtype))
+    y = torch.einsum("bshk,hkd->bsd", out.reshape(B, 1, H, dh),
+                     p.wo.to(out.dtype))
+    if split is not None:
+        y = tp.reduce_from_model(y, split.mesh)
+    return y
 
 
 # --------------------------------------------------------------------------

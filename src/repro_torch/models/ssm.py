@@ -45,11 +45,17 @@ STATE_CACHE_AXES = {
 }
 
 
-def _dims(cfg: ModelConfig):
+def _dims(cfg: ModelConfig, lp=None):
+    """(d_inner, heads, d_state, head dim, conv channels) of the mixer, or
+    of the rank's part of the mixer ``lp`` under a split: its heads, its x
+    channels with the whole B and C."""
     di = cfg.d_inner_ssm
     H = cfg.n_ssm_heads
     N = cfg.d_state
     P = cfg.ssm_head_dim
+    split = None if lp is None else tp.split_of(lp)
+    if split is not None:
+        di, H = di // split.size, H // split.size
     conv_ch = di + 2 * G * N
     return di, H, N, P, conv_ch
 
@@ -96,10 +102,9 @@ def _mix(x, lp, cfg: ModelConfig, conv_state=None, ssd_state=None,
     ``dt_bias``, its rows of ``out_norm`` and ``out_proj``; the gated
     norm's sum of squares and the output are all-reduced over
     ``"model"``."""
-    di, H, N, P, _ = _dims(cfg)
+    di, H, N, P, _ = _dims(cfg, lp)
     split = tp.split_of(lp)
     if split is not None:
-        di, H = di // split.size, H // split.size
         x = tp.copy_to_model(x, split.mesh)
     zxbcdt = torch.einsum("bsd,de->bse", x, lp.in_proj.to(x.dtype))
     z = zxbcdt[..., :di]
@@ -193,8 +198,9 @@ class Mamba(LM):
         return self._logits(x), torch.zeros((), device=x.device)
 
     def init_cache(self, batch: int, max_len: int):
-        """The (ssd, conv) states; their size does not grow with max_len."""
-        di, H, N, P, conv_ch = _dims(self.cfg)
+        """The (ssd, conv) states (the rank's heads under a split); their
+        size does not grow with max_len."""
+        di, H, N, P, conv_ch = _dims(self.cfg, self.layers[0])
         L, dev = self.cfg.n_layers, self.embed.device
         return {
             "ssd": torch.zeros((L, batch, H, P, N), dtype=torch.float32,

@@ -31,13 +31,22 @@ builds ``device.build_kernels`` starts: a warm path builds nothing.
 
 :func:`collective_counts` is the port's form of the reference's standing
 placement metric. The reference counts collective ops in a compiled
-program's HLO text; the port issues every collective through the two
-helpers of ``engine/mesh.py``, each of which records its kind under the
-program key that is running (:func:`program`). So
-``collective_counts("learn.fold:sharded")`` is the count of collectives
-the sharded fold issued, and :func:`program_runs` how often it ran.
+program's HLO text; the port issues every collective through the three
+helpers of ``engine/mesh.py``, each of which records its kind and its
+operand bytes under the program key that is running (:func:`program`).
+So ``collective_counts("learn.fold:sharded")`` is the count of
+collectives the sharded fold issued, :func:`collective_bytes` their
+operand bytes, and :func:`program_runs` how often it ran.
 :func:`placement_violations` is the standing form of that contract: the
 failed checks of the program verifier (``repro_torch.analysis``).
+
+The per-rank step analysis (``launch/op_analysis.py``) is a dispatch mode
+on torch's mode stack, which torch carries to autograd's device thread
+with the rest of its thread-local state. :func:`note_collective` hands it
+each collective's bytes, and the kernel wrappers mark each kernel call
+with :func:`kernel_call`, so the analysis counts a call by its work
+function and never the ops of a plain version inside it. Without an
+analysis on the stack both are one read of that stack.
 """
 from __future__ import annotations
 
@@ -52,9 +61,12 @@ __all__ = [
     "PEAK_OPS_PER_S",
     "capture",
     "capturing",
+    "collective",
+    "collective_bytes",
     "collective_counts",
     "current_registry",
     "factory_caches",
+    "kernel_call",
     "note_collective",
     "placement_violations",
     "program",
@@ -345,6 +357,7 @@ COLLECTIVE_KINDS = ("all-reduce", "all-gather", "reduce-scatter",
 _PROGRAM: ContextVar["str | None"] = ContextVar(
     "repro_torch_obs_program", default=None)
 _COLLECTIVES: dict[str, dict[str, int]] = {}
+_BYTES: dict[str, dict[str, int]] = {}
 _RUNS: dict[str, int] = {}
 # The process's open program blocks, innermost last: what a thread that a
 # block sets working without a context of its own (autograd's device
@@ -359,6 +372,7 @@ def program(key: str):
     issued inside it are recorded under ``key``."""
     _RUNS[key] = _RUNS.get(key, 0) + 1
     _COLLECTIVES.setdefault(key, dict.fromkeys(COLLECTIVE_KINDS, 0))
+    _BYTES.setdefault(key, dict.fromkeys(COLLECTIVE_KINDS, 0))
     token = _PROGRAM.set(key)
     _OPEN.append(key)
     try:
@@ -368,11 +382,21 @@ def program(key: str):
         _PROGRAM.reset(token)
 
 
-def note_collective(kind: str) -> None:
-    """Record one collective of ``kind`` under the running program (the
-    mesh helpers call this once per collective they issue): the block's
-    own, or on a thread with no context of its own the process's
-    innermost open one."""
+def _analyses() -> list:
+    """The op analyses on this thread's dispatch mode stack (the modes
+    that take notes), innermost last."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+
+    return [m for m in _get_current_dispatch_mode_stack()
+            if hasattr(m, "note_collective")]
+
+
+def note_collective(kind: str, nbytes: int = 0) -> None:
+    """Record one collective of ``kind`` moving ``nbytes`` operand bytes
+    under the running program (the mesh helpers call this once per
+    collective they issue): the block's own, or on a thread with no
+    context of its own the process's innermost open one. An op analysis
+    on the mode stack gets the bytes too."""
     if kind not in COLLECTIVE_KINDS:
         raise ValueError(f"unknown collective kind {kind!r}")
     key = _PROGRAM.get() or (_OPEN[-1] if _OPEN else None)
@@ -381,6 +405,21 @@ def note_collective(kind: str) -> None:
             f"a {kind} was issued outside any program(key) block: every "
             f"collective belongs to a program key")
     _COLLECTIVES[key][kind] += 1
+    _BYTES[key][kind] += int(nbytes)
+    for mode in _analyses():
+        mode.note_collective(kind, int(nbytes))
+
+
+def collective(kind: str, nbytes: int):
+    """Context manager around one collective of a mesh helper: records it
+    (:func:`note_collective`) and, under an op analysis, keeps the
+    helper's own staging (host copies, the output's assembly) out of the
+    analysis's bytes, as a kernel call keeps its plain version's ops."""
+    note_collective(kind, nbytes)
+    found = _analyses()
+    if not found:
+        return _NO_CALL
+    return found[-1].kernel_call(None, None, ())
 
 
 def collective_counts(key: str) -> dict:
@@ -392,6 +431,15 @@ def collective_counts(key: str) -> dict:
     return out
 
 
+def collective_bytes(key: str) -> dict:
+    """Per-kind operand bytes (plus ``"total"``) of the collectives the
+    program ``key`` issued since the last :func:`reset_collectives`: an
+    all-reduce's or a permute's tensor, an all-gather's own part."""
+    out = dict(_BYTES.get(key, dict.fromkeys(COLLECTIVE_KINDS, 0)))
+    out["total"] = sum(out.values())
+    return out
+
+
 def program_runs(key: str) -> int:
     """How often the program ``key`` ran since the last reset."""
     return _RUNS.get(key, 0)
@@ -399,7 +447,39 @@ def program_runs(key: str) -> int:
 
 def reset_collectives() -> None:
     _COLLECTIVES.clear()
+    _BYTES.clear()
     _RUNS.clear()
+
+
+class _NoCall:
+    """A kernel call that no analysis watches: its body runs as it is."""
+
+    shapes_only = False
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NO_CALL = _NoCall()
+
+
+def kernel_call(name: str, work, *tensors):
+    """Context manager around one call of the kernel ``name`` (its launch,
+    or its plain version off the card) whose work is ``work()``: ``{"flops":
+    n, "bytes": n}``, the products' operations and the bytes the call must
+    move. ``tensors`` are the call's inputs. Under an op analysis the call
+    counts once by ``work`` and the ops inside it count nothing; the
+    context's ``shapes_only`` then tells a call on meta tensors that its
+    outputs' shapes will do (empty tensors), so a meta trace does not run a
+    plain version that the analysis would not count. Outside one, a shared
+    no-op."""
+    found = _analyses()
+    if not found:
+        return _NO_CALL
+    return found[-1].kernel_call(name, work, tensors)
 
 
 def placement_violations(mesh=None, keys=None, device="cuda"):

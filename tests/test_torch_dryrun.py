@@ -3,8 +3,13 @@ llama3-8b ``train_4k`` and ``decode_32k``, mamba2 ``long_500k``,
 tinyllama's ``long_500k`` skipped with the reference's reason, and an MoE
 prefill. Each traced cell has finite FLOPs within a stated factor of
 ``model_flops`` and per-card bytes equal to the reference's fitted shards
-summed (its specs, on the same stand-in production mesh). The kernel
-wrappers take their plain versions on meta tensors; the CLI writes under
+summed (its specs, on the same stand-in production mesh). Its roofline,
+from rank 0's split step on the production mesh's stand-in, has finite
+per-device FLOPs, bytes and collective bytes, each term their quotient
+by the card's rate, the bottleneck their argmax, and ``fits_hbm`` from
+what the rank holds plus its peak live bytes; the multi-pod decode cell
+moves bytes over ``"model"``. The kernel wrappers take their plain
+versions on meta tensors, where nothing launches; the CLI writes under
 ``build/archive/`` only."""
 
 import json
@@ -84,6 +89,30 @@ def test_cells_trace_on_meta(arch, shape, multi_pod):
     assert b["total"] == sum(v for k, v in b.items() if k != "total")
     assert rec["fits_hbm"] == (b["total"] < HW.HBM_BYTES)
     assert rec["trace_s"] > 0
+    # the roofline of rank 0's split step
+    coll = rec["collective_bytes"]
+    assert set(coll) == {"all-reduce", "all-gather", "reduce-scatter",
+                         "all-to-all", "collective-permute", "total"}
+    assert coll["total"] == sum(v for k, v in coll.items() if k != "total")
+    for key in ("flops", "bytes", "compute_s", "memory_s", "collective_s",
+                *coll.values()):
+        v = rec[key] if isinstance(key, str) else key
+        assert np.isfinite(v) and v >= 0, key
+    assert rec["flops"] > 0 and rec["bytes"] > 0
+    assert rec["compute_s"] == rec["flops"] / HW.PEAK_FLOPS_BF16
+    assert rec["memory_s"] == rec["bytes"] / HW.HBM_BW
+    assert rec["collective_s"] == coll["total"] / HW.NVLINK_BW
+    terms = {k: rec[k] for k in ("compute_s", "memory_s", "collective_s")}
+    assert rec["bottleneck"] == max(terms, key=terms.get)
+    rb = rec["rank_bytes"]
+    assert rb["held"] > 0 and rb["peak"] > 0
+    assert rb["total"] == rb["held"] + rb["peak"]
+    assert rec["fits_hbm"] == (rb["total"] < HW.HBM_BYTES)
+    assert "NVLink" in rec["collective_domain"]
+    assert ("crosses 2 domains" in rec["collective_domain"]) \
+        == (make_production_mesh(multi_pod=multi_pod).shape["model"] > 8)
+    if shape == "decode_32k" and multi_pod:
+        assert rec["collective_s"] > 0
 
 
 def test_full_attention_long_500k_is_skipped_with_the_reference_s_reason():

@@ -422,18 +422,21 @@ def test_a13_names_are_the_port_s_own():
 
 # The reference's launch/ modules and their public names (its __all__, or
 # its public top-level definitions where it has none), and what the port
-# leaves out: hlo_analysis (the whole module: trip-count-aware FLOPs and
-# bytes of XLA HLO text) and the dry-run's collective_bytes, which parse
-# the HLO text that torch does not produce, and the dry-run's append_cache,
-# which writes benchmarks/roofline_cache.json (the port's dry-run writes
-# JSON lines under build/archive/ and never there). The port adds the
-# production mesh's abstract type, the dry-run's archive path, the fitted
-# shardings and the meshed train step.
-LAUNCH_OMITTED = {"dryrun": {"collective_bytes", "append_cache"},
+# leaves out: the dry-run's append_cache, which writes
+# benchmarks/roofline_cache.json (the port's dry-run writes JSON lines
+# under build/archive/ and never there). The reference's hlo_analysis
+# (trip-count-aware FLOPs, bytes and collective bytes of XLA HLO text) has
+# its counterpart under another name, op_analysis (the same three terms
+# counted op by op over one rank's step), with the same public names. The
+# port adds the production mesh's abstract type, the dry-run's archive
+# path, the fitted shardings and the meshed train and serve steps.
+LAUNCH_OMITTED = {"dryrun": {"append_cache"},
                   "hlo_analysis": None, "mesh": set(), "serve": set(),
                   "steps": set(), "train": set(), "variants": set()}
+LAUNCH_COUNTERPART = {"hlo_analysis": "op_analysis"}
 LAUNCH_ADDED = {"dryrun": {"ARCHIVE"}, "mesh": {"AbstractMesh"},
-                "serve": set(), "steps": {"fitted", "ShardedTrainStep"},
+                "op_analysis": set(), "serve": set(),
+                "steps": {"fitted", "ShardedTrainStep", "ShardedServeStep"},
                 "train": set(), "variants": set()}
 
 
@@ -461,14 +464,17 @@ def test_launch_modules_match_the_reference(module):
     assert {p.stem for p in ref_path.parent.glob("*.py")} \
         == set(LAUNCH_OMITTED)
     port_path = REPO / "src" / "repro_torch" / "launch" / f"{module}.py"
-    if LAUNCH_OMITTED[module] is None:
-        assert not port_path.exists()
-        return
     ref = _public_names(ref_path)
+    omitted = LAUNCH_OMITTED[module]
+    if omitted is None:      # ported under another name
+        assert not port_path.exists()
+        module, omitted = LAUNCH_COUNTERPART[module], set()
+        assert ref == {"analyze"}
+        port_path = REPO / "src" / "repro_torch" / "launch" / f"{module}.py"
+        assert port_path.is_file()
     port_mod = importlib.import_module(f"repro_torch.launch.{module}")
-    assert LAUNCH_OMITTED[module] <= ref
+    assert omitted <= ref
     assert not LAUNCH_ADDED[module] & ref
-    assert set(port_mod.__all__) \
-        == (ref - LAUNCH_OMITTED[module]) | LAUNCH_ADDED[module]
+    assert set(port_mod.__all__) == (ref - omitted) | LAUNCH_ADDED[module]
     for name in port_mod.__all__:
         assert hasattr(port_mod, name), name

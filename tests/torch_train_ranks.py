@@ -9,9 +9,13 @@ architectures on a 1x4 and a 4x1 mesh; then the process group shrinks to
 its first two ranks (``engine.mesh.regroup``), which resume that run on a
 1x2 mesh and run the three architectures' steps there, and one step of
 every other family. Ranks write what they saw under the test's
-directory; rank 0 keeps the gathered state after every step. This module
-imports only the standard library, numpy, torch and ``repro_torch`` (each
-rank records what it imported).
+directory; rank 0 keeps the gathered state after every step.
+``serve_rank`` is what each of four ranks runs for
+``tests/test_torch_serve_split.py``: every family's split serve and the
+collective bytes of its split prefill, decode and train steps on a 2x2
+mesh, then regrouped on 1x2. This module imports only the standard
+library, numpy, torch and ``repro_torch`` (each rank records what it
+imported).
 """
 
 from __future__ import annotations
@@ -396,3 +400,138 @@ def tp_rank(rank: int, out_dir: str) -> None:
 def spawn_tp(out_dir, timeout: float) -> None:
     """``tp_rank`` in two spawned gloo ranks, as ``spawn`` runs its four."""
     _spawn(tp_rank, 2, out_dir, timeout)
+
+
+# --------------------------------------------------------------------------
+# tests/test_torch_serve_split.py: the split serve and the collective bytes
+# of every family, on a 2x2 mesh of four gloo ranks, then (regrouped) 1x2
+# --------------------------------------------------------------------------
+
+SERVE_ARCHS = ARCHS + OTHERS
+SERVE_B, SERVE_S, SERVE_NEW = 4, 16, 5     # rows, prompt, prefill + 4 decodes
+
+
+def serve_max_len(cfg) -> int:
+    return SERVE_S + SERVE_NEW + (cfg.n_meta_tokens or 0)
+
+
+def serve_inputs(cfg) -> dict:
+    """The seeded prompts (and the frontends' seeded embeddings) of the
+    ``SERVE_B`` requests."""
+    rng = np.random.default_rng(11)
+    out = {"tokens": rng.integers(0, cfg.vocab, (SERVE_B, SERVE_S),
+                                  dtype=np.int32)}
+    if cfg.kind == "encdec":
+        out["frames"] = rng.normal(size=(SERVE_B, SERVE_S // 4, cfg.d_model)
+                                   ).astype(np.float32)
+    if cfg.kind == "vlm":
+        out["vision"] = (0.02 * rng.normal(
+            size=(SERVE_B, cfg.frontend_len, cfg.d_model))).astype(np.float32)
+    return out
+
+
+def _split_serve(mesh, arch: str, out, tag: str, rank: int) -> dict:
+    """``arch``'s split prefill and ``SERVE_NEW - 1`` decodes on the rank's
+    ``"data"`` rows from the whole parameters in ``out``: tokens, the
+    rank's cache, each step's logits over the whole vocab (teacher-forced
+    on the served tokens, gathered for the check under a program key of
+    its own) and each step's collective bytes; then one split train step
+    on the rank's rows of ``batches``' first batch, with its bytes."""
+    import torch
+
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.launch.steps import ShardedServeStep, ShardedTrainStep
+    from repro_torch.models import build
+    from repro_torch.obs import compiled
+    from repro_torch.optim import AdamW
+
+    cfg = arch_config(arch)
+    with np.load(out / f"serve_init_{arch}.npz") as z:
+        whole = {k: torch.from_numpy(z[k]) for k in z.files}
+    step = ShardedServeStep(build(cfg, "meta"), mesh, serve_max_len(cfg))
+    step.load(whole, "cpu")
+    per = SERVE_B // mesh.data_shards
+    rows = slice(mesh.data_rank * per, (mesh.data_rank + 1) * per)
+    batch = {k: torch.from_numpy(v[rows])
+             for k, v in serve_inputs(cfg).items()}
+    pos0 = SERVE_S + (cfg.n_meta_tokens or 0)
+    rec = {"bytes": {}}
+    compiled.reset_collectives()
+    tok, cache = step.prefill(batch)
+    rec["bytes"]["prefill"] = compiled.collective_bytes(step.PREFILL_KEY)
+    toks, rec["bytes"]["decode"] = [tok], []
+    for t in range(SERVE_NEW - 1):
+        compiled.reset_collectives()
+        tok, cache = step.decode(cache, tok, pos0 + t)
+        rec["bytes"]["decode"].append(
+            compiled.collective_bytes(step.DECODE_KEY))
+        toks.append(tok)
+    tokens = torch.cat(toks, 1)
+    np.savez(out / f"{tag}_serve_{arch}_cache{rank}.npz",
+             **{k: v.float().numpy() for k, v in cache.items()})
+    vocab = step.plan.splits.get("")
+
+    def whole_logits(lg):
+        lg = lg[:, -1]
+        return (tp.gather_from_model(lg, mesh, -1) if vocab else lg).float()
+
+    model = step.model
+    with compiled.program("serve.check"), tp.applied(model, step.plan.splits):
+        lg, cache = model.prefill(batch, max_len=serve_max_len(cfg))
+        got = [whole_logits(lg)]
+        for t in range(SERVE_NEW - 1):
+            lg, cache = model.decode(cache, tokens[:, t:t + 1], pos0 + t)
+            got.append(whole_logits(lg))
+    np.save(out / f"{tag}_serve_{arch}_logits{rank}.npy",
+            torch.stack(got, 1).numpy())
+    rec["tokens"] = tokens.tolist()
+    rec["cache_shapes"] = {k: list(v.shape) for k, v in cache.items()}
+    rec["param_bytes"] = step.param_bytes()
+
+    model = build(cfg, "cpu")
+    opt = AdamW(lr=LR)
+    train = ShardedTrainStep(model, opt, mesh, 2)
+    shards = train.shard(whole)
+    train.release()
+    b = batches(cfg, mesh.data_rank, mesh.data_shards)[0]
+    compiled.reset_collectives()
+    train(shards, opt.init(shards), {k: torch.as_tensor(v)
+                                     for k, v in b.items()})
+    rec["bytes"]["train"] = compiled.collective_bytes(train.KEY)
+    return rec
+
+
+def serve_rank(rank: int, out_dir: str) -> None:
+    """One of four ranks: every family's split serve and train step's
+    bytes on a 2x2 mesh, then, regrouped to two ranks, on 1x2."""
+    os.environ["GLOO_SOCKET_IFNAME"] = "lo"
+    import torch
+
+    from repro_torch.engine.mesh import (
+        GridMesh, end_process_group, regroup, start_process_group)
+
+    torch.set_num_threads(1)
+    out = pathlib.Path(out_dir)
+    start_process_group("gloo", f"file://{out / 'store'}", 4, rank)
+    meta = {"rank": rank}
+    try:
+        mesh = GridMesh.create(2, 2)
+        meta["coords"] = {"2x2": [mesh.data_rank, mesh.model_rank]}
+        meta["2x2"] = {a: _split_serve(mesh, a, out, "2x2", rank)
+                       for a in SERVE_ARCHS}
+        if regroup(2, f"file://{out / 'store2'}"):
+            small = GridMesh.create(1, 2)
+            meta["coords"]["1x2"] = [small.data_rank, small.model_rank]
+            meta["1x2"] = {a: _split_serve(small, a, out, "1x2", rank)
+                           for a in SERVE_ARCHS}
+            import torch.distributed as dist
+            dist.barrier()
+        meta["modules"] = sorted({m.split(".")[0] for m in sys.modules})
+        (out / f"serve{rank}.json").write_text(json.dumps(meta))
+    finally:
+        end_process_group()
+
+
+def spawn_serve(out_dir, timeout: float) -> None:
+    """``serve_rank`` in four spawned gloo ranks, as ``spawn`` runs its."""
+    _spawn(serve_rank, 4, out_dir, timeout)
