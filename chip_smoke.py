@@ -360,6 +360,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import dataclasses
 import functools
 import importlib
@@ -479,10 +480,27 @@ TRAIN_FLASH = {
     "tinyllama train": (4, 4096, 32, 4, 64, "bfloat16", True, 0, 0, "tc"),
     "float32 smoke": (2, 200, 4, 2, 16, "float32", True, 32, 8, "cuda core"),
 }
+# The backward kernels also at the serves' other masks and head dims, at a
+# training batch of 4 (S: one length, or (Sq, Sk)).
+TRAIN_FLASH_BWD = {
+    "llama3-8b": (4, 1024, 32, 8, 128, "bfloat16", True, 0, 0, "tc"),
+    "phi-3-vision": (4, 1600, 32, 32, 96, "bfloat16", True, 0, 0, "tc"),
+    "hymba": (4, 1152, 25, 5, 64, "bfloat16", True, 1024, 128, "tc"),
+    "seamless cross": (4, (1024, 256), 16, 16, 64, "bfloat16", False, 0, 0,
+                       "tc"),
+}
 TRAIN_FLASH_TOL = {"bfloat16": (1e-4, 2e-2),   # lse abs, relative RMS
                    "float32": (1e-5, 1e-4)}     # lse abs, max abs
 TRAIN_SSD = (2, 4096, 80, 64, 1, 128, 256)     # mamba2's train shape
 TRAIN_SSD_TOL = 1e-4     # relative to each gradient's max abs
+# The SSD backward's shapes: mamba2's with a state gradient, a grouped one
+# whose length is no multiple of the chunk, mamba2's with a bfloat16 x (at
+# LM_TOL's bfloat16 bar).
+TRAIN_SSD_BWD = {
+    "mamba2 train": (TRAIN_SSD, "float32"),
+    "grouped, ragged": ((2, 1000, 8, 64, 2, 64, 256), "float32"),
+    "mamba2 train, bf16 x": (TRAIN_SSD, "bfloat16"),
+}
 TRAIN_SEQ = 4096
 TRAIN_BATCH, TRAIN_MICRO = 8, 2
 MAMBA_TRAIN_BATCH = 2
@@ -3609,12 +3627,17 @@ def _flash_plain_train(torch, fa, q, k, v, do, kw):
 
 
 def _ssd_f64(torch, x, dt, A, B, C, chunk):
-    """y of the SSD scan from a zero state in the whole-sequence chunked
-    form (every chunk at once, the chunk states by a segment-sum over
+    """(y, final state) of the SSD scan from a zero state in the
+    whole-sequence chunked form (every chunk at once, the chunk states by a
+    segment-sum over chunks; the sequence padded with dt = 0 to whole
     chunks), in the inputs' dtype: the gradient witness of phase 16 (a)."""
     Bb, S, H, P = x.shape
+    pad = (-S) % chunk
+    if pad:
+        x, dt, B, C = (torch.nn.functional.pad(
+            t, (0, 0) * (t.dim() - 2) + (0, pad)) for t in (x, dt, B, C))
     rep = H // B.shape[2]
-    nc = S // chunk
+    nc = (S + pad) // chunk
 
     def segsum(a):                       # (..., T) -> (..., T, T)
         c = torch.cumsum(a, dim=-1)
@@ -3635,146 +3658,249 @@ def _ssd_f64(torch, x, dt, A, B, C, chunk):
     states = torch.einsum("bclhn,bhcl,bclhp->bchpn", Bh, decay, X)
     states = torch.cat([torch.zeros_like(states[:, :1]), states], dim=1)
     chunk_decay = segsum(torch.nn.functional.pad(a_cum[..., -1], (1, 0)))
-    states = torch.einsum("bhzc,bchpn->bzhpn", chunk_decay.exp(),
-                          states)[:, :-1]
+    states = torch.einsum("bhzc,bchpn->bzhpn", chunk_decay.exp(), states)
+    states, final = states[:, :-1], states[:, -1]
     y = y + torch.einsum("bclhn,bchpn,bhcl->bclhp", Ch, states, a_cum.exp())
-    return y.reshape(Bb, S, H, P)
+    return y.reshape(Bb, S + pad, H, P)[:, :S], final
 
 
-def train_kernel_checks(torch, np) -> dict:
-    """Phase 16 (a): the flash kernel's training forward (with its
-    log-sum-exp) and ``FlashAttention``'s gradients, and ``SSDScan``'s
-    gradients, on the card against the plain versions' float32 autograd;
-    each one's forward device time with and without the lse store and its
-    backward's device time."""
-    import types
+@contextlib.contextmanager
+def no_plain_backward_on_the_card():
+    """The plain backwards (``flash_backward``, ``ssd_scan_backward_plain``)
+    fail the run when they are given CUDA tensors: on the card the training
+    steps take the backward kernels. CPU tensors still reach them."""
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
-    from repro_torch.kernels import LAUNCHES
     from repro_torch.kernels import ssd_scan as ss
+    saved = []
+    for mod, name in ((fa, "flash_backward"),
+                      (ss, "ssd_scan_backward_plain")):
+        orig = getattr(mod, name)
+
+        def guarded(*a, _orig=orig, _name=name, **k):
+            if a[0].device.type == "cuda":
+                fail(f"{_name}, a plain backward, ran on CUDA tensors")
+            return _orig(*a, **k)
+        setattr(mod, name, guarded)
+        saved.append((mod, name, orig))
+    try:
+        yield
+    finally:
+        for mod, name, orig in saved:
+            setattr(mod, name, orig)
+
+
+def flash_train_check(torch, fa, label: str, spec, rnd) -> dict:
+    """Phase 16 (a) at one flash shape: the training forward with its
+    log-sum-exp and ``FlashAttention``'s backward on the card, the backward
+    kernels against the plain version (``flash_backward``) on the same
+    inputs and against an independent witness (the plain forward's float32
+    autograd), a second backward call bit for bit the first, and the
+    device times of both forwards, the backward kernels, the plain
+    backward and SDPA's backward."""
+    from repro_torch.kernels import LAUNCHES
     from repro_torch.obs.compiled import work_bound
 
-    gen = torch.Generator("cuda").manual_seed(TRAIN_SEED)
-    rnd = lambda *s: torch.randn(*s, device="cuda", generator=gen)  # noqa: E731
-    report = {"flash_attention": {}, "ssd_scan": {}}
-    for label, (B, S, H, K, dh, dtype, causal, window, prefix, route) \
-            in TRAIN_FLASH.items():
-        dt = getattr(torch, dtype)
-        q, k, v = rnd(B, S, H, dh).to(dt), rnd(B, S, K, dh).to(dt), \
-            rnd(B, S, K, dh).to(dt)
-        do = rnd(B, S, H, dh).to(dt)
-        kw = dict(causal=causal, window=window, prefix=prefix)
-        LAUNCHES.clear()
-        out, lse = fa.flash_forward_lse(q, k, v, **kw)
-        torch.cuda.synchronize()
-        tc = LAUNCHES["flash_attention_tc"]
-        if LAUNCHES["flash_attention"] != 1 or tc != (route == "tc"):
-            fail(f"train flash {label}: launches {dict(LAUNCHES)}, expected "
-                 f"one on the {route} route")
-        leaf = [t.detach().requires_grad_() for t in (q, k, v)]
-        fn_out = fa.FlashAttention.apply(*leaf, causal, window, prefix)
-        fn_out.backward(do)
-        o_p, lse_p, *g_p = _flash_plain_train(torch, fa, q, k, v, do, kw)
-        lse_err = float((lse - lse_p).abs().max())
-        lse_tol, grad_tol = TRAIN_FLASH_TOL[dtype]
-        if dtype == "bfloat16":
-            errs = [_rel_rms(a, b) for a, b in zip(
-                [fn_out.detach()] + [t.grad for t in leaf], [o_p] + g_p)]
-            bar = f"relative RMS {grad_tol}"
-        else:
-            errs = [float((a.float() - b).abs().max()) for a, b in zip(
-                [fn_out.detach()] + [t.grad for t in leaf], [o_p] + g_p)]
-            bar = f"max abs {grad_tol}"
-        if not torch.equal(fn_out.detach(), out):
-            fail(f"train flash {label}: the Function's forward is not the "
-                 "kernel's")
-        ok = lse_err <= lse_tol and all(e <= grad_tol for e in errs)
-        o = torch.empty_like(q)
-        lse_buf = torch.empty_like(lse)
-        t_fwd = device_ms(torch, lambda: fa.flash_attention_strided(
-            q, k, v, o, **kw), reps=10)
-        t_lse = device_ms(torch, lambda: fa.flash_attention_strided(
-            q, k, v, o, lse=lse_buf, **kw), reps=10)
-        t_bwd = device_ms(torch, lambda: fa.flash_backward(
-            q, k, v, out, lse, do, **kw), reps=3)
-        b_ms, b_by = work_bound(fa.flash_backward_work(q, k, v, **kw))
-        # The library's backward alone: autograd through a retained SDPA
-        # graph (the yardstick's mask), where SDPA computes this attention.
-        t_lib = None
-        sdpa = sdpa_yardstick(torch, *leaf, kw) if route == "tc" else None
-        if sdpa is not None:
-            lib_out = sdpa()
-            t_lib = device_ms(torch, lambda: torch.autograd.grad(
-                lib_out, leaf, do.transpose(1, 2), retain_graph=True),
-                reps=3)
-            del lib_out
-        print(f"  train flash {label} {(B, S, H, K, dh)} {dtype} {kw}: lse "
-              f"max abs {lse_err:.3e} (bar {lse_tol}); out, dq, dk, dv "
-              f"{', '.join(f'{e:.3e}' for e in errs)} ({bar}) "
-              f"{'OK' if ok else 'FAIL'}; forward {t_fwd:.3f} ms, with the "
-              f"lse store {t_lse:.3f} ms ({t_lse - t_fwd:+.3f}); backward "
-              f"(torch ops) {t_bwd:.3f} ms, bound {b_ms:.4f} ms ({b_by}), "
-              f"SDPA's backward "
-              f"{'none' if t_lib is None else f'{t_lib:.3f} ms'}")
-        if not ok:
-            fail(f"train flash {label}: off the plain version's autograd")
-        report["flash_attention"][label] = {
-            "shape": [B, S, H, K, dh], "dtype": dtype, "route": route,
-            "lse_max_abs_err": lse_err, "grad_errs": errs,
-            "fwd_ms": t_fwd, "fwd_lse_ms": t_lse, "bwd_ms": t_bwd,
-            "bwd_bound_ms": b_ms, "bwd_bound_by": b_by,
-            "bwd_library_ms": t_lib}
-        del q, k, v, do, out, lse, leaf, fn_out, o_p, lse_p, g_p, o, lse_buf
-        torch.cuda.empty_cache()
+    B, S, H, K, dh, dtype, causal, window, prefix, route = spec
+    Sq, Sk = S if isinstance(S, tuple) else (S, S)
+    dt = getattr(torch, dtype)
+    q, k, v = rnd(B, Sq, H, dh).to(dt), rnd(B, Sk, K, dh).to(dt), \
+        rnd(B, Sk, K, dh).to(dt)
+    do = rnd(B, Sq, H, dh).to(dt)
+    kw = dict(causal=causal, window=window, prefix=prefix)
+    LAUNCHES.clear()
+    out, lse = fa.flash_forward_lse(q, k, v, **kw)
+    torch.cuda.synchronize()
+    tc = LAUNCHES["flash_attention_tc"]
+    if LAUNCHES["flash_attention"] != 1 or tc != (route == "tc"):
+        fail(f"train flash {label}: launches {dict(LAUNCHES)}, expected "
+             f"one on the {route} route")
+    leaf = [t.detach().requires_grad_() for t in (q, k, v)]
+    LAUNCHES.clear()
+    fn_out = fa.FlashAttention.apply(*leaf, causal, window, prefix)
+    fn_out.backward(do)
+    torch.cuda.synchronize()
+    bwd = (LAUNCHES["flash_attention_backward"],
+           LAUNCHES["flash_attention_backward_tc"])
+    if bwd != (1, int(route == "tc")):
+        fail(f"train flash {label}: backward launches {dict(LAUNCHES)}, "
+             f"expected one on the {route} route")
+    grads = [t.grad for t in leaf]
+    again = fa.flash_attention_backward(q, k, v, out, lse, do, **kw)
+    same = all(torch.equal(a, b) for a, b in zip(grads, again))
+    del again
+    plain = fa.flash_backward(q, k, v, out, lse, do, **kw)
+    # relative RMS in bfloat16, max abs in float32
+    gap = _rel_rms if dtype == "bfloat16" else \
+        (lambda a, b: float((a.float() - b.float()).abs().max()))
+    errs_plain = [gap(a, b) for a, b in zip(grads, plain)]
+    abs_plain = max(float((a.float() - b.float()).abs().max())
+                    for a, b in zip(grads, plain))
+    del plain
+    o_p, lse_p, *g_p = _flash_plain_train(torch, fa, q, k, v, do, kw)
+    lse_err = float((lse - lse_p).abs().max())
+    errs = [gap(a, b) for a, b in zip([fn_out.detach()] + grads, [o_p] + g_p)]
+    del o_p, lse_p, g_p
+    lse_tol, grad_tol = TRAIN_FLASH_TOL[dtype]
+    bar = f"relative RMS {grad_tol}" if dtype == "bfloat16" \
+        else f"max abs {grad_tol}"
+    if not torch.equal(fn_out.detach(), out):
+        fail(f"train flash {label}: the Function's forward is not the "
+             "kernel's")
+    ok = lse_err <= lse_tol and all(e <= grad_tol for e in errs + errs_plain)
+    o = torch.empty_like(q)
+    lse_buf = torch.empty_like(lse)
+    t_fwd = device_ms(torch, lambda: fa.flash_attention_strided(
+        q, k, v, o, **kw), reps=10)
+    t_lse = device_ms(torch, lambda: fa.flash_attention_strided(
+        q, k, v, o, lse=lse_buf, **kw), reps=10)
+    run = lambda: fa.flash_attention_backward(  # noqa: E731
+        q, k, v, out, lse, do, **kw)
+    t_bwd = device_ms(torch, run, reps=10)
+    t_call = cuda_ms(torch, run)
+    t_plain = device_ms(torch, lambda: fa.flash_backward(
+        q, k, v, out, lse, do, **kw), reps=2)
+    b_ms, b_by = work_bound(fa.flash_backward_work(q, k, v, **kw))
+    # The library's backward alone: autograd through a retained SDPA
+    # graph (the yardstick's mask), where SDPA computes this attention.
+    t_lib = None
+    sdpa = sdpa_yardstick(torch, *leaf, kw) if dtype == "bfloat16" else None
+    if sdpa is not None:
+        lib_out = sdpa()
+        t_lib = device_ms(torch, lambda: torch.autograd.grad(
+            lib_out, leaf, do.transpose(1, 2), retain_graph=True), reps=3)
+        del lib_out
+    print(f"  train flash {label} {(B, (Sq, Sk), H, K, dh)} {dtype} {kw}: "
+          f"lse max abs {lse_err:.3e} (bar {lse_tol}); against the plain "
+          f"forward's float32 autograd: out, dq, dk, dv "
+          f"{', '.join(f'{e:.3e}' for e in errs)}; the kernels' dq, dk, dv "
+          f"against flash_backward {', '.join(f'{e:.3e}' for e in errs_plain)}"
+          f" ({bar}) {'OK' if ok else 'FAIL'}; forward {t_fwd:.4f} ms, with "
+          f"the lse store {t_lse:.4f} ms; backward kernels ({route}) "
+          f"{t_bwd:.4f} ms, flash_backward (torch ops) {t_plain:.3f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by}), SDPA's backward "
+          f"{'none' if t_lib is None else f'{t_lib:.4f} ms'}")
+    print(f"  train flash {label}: a second backward call on the same inputs "
+          f"{'equals' if same else 'DIFFERS from'} the first (torch.equal)")
+    if not ok:
+        fail(f"train flash {label}: off the plain version or its autograd")
+    if not same:
+        fail(f"train flash {label}: the backward kernels are not "
+             "deterministic")
+    e = {"shape": [B, Sq, Sk, H, K, dh], "dtype": dtype, "route": route,
+         "mask": kw, "lse_max_abs_err": lse_err, "grad_errs": errs,
+         "grad_errs_plain": errs_plain, "max_abs_err": abs_plain,
+         "repeat_equal": same, "fwd_ms": t_fwd, "fwd_lse_ms": t_lse,
+         "bwd_ms": t_bwd, "bwd_call_ms": t_call,
+         "bwd_plain_ms": t_plain, "bwd_bound_ms": b_ms, "bwd_bound_by": b_by,
+         "bwd_library_ms": t_lib}
+    del q, k, v, do, out, lse, leaf, fn_out, grads, o, lse_buf
+    torch.cuda.empty_cache()
+    return e
 
-    Bb, S, H, P, G, N, chunk = TRAIN_SSD
-    x = rnd(Bb, S, H, P)
+
+def ssd_train_check(torch, ss, label: str, shape, dtype: str, gen,
+                    rnd) -> dict:
+    """Phase 16 (a) at one SSD shape: ``SSDScan``'s forward and backward on
+    the card with a state gradient, the backward kernel against the plain
+    version (``ssd_scan_backward_plain``) on the same inputs and against an
+    independent witness (another chunked form of the scan, differentiated
+    in float64), a second backward call bit for bit the first, and the
+    device times of the forward, the backward kernel and the plain
+    backward."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.obs.compiled import work_bound
+
+    Bb, S, H, P, G, N, chunk = shape
+    x = rnd(Bb, S, H, P).to(getattr(torch, dtype))
     dt = torch.rand(Bb, S, H, device="cuda", generator=gen) * 0.1 + 0.001
     A = -torch.linspace(1.0, 16.0, H, device="cuda")
     B_, C_ = rnd(Bb, S, G, N), rnd(Bb, S, G, N)
-    dy = rnd(Bb, S, H, P)
+    dy = rnd(Bb, S, H, P).to(x.dtype)
+    ds = rnd(Bb, H, P, N)
     ins = (x, dt, A, B_, C_)
     LAUNCHES.clear()
     leaf = [t.detach().requires_grad_() for t in ins]
     y, state = ss.SSDScan.apply(*leaf, chunk)
-    (y * dy).sum().backward()
-    if LAUNCHES["ssd_scan"] != 1:
-        fail(f"train SSD: {LAUNCHES['ssd_scan']} kernel calls, expected 1")
+    ((y * dy).sum() + (state * ds).sum()).backward()
+    torch.cuda.synchronize()
+    if (LAUNCHES["ssd_scan"], LAUNCHES["ssd_scan_backward"]) != (1, 1):
+        fail(f"train SSD {label}: launches {dict(LAUNCHES)}, expected one "
+             "forward and one backward")
+    grads = [t.grad for t in leaf]
+    again = ss.ssd_scan_backward(*ins, dy, ds, chunk)
+    same = all(torch.equal(a, b) for a, b in zip(grads, again))
+    del again
+    rel = lambda a, b: float((a.float() - b.float()).abs().max()  # noqa: E731
+                             / b.float().abs().max().clamp(min=1e-30))
     with torch.no_grad():
         y_p, _ = ss.ssd_scan_plain(*ins, chunk)
-    y_err = float((y - y_p).detach().abs().max() / y_p.abs().max())
+        plain = ss.ssd_scan_backward_plain(*ins, dy, ds, chunk)
+        errs_plain = [rel(a, b) for a, b in zip(grads, plain)]
+        abs_plain = max(float((a.float() - b.float()).abs().max())
+                        for a, b in zip(grads, plain))
+        del plain
+    y_err = rel(y.detach(), y_p)
     del y_p
-    # The gradients' witness is independent of the backward, which
-    # differentiates ssd_scan_plain itself: another chunked form of the
-    # scan, differentiated in float64.
     wit = [t.detach().double().requires_grad_() for t in ins]
-    g_p = torch.autograd.grad((_ssd_f64(torch, *wit, chunk)
-                               * dy.double()).sum(), wit)
-    del wit
-    errs = [float((t.grad - g).abs().max() / g.abs().max().clamp(min=1e-30))
-            for t, g in zip(leaf, g_p)]
-    ok = y_err <= TRAIN_SSD_TOL and all(e <= TRAIN_SSD_TOL for e in errs)
-    ctx = types.SimpleNamespace(saved_tensors=ins, chunk=chunk,
-                                needs_input_grad=(True,) * 5 + (False,))
-    zero = torch.zeros_like(state)
+    y_w, st_w = _ssd_f64(torch, *wit, chunk)
+    g_w = torch.autograd.grad((y_w * dy.double()).sum()
+                              + (st_w * ds.double()).sum(), wit)
+    errs = [rel(a, b) for a, b in zip(grads, g_w)]
+    del wit, y_w, st_w, g_w
+    bar = TRAIN_SSD_TOL if dtype == "float32" else LM_TOL[dtype]["ssd"]
+    ok = y_err <= bar and all(e <= bar for e in errs + errs_plain)
     t_fwd = device_ms(torch, lambda: ss.ssd_scan(*ins, chunk), reps=5)
-    t_bwd = device_ms(torch, lambda: ss.SSDScan.backward(ctx, dy, zero),
-                      reps=2)
+    run = lambda: ss.ssd_scan_backward(*ins, dy, ds, chunk)  # noqa: E731
+    t_bwd = device_ms(torch, run, reps=5)
+    t_call = cuda_ms(torch, run)
+    t_plain = device_ms(torch, lambda: ss.ssd_scan_backward_plain(
+        *ins, dy, ds, chunk), reps=1)
     b_ms, b_by = work_bound(ss.ssd_backward_work(*ins, chunk))
-    print(f"  train SSD {TRAIN_SSD} float32: y {y_err:.3e}, dx, ddt, dA, dB, "
-          f"dC {', '.join(f'{e:.3e}' for e in errs)} against float64 "
-          f"autograd of another chunked form (relative to each one's "
-          f"max abs, bar {TRAIN_SSD_TOL}) {'OK' if ok else 'FAIL'}; forward "
-          f"(kernel) {t_fwd:.3f} ms, backward (the plain scan recomputed "
-          f"and differentiated) {t_bwd:.3f} ms, bound {b_ms:.4f} ms "
-          f"({b_by}); no library call computes it")
+    print(f"  train SSD {label} {shape} x {dtype}: y {y_err:.3e}; dx, ddt, "
+          f"dA, dB, dC against float64 autograd of another chunked form "
+          f"{', '.join(f'{e:.3e}' for e in errs)}, against "
+          f"ssd_scan_backward_plain {', '.join(f'{e:.3e}' for e in errs_plain)}"
+          f" (relative to each one's max abs, bar {bar}) "
+          f"{'OK' if ok else 'FAIL'}; forward (kernel) {t_fwd:.4f} ms, "
+          f"backward kernel {t_bwd:.4f} ms, ssd_scan_backward_plain "
+          f"{t_plain:.3f} ms, bound {b_ms:.4f} ms ({b_by}); no library call "
+          "computes it")
+    print(f"  train SSD {label}: a second backward call on the same inputs "
+          f"{'equals' if same else 'DIFFERS from'} the first (torch.equal)")
     if not ok:
-        fail("train SSD: off the plain version or the float64 gradients")
-    report["ssd_scan"]["mamba2 train"] = {
-        "shape": list(TRAIN_SSD), "y_err": y_err, "grad_errs": errs,
-        "fwd_ms": t_fwd, "bwd_ms": t_bwd, "bwd_bound_ms": b_ms,
-        "bwd_bound_by": b_by, "bwd_library_ms": None}
-    del x, dt, A, B_, C_, dy, ins, leaf, y, state, g_p, ctx, zero
+        fail(f"train SSD {label}: off the plain version or the float64 "
+             "gradients")
+    if not same:
+        fail(f"train SSD {label}: the backward kernel is not deterministic")
+    e = {"shape": list(shape), "dtype": dtype, "y_err": y_err,
+         "grad_errs": errs, "grad_errs_plain": errs_plain,
+         "max_abs_err": abs_plain, "repeat_equal": same, "fwd_ms": t_fwd,
+         "bwd_ms": t_bwd, "bwd_call_ms": t_call,
+         "bwd_plain_ms": t_plain, "bwd_bound_ms": b_ms, "bwd_bound_by": b_by,
+         "bwd_library_ms": None}
+    del x, dt, A, B_, C_, dy, ds, ins, leaf, y, state, grads
     torch.cuda.empty_cache()
+    return e
+
+
+def train_kernel_checks(torch, np) -> dict:
+    """Phase 16 (a): the flash kernel's training forward (with its
+    log-sum-exp) and both backward kernels on the card, each against its
+    plain version and an independent witness at every shape of
+    TRAIN_FLASH, TRAIN_FLASH_BWD and TRAIN_SSD_BWD; their device times
+    beside the plain backwards', the bounds and SDPA's backward."""
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    from repro_torch.kernels import ssd_scan as ss
+
+    gen = torch.Generator("cuda").manual_seed(TRAIN_SEED)
+    rnd = lambda *s: torch.randn(*s, device="cuda", generator=gen)  # noqa: E731
+    report = {"flash_attention": {}, "ssd_scan": {}}
+    for label, spec in {**TRAIN_FLASH, **TRAIN_FLASH_BWD}.items():
+        report["flash_attention"][label] = flash_train_check(
+            torch, fa, label, spec, rnd)
+    for label, (shape, dtype) in TRAIN_SSD_BWD.items():
+        report["ssd_scan"][label] = ssd_train_check(
+            torch, ss, label, shape, dtype, gen, rnd)
     return report
 
 
@@ -3930,7 +4056,7 @@ def train_full_width(torch, np, arch: str, batch: int, n_micro: int,
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         got = {k: LAUNCHES.get(k, 0) for k in expect}
-        per_step.append(got)
+        per_step.append(dict(LAUNCHES))
         loss, gn = float(m["loss"]), float(m["grad_norm"])
         losses.append(loss)
         norms.append(gn)
@@ -3940,11 +4066,11 @@ def train_full_width(torch, np, arch: str, batch: int, n_micro: int,
         if got != expect:
             fail(f"train {arch} step {s + 1}: launches {got}, expected "
                  f"{expect}")
-        if "flash_attention" in expect and LAUNCHES["flash_attention_tc"] \
-                != expect["flash_attention"]:
-            fail(f"train {arch}: {LAUNCHES['flash_attention_tc']} of "
-                 f"{expect['flash_attention']} flash launches took the "
-                 "tensor-core route")
+        for key in ("flash_attention", "flash_attention_backward"):
+            if key in expect and LAUNCHES[f"{key}_tc"] != expect[key]:
+                fail(f"train {arch}: {LAUNCHES[f'{key}_tc']} of "
+                     f"{expect[key]} {key} launches took the tensor-core "
+                     "route")
         if not (math.isfinite(loss) and math.isfinite(gn)) \
                 or int(m["step"]) != s + 1:
             fail(f"train {arch} step {s + 1}: loss {loss}, grad norm {gn}, "
@@ -4091,41 +4217,86 @@ def train_loop_check(torch, np) -> dict:
     return {"resume_gap": gap, "resume": how}
 
 
+# The backward kernels' entries of the kernels line: source, the
+# reference function they compute (no Pallas kernel), the forward kernel's
+# entry and phase 16 (a)'s check at the main path's shape.
+BWD_KERNELS = {
+    "flash_attention_backward": (
+        "src/repro_torch/kernels/csrc/flash_backward.cu",
+        "src/repro/models/layers.py:258", "flash_attention",
+        "tinyllama train"),
+    "ssd_scan_backward": (
+        "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "src/repro/models/layers.py:577", "ssd_scan", "mamba2 train"),
+}
+
+
+def backward_entry(name: str, checks: dict, run: dict) -> dict:
+    """A backward kernel's entry of the kernels line: its launches in each
+    full-width step of phase 16 (b) or (c) (the main path of training), and
+    phase 16 (a)'s numbers at that step's shape."""
+    source, replaces, _, label = BWD_KERNELS[name]
+    head = checks[label]
+    e = {"name": name, "route": "cuda", "source": source,
+         "replaces": replaces,
+         "launches": run["launches_per_step"][0].get(name, 0),
+         "max_abs_err": head["max_abs_err"], "ms": head["bwd_call_ms"],
+         "plain_ms": head["bwd_plain_ms"], "bound_ms": head["bwd_bound_ms"],
+         "bound_by": head["bwd_bound_by"],
+         "library_ms": head["bwd_library_ms"], "device_ms": head["bwd_ms"],
+         "train_launches_per_step": [got.get(name, 0) for got in
+                                     run["launches_per_step"]],
+         "train": checks}
+    if name == "flash_attention_backward":
+        e["launches_tc"] = run["launches_per_step"][0].get(
+            "flash_attention_backward_tc", 0)
+    return e
+
+
 def train_phase(torch, np) -> dict:
-    """Phase 16: training on the card, (a)-(e). Returns the kernels'
-    training entries (the launches counted in each step of (b) and (c)) and
-    (e)'s resume report."""
+    """Phase 16: training on the card, (a)-(e), (b)-(e) with the plain
+    backwards barred from CUDA tensors. Returns the forward kernels'
+    training entries (the launches counted in each step of (b) and (c)),
+    (e)'s resume report, (b)'s witness for phase 17 and the backward
+    kernels' entries."""
     t0 = time.perf_counter()
     report = train_kernel_checks(torch, np)
     print(f"  (a) {time.perf_counter() - t0:.3f}s")
-    t0 = time.perf_counter()
-    tiny = train_full_width(torch, np, "tinyllama_1_1b", TRAIN_BATCH,
-                            TRAIN_MICRO, 2,
-                            {"flash_attention": 22 * TRAIN_MICRO * 2},
-                            analyse=True)
-    print(f"  (b) {time.perf_counter() - t0:.3f}s")
-    t0 = time.perf_counter()
-    mamba = train_full_width(torch, np, "mamba2_2_7b", MAMBA_TRAIN_BATCH, 1,
-                             1, {"ssd_scan": MAMBA_TRAIN_LAYERS * 2},
-                             layers=MAMBA_TRAIN_LAYERS)
-    print(f"  (c) {time.perf_counter() - t0:.3f}s")
-    t0 = time.perf_counter()
-    train_smoke_parity(torch, np)
-    print(f"  (d) {time.perf_counter() - t0:.3f}s")
-    t0 = time.perf_counter()
-    loop = train_loop_check(torch, np)
-    print(f"  (e) {time.perf_counter() - t0:.3f}s")
+    with no_plain_backward_on_the_card():
+        t0 = time.perf_counter()
+        tiny = train_full_width(torch, np, "tinyllama_1_1b", TRAIN_BATCH,
+                                TRAIN_MICRO, 2,
+                                {"flash_attention": 22 * TRAIN_MICRO * 2,
+                                 "flash_attention_backward":
+                                     22 * TRAIN_MICRO},
+                                analyse=True)
+        print(f"  (b) {time.perf_counter() - t0:.3f}s")
+        t0 = time.perf_counter()
+        mamba = train_full_width(torch, np, "mamba2_2_7b", MAMBA_TRAIN_BATCH,
+                                 1, 1, {"ssd_scan": MAMBA_TRAIN_LAYERS * 2,
+                                        "ssd_scan_backward":
+                                            MAMBA_TRAIN_LAYERS},
+                                 layers=MAMBA_TRAIN_LAYERS)
+        print(f"  (c) {time.perf_counter() - t0:.3f}s")
+        t0 = time.perf_counter()
+        train_smoke_parity(torch, np)
+        print(f"  (d) {time.perf_counter() - t0:.3f}s")
+        t0 = time.perf_counter()
+        loop = train_loop_check(torch, np)
+        print(f"  (e) {time.perf_counter() - t0:.3f}s")
     # (b)'s losses, grad norms and state digests: phase 17 (a)'s witness
     tiny_ref = {k: tiny[k] for k in ("losses", "grad_norms")}
     tiny_ref["digests"] = tiny.pop("digests")
     mamba.pop("digests")
+    runs = {"flash_attention": tiny, "ssd_scan": mamba}
+    entries = [backward_entry(name, report[fwd], runs[fwd])
+               for name, (_, _, fwd, _) in BWD_KERNELS.items()]
     report["flash_attention"]["tinyllama_1_1b"] = tiny
     report["ssd_scan"]["mamba2_2_7b"] = mamba
-    runs = {"flash_attention": tiny, "ssd_scan": mamba}
     return {name: {"train_launches_per_step": [
                 got[name] for got in runs[name]["launches_per_step"]],
                 "train": r}
-            for name, r in report.items()}, loop, tiny_ref
+            for name, r in report.items()}, loop, tiny_ref, entries
 
 
 def mesh_train_full_width(torch, np, ref: dict, loop_want: list) -> dict:
@@ -4186,6 +4357,8 @@ def mesh_train_full_width(torch, np, ref: dict, loop_want: list) -> dict:
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
             got = (LAUNCHES["flash_attention"], LAUNCHES["flash_attention_tc"])
+            bwd = (LAUNCHES["flash_attention_backward"],
+                   LAUNCHES["flash_attention_backward_tc"])
             flash.append(got[0])
             c = compiled.collective_counts(step.KEY)
             counts.append(c)
@@ -4196,7 +4369,8 @@ def mesh_train_full_width(torch, np, ref: dict, loop_want: list) -> dict:
                   f"phase 16 (b)'s {ref['losses'][s]:.6f}, "
                   f"{ref['grad_norms'][s]:.6f}); wall {walls[-1]:.3f}s "
                   f"(16 (b): the same step unmeshed); flash launches "
-                  f"{got[0]}, tensor-core {got[1]}; collectives "
+                  f"{got[0]}, tensor-core {got[1]}; backward {bwd[0]}, "
+                  f"tensor-core {bwd[1]}; collectives "
                   f"all-gather {c['all-gather']}, all-reduce "
                   f"{c['all-reduce']} (total {c['total']})")
             if not same:
@@ -4205,6 +4379,9 @@ def mesh_train_full_width(torch, np, ref: dict, loop_want: list) -> dict:
             if got != (22 * TRAIN_MICRO * 2,) * 2:
                 fail(f"phase 17 (a) step {s + 1}: flash launches {got}, "
                      f"expected {22 * TRAIN_MICRO * 2}, all tensor-core")
+            if bwd != (22 * TRAIN_MICRO,) * 2:
+                fail(f"phase 17 (a) step {s + 1}: flash backward launches "
+                     f"{bwd}, expected {22 * TRAIN_MICRO}, all tensor-core")
             if (c["all-gather"], c["all-reduce"], c["total"]) != (1, 1, 2):
                 fail(f"phase 17 (a) step {s + 1}: collectives {c}, expected "
                      "one all-gather and one all-reduce")
@@ -4580,6 +4757,7 @@ def mesh_train_rank(rank: int, out_dir: str) -> None:
         rank=rank, timeout=datetime.timedelta(seconds=MESH_TRAIN_TIMEOUT))
     in_group = True
     try:
+        no_plain_backward_on_the_card().__enter__()   # for the rank's life
         from repro_torch.distributed import (
             compressed_psum_tree, pipeline_apply)
         from repro_torch.engine import GridMesh
@@ -4846,8 +5024,8 @@ def mesh_full_check(torch, out: pathlib.Path, metas: list, ref: dict):
                     else "ssd_scan") for x in launches):
                 faults.append(f"launches {launches}, want {per}")
             if kernel == "flash_attention" and any(
-                    x.get("flash_attention_tc") != x.get("flash_attention")
-                    for x in got["launches"]):
+                    x.get(f"{key}_tc") != x.get(key) for x in got["launches"]
+                    for key in ("flash_attention", "flash_attention_backward")):
                 faults.append("a flash launch off the tensor cores")
             want_shape = "flash q (1, %d, %d, %d) kv (1, %d, %d, %d)" % (
                 MESH_FULL_SEQ, heads[0], cfg.dh, MESH_FULL_SEQ, heads[1],
@@ -5255,13 +5433,14 @@ def mesh_train_phase(torch, np, ref: dict) -> dict:
     """Phase 17: the mesh of the LM substrate, (a), (b) and (c). Returns
     (a)'s flash launches per step, rank 0's launches in (b) and (c)'s
     kernel entries."""
-    loop_want = mesh_loop_witness()
-    t0 = time.perf_counter()
-    a = mesh_train_full_width(torch, np, ref, loop_want)
-    print(f"  (a) {time.perf_counter() - t0:.3f}s")
-    t0 = time.perf_counter()
-    b = mesh_train_smoke(torch, np, loop_want)
-    print(f"  (b) and (c) {time.perf_counter() - t0:.3f}s")
+    with no_plain_backward_on_the_card():
+        loop_want = mesh_loop_witness()
+        t0 = time.perf_counter()
+        a = mesh_train_full_width(torch, np, ref, loop_want)
+        print(f"  (a) {time.perf_counter() - t0:.3f}s")
+        t0 = time.perf_counter()
+        b = mesh_train_smoke(torch, np, loop_want)
+        print(f"  (b) and (c) {time.perf_counter() - t0:.3f}s")
     return {"a": a, "b": b}
 
 
@@ -5894,9 +6073,10 @@ def main() -> int:
 
     # -- 16. training -------------------------------------------------------
     t0 = time.perf_counter()
-    trained, loop, tiny_ref = train_phase(torch, np)
+    trained, loop, tiny_ref, bwd_entries = train_phase(torch, np)
     for k in kernels:
         k.update(trained.get(k["name"], {}))
+    kernels += bwd_entries
     t_phase = time.perf_counter() - t0
     print(f"[phase training: {t_phase:.3f}s (budget {TRAIN_BUDGET:.0f}s); "
           f"train_loop {json.dumps(loop)}]")

@@ -40,7 +40,7 @@ _PKG = pathlib.Path(__file__).resolve().parent
 CSRC = _PKG / "kernels" / "csrc"
 BUILD_DIR = _PKG.parents[1] / "build" / "torch_kernels"
 KERNEL_SOURCES = ("policy_cost", "hedge_replay", "learner_replay",
-                  "flash_attention", "ssd_scan")
+                  "flash_attention", "flash_backward", "ssd_scan")
 
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")

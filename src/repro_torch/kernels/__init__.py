@@ -22,10 +22,19 @@ version.
   (``csrc/ssd_scan.cu``: four chunk-parallel passes with split-TF32
   tensor-core products; ``ops.ssd``).
 
+* ``flash_attention.flash_attention_backward`` — the attention backward,
+  FlashAttention-2's (``csrc/flash_backward.cu``: mma.sync tensor-core
+  kernels for bfloat16 at dh 64, 96 or 128, CUDA-core kernels for every
+  other call);
+* ``ssd_scan.ssd_scan_backward`` — the SSD scan's gradients
+  (``csrc/ssd_scan.cu``'s ``ssd_scan_bwd_launch``: the forward's first
+  three passes again, then the gradient passes).
+
 A wrapper given CPU tensors computes its plain version; given CUDA tensors
 it launches its kernel or raises. Training reaches the two LM kernels
 through autograd Functions (``flash_attention.FlashAttention``,
-``ssd_scan.SSDScan``) whose forwards are the same kernels. ``flash_attention`` and ``ssd`` are the
+``ssd_scan.SSDScan``) whose forwards are the same kernels and whose
+backwards are the two backward kernels. ``flash_attention`` and ``ssd`` are the
 kernels as the models call them (``ops.py``, the reference's public names).
 ``LAUNCHES`` counts kernel launches by
 wrapper name (plain-version calls do not count), so a run can show which
@@ -33,7 +42,10 @@ kernels its path went through; ``policy_cost_chain`` counts both chain
 kernels and ``policy_cost_chain_smem`` the shared-memory ones among them;
 ``flash_attention`` counts both attention kernels and
 ``flash_attention_tc`` the tensor-core ones among them;
-``ssd_scan`` counts calls, each of which launches the scan's four passes.
+``ssd_scan`` counts calls, each of which launches the scan's four passes;
+``flash_attention_backward`` counts backward calls and
+``flash_attention_backward_tc`` the tensor-core ones among them;
+``ssd_scan_backward`` counts backward calls.
 Under ``repro_torch.obs.capture()`` each of those launches also records a
 CUDA event pair and its work under the same name.
 

@@ -369,7 +369,10 @@ __host__ __device__ constexpr int cb_stage() { return 2 * kBM * kLdRow * 4; }
 // ---- 1. chunk states --------------------------------------------------------
 
 // One block per (b * H + h) * nc + c (grid x) and 64 state rows (grid y).
-template <typename T, int PW>
+// kGrad: the backward's chunk states of the gradient,
+// sum_l e^{cum_l} C_l dy_l^T, from C (passed as Bm) and dy (passed as x),
+// with cum already in the scratch (computed again, not stored).
+template <typename T, int PW, bool kGrad = false>
 __global__ void __launch_bounds__(kThreads)
 ssd_chunk_state(const T* __restrict__ x, const float* __restrict__ dt,
                 const float* __restrict__ A, const float* __restrict__ Bm,
@@ -421,7 +424,7 @@ ssd_chunk_state(const T* __restrict__ x, const float* __restrict__ dt,
     }
     if (l < d.QP) {
       const double c2 = (v + off) * kLog2e;
-      cum2[l] = c2;
+      if (!kGrad) cum2[l] = c2;
       if (l == d.QP - 1) warp_sums[kThreads / 32] = c2;
     }
     carry += total;
@@ -457,8 +460,10 @@ ssd_chunk_state(const T* __restrict__ x, const float* __restrict__ dt,
       // w = exp(cum_end - cum) dt, the decay to the chunk's end.
       const double2 cs = *reinterpret_cast<const double2*>(c2s + s);
       const float2 ds = *reinterpret_cast<const float2*>(dts + s);
-      const float w0 = exp2f((float)(ce2 - cs.x)) * ds.x;
-      const float w1 = exp2f((float)(ce2 - cs.y)) * ds.y;
+      const float w0 = kGrad ? exp2f((float)cs.x)
+                             : exp2f((float)(ce2 - cs.x)) * ds.x;
+      const float w1 = kGrad ? exp2f((float)cs.y)
+                             : exp2f((float)(ce2 - cs.y)) * ds.y;
       const float* b0 = bt + s * kLdCol + r0;
       const float a[4] = {b0[0] * w0, b0[8] * w0, b0[kLdCol] * w1,
                           b0[kLdCol + 8] * w1};
@@ -749,6 +754,577 @@ ssd_chunk_scan(const T* __restrict__ x, const float* __restrict__ dt,
     }
 }
 
+// ---- backward -----------------------------------------------------------
+//
+// The gradients of (y, final state) with respect to x, dt, A, B and C
+// (kernels/ssd_scan.py::ssd_scan_backward_plain writes the equations out).
+// ssd_scan_bwd_launch runs the forward's passes 1-3 again (cum, C B^T, the
+// states E_c entering each chunk: recomputed rather than kept from the
+// forward, 84 MB a layer at mamba2's training shape), then:
+//   5. ssd_chunk_state<kGrad>: G_c = sum_l e^{cum_l} C_l dy_l^T (N, P);
+//   6. ssd_bwd_state_pass, one block per (b, h, 32 state rows): the reverse
+//      pass D_c = G_c + e^{cum_Q} D_{c+1} from D_nc = dstate, slot c taking
+//      D_{c+1}, and z_c = e^{cum_Q} <D_{c+1}, E_c> by slices;
+//   7. ssd_bwd_dcb, one block per causal 64 x 64 tile of (b, c, group),
+//      walking the group's heads: dCB = sum_h V_h, V = (dy x^T) dt_s
+//      e^{cum_l - cum_s} (s <= l), and each head's row and column sums of
+//      T = V .* C B^T (the cum gradient of the intra-chunk term);
+//   8. ssd_bwd_du, one block per (b, h, c, 64 rows): Yoff = e^{cum} C E_c
+//      and r = dy . Yoff, W = e^{cum_Q - cum_s} B D_{c+1} and w = u . W,
+//      du = W + (C B^T .* L)^T dy; dx = dt du and x . du into ddt;
+//   9. ssd_bwd_dbc, one block per (b, c, group, 64 rows, 64 state columns)
+//      and output: dC = dCB B + sum_h e^{cum} dy E_c^T, dB = dCB^T C +
+//      sum_h e^{cum_Q - cum} u D_{c+1}^T, the heads of the group summed in
+//      order inside the block;
+//  10. ssd_bwd_dcum, one block per (b, h, c): dcum from the tile sums, r, w
+//      and z, its reverse cumsum da in f64, ddt += A da, and dt . da;
+//  11. ssd_bwd_da: dA summed over batch and chunks in a fixed order.
+// No atomics: every output element and every partial sum has one writer,
+// and every reduction runs in a fixed order, so the gradients are
+// bit-deterministic. The products of passes 7-9 stage f32 tiles in shared
+// memory element by element (transposes, weights and masks applied on the
+// way) and multiply them with the forward's 3xTF32 mma.sync; one barrier
+// pair a 32-deep step, no cp.async ring yet.
+
+template <typename T> __device__ __forceinline__ float to_f32(T v);
+template <> __device__ __forceinline__ float to_f32<float>(float v) {
+  return v;
+}
+template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(
+    __nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// acc (64 rows x 8 NT columns) += As (64 x 32, row-major, kLdRow) times
+// Bs (32 x 8 NT, k-major, rows 8 NT + 4 apart), at f32 accuracy. The step's
+// twelve mma.sync accumulate into a zeroed tile that is then added to acc
+// with float adds: the tensor cores' accumulation truncates, so a chain of a
+// few thousand of them into one tile (a group's 80 heads into dB) drifts
+// toward zero by a few 1e-5 of the sum.
+template <int NT>
+__device__ __forceinline__ void mma_staged(float (&acc)[1][NT][4],
+                                           const float* As, const float* Bs) {
+  const int lane = threadIdx.x & 31, tq = lane & 3;
+  const int r0 = (threadIdx.x >> 5) * 16 + (lane >> 2);
+  float part[1][NT][4] = {};
+#pragma unroll
+  for (int kk = 0; kk < kBK; kk += 8) {
+    float a[4];
+    frag_a_rows(As, kLdRow, r0, kk, tq, a);
+    const FragA fa[1] = {split_a(a)};
+    mma3_rows<false>(part, fa, [&](int j0, float (&bf)[8][2]) {
+      frag_b8(Bs, NT * 8 + 4, kk, j0, bf);
+    });
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[0][j][e] += part[0][j][e];
+}
+
+// As[r][k] = f(r, k), 64 x 32, k fastest.
+template <typename F>
+__device__ __forceinline__ void stage_a(float* As, F f) {
+  for (int i = threadIdx.x; i < kBM * kBK; i += kThreads) {
+    const int r = i / kBK, k = i - r * kBK;
+    As[r * kLdRow + k] = f(r, k);
+  }
+}
+// Bs[k][c] = f(k, c), 32 x W; kFast: k varies fastest (a source contiguous
+// in k), else c does.
+template <int W, bool kFast, typename F>
+__device__ __forceinline__ void stage_b(float* Bs, F f) {
+  for (int i = threadIdx.x; i < kBK * W; i += kThreads) {
+    const int k = kFast ? i % kBK : i / W, c = kFast ? i / kBK : i % W;
+    Bs[k * (W + 4) + c] = f(k, c);
+  }
+}
+
+template <typename V>
+__device__ __forceinline__ V quad_sum(V v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// The block's sum of v, in a fixed order, in every thread.
+template <typename V>
+__device__ __forceinline__ V block_sum(V v, V* red) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  __syncthreads();                     // red's previous readers are done
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  V t = red[0];
+#pragma unroll
+  for (int w = 1; w < kThreads / 32; ++w) t += red[w];
+  return t;
+}
+
+// ---- 6. the reverse state pass ---------------------------------------------
+
+// One block per b * H + h (grid x) and 32 state rows (grid y). dstates holds
+// G_c in slot c on entry and D_{c+1} on exit; each thread carries up to 32
+// elements of the block's 32 x PS rows.
+__global__ void __launch_bounds__(kThreads)
+ssd_bwd_state_pass(float* __restrict__ dstates,
+                   const float* __restrict__ states,
+                   const double* __restrict__ cum,
+                   const float* __restrict__ dstate_in,
+                   float* __restrict__ zpart, Dims d) {
+  constexpr int kV = kPassRows * 128 / kThreads;
+  __shared__ float red[kThreads / 32];
+  const int bh = blockIdx.x, n0 = blockIdx.y * kPassRows;
+  const int nvalid = min(kPassRows, d.N - n0) * d.PS;
+  float carry[kV];
+#pragma unroll
+  for (int i = 0; i < kV; ++i) {
+    const int e = threadIdx.x + i * kThreads;
+    carry[i] = 0.f;
+    if (e < nvalid && dstate_in != nullptr) {
+      const int n = n0 + e / d.PS, p = e % d.PS;
+      if (p < d.P) carry[i] = dstate_in[((long long)bh * d.P + p) * d.N + n];
+    }
+  }
+  for (int c = d.nc - 1; c >= 0; --c) {
+    const long long chunk = (long long)bh * d.nc + c;
+    float* slot = dstates + (chunk * d.N + n0) * d.PS;
+    const float ec = exp2f((float)cum[chunk * d.QP + d.QP - 1]);
+    float zl = 0.f;
+    if (c > 0) {
+      const float* E = states + ((chunk - 1) * d.N + n0) * d.PS;
+#pragma unroll
+      for (int i = 0; i < kV; ++i) {
+        const int e = threadIdx.x + i * kThreads;
+        if (e < nvalid) zl += carry[i] * E[e];
+      }
+    }
+    zl = block_sum(zl, red);
+    if (threadIdx.x == 0) zpart[chunk * gridDim.y + blockIdx.y] = zl * ec;
+#pragma unroll
+    for (int i = 0; i < kV; ++i) {
+      const int e = threadIdx.x + i * kThreads;
+      if (e >= nvalid) continue;
+      const float gv = c > 0 ? slot[e] : 0.f;
+      slot[e] = carry[i];
+      carry[i] = gv + ec * carry[i];
+    }
+  }
+}
+
+// ---- 7. dCB and the intra-chunk cum sums -----------------------------------
+
+// One block per causal 64 x 64 tile, numbered as ssd_cb's. trow and tcol:
+// per (b, h, c, tile) the 64 row and 64 column sums of T, in f64: the cum
+// gradient is their small difference.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+ssd_bwd_dcb(const T* __restrict__ x, const T* __restrict__ dy,
+            const float* __restrict__ dt, const double* __restrict__ cum,
+            const float* __restrict__ cb, float* __restrict__ dcb,
+            double* __restrict__ trow, double* __restrict__ tcol, Dims d) {
+  __shared__ __align__(16) float As[kBM * kLdRow];
+  __shared__ __align__(16) float Bs[kBK * (kBM + 4)];
+  __shared__ double cl[kBM], cs[kBM];
+  __shared__ float dts[kBM];
+  __shared__ double colw[kThreads / 32][kBM];
+  const int t64 = d.QP / kBM, ntiles = t64 * (t64 + 1) / 2;
+  const int bcg = blockIdx.x / ntiles, tile = blockIdx.x - bcg * ntiles;
+  int i = 0;
+  while ((i + 1) * (i + 2) / 2 <= tile) ++i;
+  const int j = tile - i * (i + 1) / 2;
+  const int b = bcg / (d.nc * d.G), cg = bcg - b * d.nc * d.G;
+  const int c = cg / d.G, g = cg - c * d.G;
+  const int t0 = c * d.Q, Qv = chunk_rows(d, c);
+  const int l0 = i * kBM, s0 = j * kBM, rep = d.H / d.G;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3, r0 = warp * 16 + gq;
+  const long long row0 = (long long)b * d.S + t0;
+
+  const float* cbt = cb + (long long)blockIdx.x * kBM * kBM;
+  float cbv[8][4], dcb_acc[8][4];
+#pragma unroll
+  for (int jn = 0; jn < 8; ++jn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      cbv[jn][e] = cbt[(r0 + 8 * (e >> 1)) * kBM + jn * 8 + 2 * tq + (e & 1)];
+      dcb_acc[jn][e] = 0.f;
+    }
+  for (int hh = 0; hh < rep; ++hh) {
+    const int h = g * rep + hh;
+    const long long bhc = ((long long)b * d.H + h) * d.nc + c;
+    const double* c2 = cum + bhc * d.QP;
+    __syncthreads();                   // the previous head's readers are done
+    if (tid < kBM) {
+      cl[tid] = c2[l0 + tid];
+      cs[tid] = c2[s0 + tid];
+      dts[tid] = s0 + tid < Qv ? dt[(row0 + s0 + tid) * d.H + h] : 0.f;
+    }
+    float acc[1][8][4] = {};
+    for (int p0 = 0; p0 < d.P; p0 += kBK) {
+      __syncthreads();
+      stage_a(As, [&](int r, int k) {
+        const int l = l0 + r, p = p0 + k;
+        return l < Qv && p < d.P
+                   ? to_f32(dy[((row0 + l) * d.H + h) * d.P + p]) : 0.f;
+      });
+      stage_b<kBM, true>(Bs, [&](int k, int sc) {
+        const int s = s0 + sc, p = p0 + k;
+        return s < Qv && p < d.P
+                   ? to_f32(x[b * d.sxb + (long long)(t0 + s) * d.sxs +
+                              h * d.sxh + p]) : 0.f;
+      });
+      __syncthreads();
+      mma_staged<8>(acc, As, Bs);
+    }
+    double rowp[2] = {0.0, 0.0}, colp[8][2];
+#pragma unroll
+    for (int jn = 0; jn < 8; ++jn) {
+      colp[jn][0] = colp[jn][1] = 0.0;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int lr = r0 + 8 * (e >> 1), sc = jn * 8 + 2 * tq + (e & 1);
+        float v = 0.f;
+        if (s0 + sc <= l0 + lr)
+          v = acc[0][jn][e] * exp2f((float)(cl[lr] - cs[sc])) * dts[sc];
+        dcb_acc[jn][e] += v;
+        const float tv = v * cbv[jn][e];
+        rowp[e >> 1] += tv;
+        colp[jn][e & 1] += tv;
+      }
+    }
+    const long long sums = (bhc * ntiles + tile) * kBM;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const double v = quad_sum(rowp[r]);
+      if (tq == 0) trow[sums + r0 + 8 * r] = v;
+    }
+#pragma unroll
+    for (int jn = 0; jn < 8; ++jn)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        double v = colp[jn][e];
+        v += __shfl_xor_sync(0xffffffffu, v, 4);
+        v += __shfl_xor_sync(0xffffffffu, v, 8);
+        v += __shfl_xor_sync(0xffffffffu, v, 16);
+        if (gq == 0) colw[warp][jn * 8 + 2 * tq + e] = v;
+      }
+    __syncthreads();
+    if (tid < kBM)
+      tcol[sums + tid] = colw[0][tid] + colw[1][tid] + colw[2][tid] +
+                         colw[3][tid];
+  }
+  float* out = dcb + (long long)blockIdx.x * kBM * kBM;
+#pragma unroll
+  for (int jn = 0; jn < 8; ++jn)
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2)
+      store2(out + (r0 + 8 * h2) * kBM + jn * 8 + 2 * tq, dcb_acc[jn][2 * h2],
+             dcb_acc[jn][2 * h2 + 1]);
+}
+
+// ---- 8. du, dx and the state terms of the cum gradient ---------------------
+
+// The sum over p < P of this thread's row r (rows r0 and r0 + 8 of the
+// tile) of acc times f(row, p), over the quad; 0 past Qv.
+template <int NT, typename F>
+__device__ __forceinline__ float row_dot(const float (&acc)[1][NT][4], int r,
+                                         int row, int Qv, int P, F f) {
+  const int tq = threadIdx.x & 3;
+  float v = 0.f;
+  if (row < Qv) {
+#pragma unroll
+    for (int jn = 0; jn < NT; ++jn)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int p = jn * 8 + 2 * tq + e;
+        if (p < P) v += acc[0][jn][2 * r + e] * f(row, p);
+      }
+  }
+  return quad_sum(v);
+}
+
+// acc += M (rows s0 .. s0 + 63 of the chunk, N wide, rows G N apart in
+// device memory) times Sl (an (N, PS) state slot).
+template <int PW>
+__device__ __forceinline__ void state_product(float (&acc)[1][PW / 8][4],
+                                              float* As, float* Bs,
+                                              const float* M, const float* Sl,
+                                              long long row0, int s0, int Qv,
+                                              int g, const Dims& d) {
+  for (int n0 = 0; n0 < d.N; n0 += kBK) {
+    __syncthreads();
+    stage_a(As, [&](int r, int k) {
+      const int row = s0 + r, n = n0 + k;
+      return row < Qv && n < d.N ? M[((row0 + row) * d.G + g) * d.N + n]
+                                 : 0.f;
+    });
+    stage_b<PW, false>(Bs, [&](int k, int p) {
+      const int n = n0 + k;
+      return n < d.N && p < d.PS ? Sl[(long long)n * d.PS + p] : 0.f;
+    });
+    __syncthreads();
+    mma_staged<PW / 8>(acc, As, Bs);
+  }
+}
+
+// One block per (b * H + h) * nc + c (grid x) and 64 rows (grid y).
+template <typename T, int PW>
+__global__ void __launch_bounds__(kThreads)
+ssd_bwd_du(const T* __restrict__ x, const T* __restrict__ dy,
+           const float* __restrict__ dt, const float* __restrict__ Bm,
+           const float* __restrict__ Cm, const double* __restrict__ cum,
+           const float* __restrict__ cb, const float* __restrict__ states,
+           const float* __restrict__ dstates, T* __restrict__ dx,
+           float* __restrict__ ddt, float* __restrict__ rr,
+           float* __restrict__ ww, Dims d) {
+  constexpr int NT = PW / 8;
+  __shared__ __align__(16) float As[kBM * kLdRow];
+  __shared__ __align__(16) float Bs[kBK * (PW + 4)];
+  const int bh = blockIdx.x / d.nc, c = blockIdx.x - bh * d.nc;
+  const int j = blockIdx.y, s0 = j * kBM;
+  const int b = bh / d.H, h = bh - b * d.H, g = h / (d.H / d.G);
+  const int t0 = c * d.Q, Qv = chunk_rows(d, c);
+  if (s0 >= Qv) return;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, tq = lane & 3, r0 = warp * 16 + gq;
+  const long long row0 = (long long)b * d.S + t0;
+  const long long chunk = (long long)bh * d.nc + c;
+  const double* c2 = cum + chunk * d.QP;
+  const double ce2 = c2[d.QP - 1];
+  const int t64 = d.QP / kBM, ntiles = t64 * (t64 + 1) / 2;
+  const float* cbc = cb + (((long long)b * d.nc + c) * d.G + g) * ntiles *
+                              kBM * kBM;
+  const T* xh = x + b * d.sxb + (long long)t0 * d.sxs + h * d.sxh;
+  const T* dyh = dy + (row0 * d.H + h) * d.P;
+  const long long ldy = (long long)d.H * d.P;
+  auto xat = [&](int s, int p) { return to_f32(xh[s * d.sxs + p]); };
+  auto dyat = [&](int l, int p) { return to_f32(dyh[l * ldy + p]); };
+
+  float acc[1][NT][4] = {};
+  // r_l = dy_l . e^{cum_l} E_c^T C_l (E_0 = 0).
+  if (c > 0)
+    state_product<PW>(acc, As, Bs, Cm, states + (chunk - 1) * d.N * d.PS,
+                      row0, s0, Qv, g, d);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = s0 + r0 + 8 * r;
+    const float v = row_dot<NT>(acc, r, row, c > 0 ? Qv : 0, d.P, dyat);
+    if (tq == 0) rr[chunk * d.QP + row] = exp2f((float)c2[row]) * v;
+  }
+#pragma unroll
+  for (int jn = 0; jn < NT; ++jn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[0][jn][e] = 0.f;
+  // W_s = e^{cum_Q - cum_s} D_{c+1}^T B_s and w_s = dt_s x_s . W_s.
+  state_product<PW>(acc, As, Bs, Bm, dstates + chunk * d.N * d.PS, row0, s0,
+                    Qv, g, d);
+  float dts[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = s0 + r0 + 8 * r;
+    dts[r] = row < Qv ? dt[(row0 + row) * d.H + h] : 0.f;
+    const float decay = exp2f((float)(ce2 - c2[row]));
+#pragma unroll
+    for (int jn = 0; jn < NT; ++jn) {
+      acc[0][jn][2 * r] *= decay;
+      acc[0][jn][2 * r + 1] *= decay;
+    }
+    const float v = row_dot<NT>(acc, r, row, Qv, d.P, xat);
+    if (tq == 0) ww[chunk * d.QP + row] = dts[r] * v;
+  }
+  // du_s += sum_{l >= s} C B^T[l][s] e^{cum_l - cum_s} dy_l.
+  for (int k0 = s0; k0 < Qv; k0 += kBK) {
+    __syncthreads();
+    stage_a(As, [&](int r, int k) {
+      const int s = s0 + r, l = k0 + k;
+      if (l >= Qv || l < s) return 0.f;
+      const int i = l / kBM;
+      const float* t = cbc + (long long)(i * (i + 1) / 2 + j) * kBM * kBM;
+      return t[(l - i * kBM) * kBM + r] * exp2f((float)(c2[l] - c2[s]));
+    });
+    stage_b<PW, false>(Bs, [&](int k, int p) {
+      const int l = k0 + k;
+      return l < Qv && p < d.P ? dyat(l, p) : 0.f;
+    });
+    __syncthreads();
+    mma_staged<NT>(acc, As, Bs);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = s0 + r0 + 8 * r;
+    const float v = row_dot<NT>(acc, r, row, Qv, d.P, xat);
+    if (row >= Qv) continue;
+    if (tq == 0) ddt[(row0 + row) * d.H + h] = v;
+    T* dxr = dx + ((row0 + row) * d.H + h) * d.P;
+#pragma unroll
+    for (int jn = 0; jn < NT; ++jn)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int p = jn * 8 + 2 * tq + e;
+        if (p < d.P) dxr[p] = from_f32<T>(dts[r] * acc[0][jn][2 * r + e]);
+      }
+  }
+}
+
+// ---- 9. dB and dC ----------------------------------------------------------
+
+// One block per ((b * nc + c) * G + g) * (QP / 64) + row tile (grid x), 64
+// state columns (grid y) and output (grid z: 0 dC, 1 dB).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+ssd_bwd_dbc(const T* __restrict__ x, const T* __restrict__ dy,
+            const float* __restrict__ dt, const float* __restrict__ Bm,
+            const float* __restrict__ Cm, const double* __restrict__ cum,
+            const float* __restrict__ dcb, const float* __restrict__ states,
+            const float* __restrict__ dstates, float* __restrict__ dB,
+            float* __restrict__ dC, Dims d) {
+  __shared__ __align__(16) float As[kBM * kLdRow];
+  __shared__ __align__(16) float Bs[kBK * (kBM + 4)];
+  const int t64 = d.QP / kBM, ntiles = t64 * (t64 + 1) / 2;
+  const int rt = blockIdx.x % t64, bcg = blockIdx.x / t64;
+  const int g = bcg % d.G, bc = bcg / d.G, c = bc % d.nc, b = bc / d.nc;
+  const int t0 = c * d.Q, Qv = chunk_rows(d, c), m0 = rt * kBM;
+  if (m0 >= Qv) return;
+  const int n0 = blockIdx.y * kBM, mode = blockIdx.z, rep = d.H / d.G;
+  const long long row0 = (long long)b * d.S + t0;
+  const float* dcbc = dcb + ((long long)b * d.nc + c) * d.G * ntiles * kBM *
+                                kBM + (long long)g * ntiles * kBM * kBM;
+  auto tile_of = [&](int i, int jj) {
+    return dcbc + (long long)(i * (i + 1) / 2 + jj) * kBM * kBM;
+  };
+  const float* other = mode == 0 ? Bm : Cm;   // the intra product's B side
+  float acc[1][8][4] = {};
+  // dC: sum_{s <= l} dCB[l][s] B_s; dB: sum_{l >= s} dCB[l][s] C_l.
+  const int k_lo = mode == 0 ? 0 : m0;
+  const int k_hi = mode == 0 ? min(m0 + kBM, Qv) : Qv;
+  for (int k0 = k_lo; k0 < k_hi; k0 += kBK) {
+    __syncthreads();
+    stage_a(As, [&](int r, int k) {
+      const int row = m0 + r, o = k0 + k;
+      if (row >= Qv || o >= Qv) return 0.f;
+      return mode == 0 ? tile_of(rt, o / kBM)[r * kBM + o % kBM]
+                       : tile_of(o / kBM, rt)[(o % kBM) * kBM + r];
+    });
+    stage_b<kBM, false>(Bs, [&](int k, int n) {
+      const int o = k0 + k;
+      return o < Qv && n0 + n < d.N
+                 ? other[((row0 + o) * d.G + g) * d.N + n0 + n] : 0.f;
+    });
+    __syncthreads();
+    mma_staged<8>(acc, As, Bs);
+  }
+  // dC: sum_h e^{cum_l} dy_l E_c^T (c > 0); dB: sum_h e^{cum_Q - cum_s}
+  // dt_s x_s D_{c+1}^T.
+  if (mode == 1 || c > 0) {
+    for (int hh = 0; hh < rep; ++hh) {
+      const int h = g * rep + hh;
+      const long long chunk = ((long long)b * d.H + h) * d.nc + c;
+      const double* c2 = cum + chunk * d.QP;
+      const float* Sl = mode == 0 ? states + (chunk - 1) * d.N * d.PS
+                                  : dstates + chunk * d.N * d.PS;
+      for (int p0 = 0; p0 < d.P; p0 += kBK) {
+        __syncthreads();
+        stage_a(As, [&](int r, int k) {
+          const int row = m0 + r, p = p0 + k;
+          if (row >= Qv || p >= d.P) return 0.f;
+          if (mode == 0)
+            return exp2f((float)c2[row]) *
+                   to_f32(dy[((row0 + row) * d.H + h) * d.P + p]);
+          return exp2f((float)(c2[d.QP - 1] - c2[row])) *
+                 dt[(row0 + row) * d.H + h] *
+                 to_f32(x[b * d.sxb + (long long)(t0 + row) * d.sxs +
+                          h * d.sxh + p]);
+        });
+        stage_b<kBM, true>(Bs, [&](int k, int n) {
+          const int p = p0 + k;
+          return p < d.P && n0 + n < d.N
+                     ? Sl[(long long)(n0 + n) * d.PS + p] : 0.f;
+        });
+        __syncthreads();
+        mma_staged<8>(acc, As, Bs);
+      }
+    }
+  }
+  float* out = mode == 0 ? dC : dB;
+  const int lane = threadIdx.x & 31;
+  const int r0 = (threadIdx.x >> 5) * 16 + (lane >> 2), tq = lane & 3;
+#pragma unroll
+  for (int jn = 0; jn < 8; ++jn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = m0 + r0 + 8 * (e >> 1), n = n0 + jn * 8 + 2 * tq + (e & 1);
+      if (row < Qv && n < d.N)
+        out[((row0 + row) * d.G + g) * d.N + n] = acc[0][jn][e];
+    }
+}
+
+// ---- 10. dcum, da, ddt ------------------------------------------------------
+
+// One block per (b * H + h) * nc + c; dynamic shared memory QP doubles.
+__global__ void __launch_bounds__(kThreads)
+ssd_bwd_dcum(const float* __restrict__ dt, const float* __restrict__ A,
+             const double* __restrict__ trow, const double* __restrict__ tcol,
+             const float* __restrict__ rr, const float* __restrict__ ww,
+             const float* __restrict__ zpart, float* __restrict__ ddt,
+             double* __restrict__ dapart, Dims d, int nsl) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  double* dc = reinterpret_cast<double*>(smem);
+  __shared__ double red[kThreads / 32];
+  const long long chunk = blockIdx.x;
+  const int bh = blockIdx.x / d.nc, c = blockIdx.x - bh * d.nc;
+  const int b = bh / d.H, h = bh - b * d.H;
+  const int Qv = chunk_rows(d, c), t64 = d.QP / kBM;
+  const int tv = (Qv + kBM - 1) / kBM;         // row tiles holding real rows
+  const long long row0 = (long long)b * d.S + c * d.Q;
+  const long long sums = chunk * (t64 * (t64 + 1) / 2);
+  for (int l = threadIdx.x; l < Qv; l += kThreads) {
+    const int i = l / kBM, lr = l - i * kBM;
+    double v = (double)rr[chunk * d.QP + l] - (double)ww[chunk * d.QP + l];
+    for (int jj = 0; jj <= i; ++jj)
+      v += trow[(sums + i * (i + 1) / 2 + jj) * kBM + lr];
+    for (int ii = i; ii < tv; ++ii)
+      v -= tcol[(sums + ii * (ii + 1) / 2 + i) * kBM + lr];
+    dc[l] = v;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    double z = 0.0, ws = 0.0;
+    for (int k = 0; k < nsl; ++k) z += zpart[chunk * nsl + k];
+    for (int l = 0; l < Qv; ++l) ws += ww[chunk * d.QP + l];
+    dc[Qv - 1] += z + ws;
+    double run = 0.0;
+    for (int l = Qv - 1; l >= 0; --l) {
+      run += dc[l];
+      dc[l] = run;
+    }
+  }
+  __syncthreads();
+  const double a_h = A[h];
+  double part = 0.0;
+  for (int l = threadIdx.x; l < Qv; l += kThreads) {
+    const long long at = (row0 + l) * d.H + h;
+    const double da = dc[l];
+    ddt[at] = (float)((double)ddt[at] + a_h * da);
+    part += (double)dt[at] * da;
+  }
+  part = block_sum(part, red);
+  if (threadIdx.x == 0) dapart[chunk] = part;
+}
+
+// ---- 11. dA -------------------------------------------------------------------
+
+__global__ void __launch_bounds__(kThreads)
+ssd_bwd_da(const double* __restrict__ dapart, float* __restrict__ dA, int Bb,
+           Dims d) {
+  for (int h = threadIdx.x; h < d.H; h += kThreads) {
+    double s = 0.0;
+    for (int b = 0; b < Bb; ++b)
+      for (int c = 0; c < d.nc; ++c)
+        s += dapart[((long long)b * d.H + h) * d.nc + c];
+    dA[h] = (float)s;
+  }
+}
+
 // ---- launch -----------------------------------------------------------------
 
 template <typename K>
@@ -808,6 +1384,80 @@ int launch_p(const void* x, const float* dt, const float* A, const float* Bm,
                         d, vec_x, vec_bc, s);
 }
 
+
+// The backward: the forward's passes 1-3 into the scratch, then passes
+// 5-11. buf: see ssd_scan_bwd_launch.
+template <typename T, int PW>
+int launch_bwd(const void* x, const void* dy, const float* dt, const float* A,
+               const float* Bm, const float* Cm, const float* dstate,
+               void* const* buf, int Bb, const Dims& d, const Dims& dyd,
+               int vec_x, int vec_dy, int vec_bc, cudaStream_t stream) {
+  double* cum = static_cast<double*>(buf[0]);
+  float* cb = static_cast<float*>(buf[1]);
+  float* states = static_cast<float*>(buf[2]);
+  float* state_out = static_cast<float*>(buf[3]);
+  float* dstates = static_cast<float*>(buf[4]);
+  float* dcb = static_cast<float*>(buf[5]);
+  double* trow = static_cast<double*>(buf[6]);
+  double* tcol = static_cast<double*>(buf[7]);
+  float* rr = static_cast<float*>(buf[8]);
+  float* ww = static_cast<float*>(buf[9]);
+  float* zpart = static_cast<float*>(buf[10]);
+  double* dapart = static_cast<double*>(buf[11]);
+  T* dx = static_cast<T*>(buf[12]);
+  float* ddt = static_cast<float*>(buf[13]);
+  float* dA = static_cast<float*>(buf[14]);
+  float* dB = static_cast<float*>(buf[15]);
+  float* dC = static_cast<float*>(buf[16]);
+  const T* xt = static_cast<const T*>(x);
+  const T* dyt = static_cast<const T*>(dy);
+  int smem[4];
+  smem_bytes<T, PW>(d.PS, smem);
+  const int T64 = d.QP / kBM, ntiles = T64 * (T64 + 1) / 2;
+  const unsigned bhc = (unsigned)Bb * d.H * d.nc;
+  const int nsl = (d.N + kPassRows - 1) / kPassRows;
+  int err = set_smem(ssd_chunk_state<T, PW>, smem[0]);
+  if (err) return err;
+  ssd_chunk_state<T, PW><<<dim3(bhc, (d.N + kBM - 1) / kBM), kThreads,
+                           smem[0], stream>>>(xt, dt, A, Bm, cum, states, d,
+                                              vec_x, vec_bc);
+  if ((err = (int)cudaGetLastError())) return err;
+  if ((err = set_smem(ssd_cb, smem[1]))) return err;
+  ssd_cb<<<dim3((unsigned)Bb * d.nc * d.G * ntiles), kThreads, smem[1],
+           stream>>>(Bm, Cm, cb, d, vec_bc);
+  if ((err = (int)cudaGetLastError())) return err;
+  if ((err = set_smem(ssd_state_pass, smem[2]))) return err;
+  ssd_state_pass<<<dim3((unsigned)Bb * d.H, nsl), kThreads, smem[2],
+                   stream>>>(states, cum, state_out, d);
+  if ((err = (int)cudaGetLastError())) return err;
+  if ((err = set_smem(ssd_chunk_state<T, PW, true>, smem[0]))) return err;
+  ssd_chunk_state<T, PW, true><<<dim3(bhc, (d.N + kBM - 1) / kBM), kThreads,
+                                 smem[0], stream>>>(dyt, dt, A, Cm, cum,
+                                                    dstates, dyd, vec_dy,
+                                                    vec_bc);
+  if ((err = (int)cudaGetLastError())) return err;
+  ssd_bwd_state_pass<<<dim3((unsigned)Bb * d.H, nsl), kThreads, 0, stream>>>(
+      dstates, states, cum, dstate, zpart, d);
+  if ((err = (int)cudaGetLastError())) return err;
+  ssd_bwd_dcb<T><<<dim3((unsigned)Bb * d.nc * d.G * ntiles), kThreads, 0,
+                   stream>>>(xt, dyt, dt, cum, cb, dcb, trow, tcol, d);
+  if ((err = (int)cudaGetLastError())) return err;
+  ssd_bwd_du<T, PW><<<dim3(bhc, T64), kThreads, 0, stream>>>(
+      xt, dyt, dt, Bm, Cm, cum, cb, states, dstates, dx, ddt, rr, ww, d);
+  if ((err = (int)cudaGetLastError())) return err;
+  ssd_bwd_dbc<T><<<dim3((unsigned)Bb * d.nc * d.G * T64, (d.N + kBM - 1) / kBM,
+                        2), kThreads, 0, stream>>>(
+      xt, dyt, dt, Bm, Cm, cum, dcb, states, dstates, dB, dC, d);
+  if ((err = (int)cudaGetLastError())) return err;
+  const int smem_dc = d.QP * (int)sizeof(double);
+  if ((err = set_smem(ssd_bwd_dcum, smem_dc))) return err;
+  ssd_bwd_dcum<<<dim3(bhc), kThreads, smem_dc, stream>>>(
+      dt, A, trow, tcol, rr, ww, zpart, ddt, dapart, d, nsl);
+  if ((err = (int)cudaGetLastError())) return err;
+  ssd_bwd_da<<<1, kThreads, 0, stream>>>(dapart, dA, Bb, d);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // x (Bb, S, H, P) in dtype (0 float32, 1 bfloat16) read through the element
@@ -861,4 +1511,51 @@ extern "C" int ssd_scan_smem(int dtype, int P, int* smem) {
     smem_bytes<__nv_bfloat16, 128>(PS, s);
   for (int i = 0; i < 4; ++i) smem[i] = s[i];
   return 0;
+}
+
+// The gradients of ssd_scan_launch's (y, final state) from a zero state.
+// x, x_strides, dt, A, B, C, dtype, the shapes and plan as there; dy
+// (Bb, S, H, P) contiguous in x's dtype; dstate (Bb, H, P, N) float32
+// contiguous, or null for zeros. buf, 17 device pointers, allocated by the
+// caller (kernels/ssd_scan.py::ssd_bwd_plan): the forward's scratch cum,
+// cb, states and state_out; dstates (Bb, H, nc, N, PS) float32, dcb as cb,
+// trow and tcol (Bb, H, nc, ntiles, 64) float64, rr and ww (Bb, H, nc, QP)
+// float32, zpart (Bb, H, nc, ceil(N / 32)) float32, dapart (Bb, H, nc)
+// float64; then the outputs dx (Bb, S, H, P) in x's dtype, ddt (Bb, S, H),
+// dA (H,), dB and dC (Bb, S, G, N), float32, all contiguous. Returns 0, a
+// CUDA error of a launch, or cudaErrorInvalidValue.
+extern "C" int ssd_scan_bwd_launch(const void* x, const long long* x_strides,
+                                   const void* dy, const float* dt,
+                                   const float* A, const float* Bm,
+                                   const float* Cm, const float* dstate,
+                                   void* const* buf, int dtype, int Bb, int S,
+                                   int H, int P, int G, int N, const int* plan,
+                                   int vec_x, int vec_dy, int vec_bc,
+                                   void* stream) {
+  if (P < 1 || P > 128 || N < 1 || G < 1 || H % G != 0 || Bb < 1 || S < 1)
+    return (int)cudaErrorInvalidValue;
+  Dims d{S,       H,       G,       N,       P,
+         plan[0], plan[1], plan[2], plan[3], x_strides[0],
+         x_strides[1], x_strides[2]};
+  if (d.Q < 1 || d.QP % kBM || d.QP < d.Q || d.PS % 4 || d.PS < P ||
+      d.nc != (S + d.Q - 1) / d.Q)
+    return (int)cudaErrorInvalidValue;
+  Dims dyd = d;                        // dy: contiguous (Bb, S, H, P)
+  dyd.sxh = P;
+  dyd.sxs = (long long)H * P;
+  dyd.sxb = (long long)S * H * P;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && P <= 64)
+    return launch_bwd<float, 64>(x, dy, dt, A, Bm, Cm, dstate, buf, Bb, d, dyd,
+                                 vec_x, vec_dy, vec_bc, s);
+  if (dtype == 0)
+    return launch_bwd<float, 128>(x, dy, dt, A, Bm, Cm, dstate, buf, Bb, d,
+                                  dyd, vec_x, vec_dy, vec_bc, s);
+  if (dtype == 1 && P <= 64)
+    return launch_bwd<__nv_bfloat16, 64>(x, dy, dt, A, Bm, Cm, dstate, buf, Bb,
+                                         d, dyd, vec_x, vec_dy, vec_bc, s);
+  if (dtype == 1)
+    return launch_bwd<__nv_bfloat16, 128>(x, dy, dt, A, Bm, Cm, dstate, buf,
+                                          Bb, d, dyd, vec_x, vec_dy, vec_bc, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -29,14 +29,21 @@ Training (``FlashAttention``, the autograd Function that
 ``ops.flash_attention`` takes whenever grad is enabled): the forward is the
 kernel on the card, which then also writes each query row's log-sum-exp
 (float32, (B, H, Sq)); on the CPU the plain version and its logsumexp. The
-backward, ``flash_backward``, is the reference's ``_flash_train_bwd``
-(``repro/models/layers.py``) in torch ops: per query block of ``bq`` rows
+backward (``flash_attention_backward``) launches the backward kernels
+(``csrc/flash_backward.cu``, FlashAttention-2's: a delta pre-pass, a dk/dv
+pass over key tiles and a dq pass over query tiles, no atomics) on the
+card, by the same kind of rule (``backward_tensor_core_route``: bfloat16,
+dh 64, 96 or 128, aligned pointers and strides take mma.sync tensor-core
+kernels, every other call float32 CUDA-core ones); ``LAUNCHES`` counts
+``flash_attention_backward`` and the tensor-core subset
+``flash_attention_backward_tc``. CPU and meta tensors take the plain
+version, ``flash_backward``: the reference's ``_flash_train_bwd``
+(``repro/models/layers.py``) in torch ops, per query block of ``bq`` rows
 and per key block of ``bk`` keys it can reach (``_reachable_kv``), it
 recomputes the scores, takes ``p = exp(s - lse)`` and accumulates dv, dp,
-ds, dq and dk in float32. The reference has no backward kernel; a CUDA one
-is later work (ROADMAP "After the port"). Keys are masked by the real Sk:
-the reference's ``_score_block`` masks by the padded Sk, which lets zero
-keys into a non-causal softmax (ROADMAP queue C).
+ds, dq and dk in float32. Keys are masked by the real Sk: the reference's
+``_score_block`` masks by the padded Sk, which lets zero keys into a
+non-causal softmax (ROADMAP queue C).
 """
 
 from __future__ import annotations
@@ -57,7 +64,8 @@ __all__ = ["flash_attention_fwd", "flash_attention_strided",
            "tma_layout", "bshd_view", "attention_plain", "attn_pairs",
            "flash_work", "NEG_INF", "FlashAttention", "flash_forward_lse",
            "flash_backward", "flash_backward_work", "BLOCK_Q", "BLOCK_K",
-           "call_work", "backward_call_work"]
+           "call_work", "backward_call_work", "backward_tensor_core_route",
+           "flash_attention_backward"]
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -130,6 +138,22 @@ def tensor_core_route(q, k, v, out) -> bool:
                for t in (q, k, v, out))
 
 
+def backward_tensor_core_route(q, k, v, dout) -> bool:
+    """Whether a CUDA backward takes the tensor-core kernels: bfloat16, dh
+    64, 96 or 128, and q, k, v and dout (which the kernels read by 16-byte
+    copies) with 16-byte aligned base pointers and batch, sequence and head
+    strides that are multiples of 16 bytes, but for dims of size 1, whose
+    stride no index multiplies (autograd hands a one-sequence batch's dout
+    a batch stride of 1). The output is read element by element. Every
+    other call takes the CUDA-core kernels."""
+    if q.dtype != torch.bfloat16 or q.shape[-1] not in TC_HEAD_DIMS:
+        return False
+    return all(t.data_ptr() % 16 == 0 and all(
+        s * t.element_size() % 16 == 0
+        for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1)
+        for t in (q, k, v, dout))
+
+
 def tma_layout(t) -> dict:
     """The tensor map of a (B, S, heads, dh) operand of the tensor-core
     kernel: dims innermost first (dh, heads, S, B), the byte strides of
@@ -162,23 +186,29 @@ def _tc_arrays(q, k, v, out):
     return maps, (ctypes.c_longlong * 3)(*out[1][:3])
 
 
+# Each C entry point: its library (a source of csrc/) and ctypes signature.
 _SIGNATURES = {
-    "flash_attention_launch": (
+    "flash_attention_launch": ("flash_attention",
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
         + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 3
         + [ctypes.c_float, ctypes.c_void_p]),
-    "flash_attention_tc_launch": (
+    "flash_attention_tc_launch": ("flash_attention",
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
         + [ctypes.POINTER(ctypes.c_longlong)] * 2 + [ctypes.c_int] * 3
+        + [ctypes.c_float, ctypes.c_void_p]),
+    "flash_attention_bwd_launch": ("flash_backward",
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+        + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 3
         + [ctypes.c_float, ctypes.c_void_p]),
 }
 
 
 @functools.lru_cache(maxsize=len(_SIGNATURES))  # one per C entry point
 def _entry(name: str):
-    """A C entry point of the library, its ctypes signature set once."""
-    fn = getattr(kernel_library("flash_attention"), name)
-    fn.restype, fn.argtypes = ctypes.c_int, _SIGNATURES[name]
+    """A C entry point, its ctypes signature set once."""
+    lib, argtypes = _SIGNATURES[name]
+    fn = getattr(kernel_library(lib), name)
+    fn.restype, fn.argtypes = ctypes.c_int, argtypes
     return fn
 
 
@@ -246,8 +276,8 @@ def flash_backward_work(q, k, v, causal: bool, window: int,
     log-sum-exp read once, dq, dk, dv written once, and 10 dh operations
     (five products' multiply-adds: the scores again, dP, dV, dQ, dK) per
     visible (query, key) pair and query head, at the bfloat16 rate for
-    bfloat16 operands (a backward on the tensor cores; the port's runs in
-    float32 torch ops)."""
+    bfloat16 operands. It counts the function's work, not the kernels':
+    their dq pass recomputes the scores and dP."""
     B, Sq, H, dh = q.shape
     io = 2 * q.numel() * q.element_size() + B * H * Sq * 4
     n_bytes = io + 2 * sum(t.numel() * t.element_size() for t in (q, k, v))
@@ -449,8 +479,57 @@ def flash_backward(q, k, v, out, lse, dout, *, causal: bool = True,
     return (dq.reshape(q.shape).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
 
 
+def flash_attention_backward(q, k, v, out, lse, dout, *, causal: bool = True,
+                             window: int = 0, prefix: int = 0,
+                             bq: int = BLOCK_Q, bk: int = BLOCK_K):
+    """(dq, dk, dv) of attention from the forward's inputs, output and
+    log-sum-exp, in the inputs' dtypes: q/out/dout (B, Sq, H, dh), k/v
+    (B, Sk, K, dh) of any strides with a contiguous head dim, lse
+    contiguous float32 (B, H, Sq). CPU and meta tensors take the plain
+    version (``flash_backward``, blocks of ``bq`` queries and ``bk``
+    keys); CUDA tensors launch the kernels, ``backward_tensor_core_route``
+    picking them, or raise (a dout whose head dim is not contiguous is
+    copied first)."""
+    if q.device.type in PLAIN_DEVICES:
+        return flash_backward(q, k, v, out, lse, dout, causal=causal,
+                              window=window, prefix=prefix, bq=bq, bk=bk)
+    _check(q, k, v, out, lse)
+    if dout.stride(-1) != 1:
+        dout = dout.contiguous()
+    if dout.shape != q.shape or dout.dtype != q.dtype \
+            or dout.device != q.device:
+        raise ValueError("flash_attention backward: dout must be shaped, "
+                         "typed and placed as q")
+    B, Sq, H, dh = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    tc = backward_tensor_core_route(q, k, v, dout)
+    dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                  for t in (q, k, v))
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 24)(
+        *(s for t in (q, k, v, out, dout, dq, dk, dv) for s in t.stride()[:3]))
+    stream = torch.cuda.current_stream(q.device)
+    key = ("flash_attention_backward", "flash_attention_backward_tc") if tc \
+        else "flash_attention_backward"
+    with record_launch(key, stream, lambda: flash_backward_work(
+            q, k, v, causal, window, prefix)):
+        rc = _entry("flash_attention_bwd_launch")(
+            *(t.data_ptr() for t in (q, k, v, out, dout, lse, delta, dq, dk,
+                                     dv)),
+            _DTYPES[q.dtype], tc, B, H, K, Sq, Sk, dh, strides, causal,
+            window, prefix, 1.0 / math.sqrt(dh), stream.cuda_stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"flash_attention_bwd_launch: CUDA error {rc} at launch")
+    LAUNCHES["flash_attention_backward"] += 1
+    if tc:
+        LAUNCHES["flash_attention_backward_tc"] += 1
+    return dq, dk, dv
+
+
 class FlashAttention(torch.autograd.Function):
-    """Attention with the flash kernel's forward and ``flash_backward``:
+    """Attention with the flash kernel's forward and backward
+    (``flash_attention_backward``; ``flash_backward`` off the card):
     ``FlashAttention.apply(q, k, v, causal, window, prefix, bq, bk)`` on
     q (B, Sq, H, dh) and k/v (B, Sk, K, dh). It keeps q, k, v, the output
     and the log-sum-exp for the backward."""
@@ -482,7 +561,7 @@ class FlashAttention(torch.autograd.Function):
             if call.shapes_only:
                 dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
             else:
-                dq, dk, dv = flash_backward(q, k, v, out, lse, dout,
-                                            causal=causal, window=window,
-                                            prefix=prefix, bq=bq, bk=bk)
+                dq, dk, dv = flash_attention_backward(
+                    q, k, v, out, lse, dout, causal=causal, window=window,
+                    prefix=prefix, bq=bq, bk=bk)
         return dq, dk, dv, None, None, None, None, None

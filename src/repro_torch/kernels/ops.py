@@ -5,8 +5,10 @@ chunked SSD scan. CPU and meta tensors take the plain versions; CUDA
 tensors launch the kernels or raise. Where autograd records (grad enabled
 and an input that requires grad) both go through their autograd Functions
 (``flash_attention.FlashAttention``, ``ssd_scan.SSDScan``), whose forwards
-are the same kernels (the flash kernel then also writing its log-sum-exp);
-serving under ``inference_mode`` launches as before. Each call, forward or
+are the same kernels (the flash kernel then also writing its log-sum-exp)
+and whose backwards are the backward kernels on the card and the plain
+backwards on CPU and meta tensors; serving under ``inference_mode``
+launches as before. Each call, forward or
 backward, is one ``obs.compiled.kernel_call``: an op analysis counts it by
 its work function, and on meta tensors under one it returns empty outputs
 of its shapes.

@@ -23,14 +23,17 @@ head) pairs at once and the chunks in a Python loop.
 
 Training (``SSDScan``, the autograd Function that ``ops.ssd`` takes
 whenever grad is enabled): the forward is the kernel on the card and the
-plain version on the CPU; the backward recomputes the chunked scan in
-torch ops from the saved inputs (``ssd_scan_plain`` under ``enable_grad``)
-and differentiates it with ``torch.autograd.grad``. This is the
-counterpart of the reference's backward, which XLA derives from the jnp
-``layers.ssd``; the reference has no backward kernel. That recompute is the
-one place where the plain scan's math runs on the card, and it is the
-backward, not a stand-in for the forward kernel. Its decay cumsum is
-float64, as the forward's (ROADMAP queue C).
+plain version on the CPU. The backward (``ssd_scan_backward``) is the
+gradient of (y, final state) with respect to x, dt, A, B and C: on the
+card one C entry (``ssd_scan_bwd_launch``) that recomputes the forward's
+cum, C Bᵀ and entering states (passes 1-3), runs the chunk states of the
+gradient and a reverse state pass, then the chunk-parallel gradient passes
+and fixed-order reductions (no atomics); on CPU and meta tensors the plain
+version, ``ssd_scan_backward_plain``, the same equations in torch ops with
+the chunks in a Python loop. ``LAUNCHES["ssd_scan_backward"]`` counts
+calls that reached the card. The reference has no backward kernel: XLA
+derives its backward from the jnp ``layers.ssd``. The decay cumsum and its
+reverse cumsum are float64 (ROADMAP queue C).
 """
 
 from __future__ import annotations
@@ -51,7 +54,8 @@ from repro_torch.obs.compiled import (
 
 __all__ = ["ssd_scan", "ssd_scan_plain", "ssd_plan", "smem_bytes",
            "vector_ok", "ssd_ops", "ssd_bounds", "ssd_work",
-           "ssd_backward_work", "SSDScan", "call_work", "empty_outputs"]
+           "ssd_backward_work", "SSDScan", "call_work", "empty_outputs",
+           "ssd_scan_backward_plain", "ssd_scan_backward", "ssd_bwd_plan"]
 
 GRID_X_LIMIT = 2 ** 31 - 1   # largest x grid dimension
 GRID_LIMIT = 65535           # largest y and z grid dimension
@@ -113,6 +117,106 @@ def ssd_scan_plain(x, dt, A, B, C, chunk: int = 128, init_state=None):
     return y, state.transpose(-1, -2)
 
 
+def ssd_scan_backward_plain(x, dt, A, B, C, dy, dstate=None,
+                            chunk: int = 128):
+    """The gradients (dx, ddt, dA, dB, dC) of (y, final state) of
+    :func:`ssd_scan` from a zero state, given dy (Bb, S, H, P) and dstate
+    (Bb, H, P, N; None for zeros): dx in x's dtype, the others float32.
+    Written out, not autograd: per chunk c (Q rows, padded with dt = 0),
+    head h and its group, with a = A dt, cum its float64 cumsum in the
+    chunk, u = dt x, E_c the (N, P) state entering chunk c and
+    D_{c+1} the gradient of the state leaving it,
+
+    * D_c = sum_l e^{cum_l} C_l dy_l^T + e^{cum_Q} D_{c+1}, D_nc = dstate;
+    * V_ls = (dy_l . u_s) e^{cum_l - cum_s} (s <= l) and dCB = sum over the
+      group's heads of V; T = V * C Bᵀ;
+    * du_s = sum_{l>=s} (C_l . B_s) e^{cum_l - cum_s} dy_l + W_s,
+      W_s = e^{cum_Q - cum_s} D_{c+1}^T B_s; dx = dt du, ddt = x . du + A da;
+    * dC_l = sum_s dCB_ls B_s + sum_h e^{cum_l} E_c dy_l and
+      dB_s = sum_l dCB_ls C_l + sum_h e^{cum_Q - cum_s} D_{c+1} u_s;
+    * dcum_l = sum_s T_ls - sum_l' T_l'l + dy_l . Yoff_l - u_l . W_l, the
+      chunk's last row also z_c + sum_s u_s . W_s, with Yoff_l =
+      e^{cum_l} E_c^T C_l and z_c = e^{cum_Q} <D_{c+1}, E_c>; da is its
+      reverse cumsum (float64), dA = sum dt da.
+
+    The kernel's passes compute the same terms in this order."""
+    Bb, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    rep = H // G
+    Q = min(chunk, S)
+    pad = (-S) % Q
+    nc = (S + pad) // Q
+    xr = _pad_rows(x.float(), pad).reshape(Bb, nc, Q, H, P)
+    dtr = _pad_rows(dt.float(), pad).reshape(Bb, nc, Q, H)
+    Br = _pad_rows(B.float(), pad).reshape(Bb, nc, Q, G, N)
+    Cr = _pad_rows(C.float(), pad).reshape(Bb, nc, Q, G, N)
+    dyr = _pad_rows(dy.float(), pad).reshape(Bb, nc, Q, H, P)
+    A = A.float()
+    heads = lambda t: t.repeat_interleave(rep, dim=2)  # noqa: E731
+    groups = lambda t: t.reshape(*t.shape[:2], G, rep, N).sum(3)  # noqa: E731
+    tri = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    cum = torch.cumsum((A * dtr).double(), dim=2)            # (Bb, nc, Q, H)
+    u = xr * dtr[..., None]
+    # 1. the states entering each chunk, E_c (N, P)
+    E = [x.new_zeros((Bb, H, N, P), dtype=torch.float32)]
+    for c in range(nc - 1):
+        decay = (cum[:, c, -1:] - cum[:, c]).float().exp()
+        upd = torch.einsum("bshn,bshp->bhnp", heads(Br[:, c])
+                           * decay[..., None], u[:, c])
+        E.append(E[-1] * cum[:, c, -1].float().exp()[:, :, None, None]
+                 + upd)
+    # 2. the reverse state pass: D[c] is D_{c+1}
+    D = [None] * nc
+    carry = x.new_zeros((Bb, H, N, P), dtype=torch.float32) \
+        if dstate is None else dstate.float().transpose(-1, -2)
+    for c in reversed(range(nc)):
+        D[c] = carry
+        if c:
+            g_c = torch.einsum("blhn,blhp->bhnp", heads(Cr[:, c])
+                               * cum[:, c].float().exp()[..., None],
+                               dyr[:, c])
+            carry = g_c + cum[:, c, -1].float().exp()[:, :, None, None] \
+                * carry
+    # 3. the chunk-parallel gradients
+    dx, ddt, dBs, dCs = [], [], [], []
+    dA = 0.0
+    for c in range(nc):
+        cc = cum[:, c]
+        seg = cc[:, :, None, :] - cc[:, None, :, :]          # (Bb, l, s, H)
+        L = seg.masked_fill(~tri[None, :, :, None], float("-inf")) \
+            .float().exp()
+        CBh = torch.einsum("blgn,bsgn->blsg", Cr[:, c], Br[:, c]) \
+            .repeat_interleave(rep, dim=3)
+        V = torch.einsum("blhp,bshp->blsh", dyr[:, c], xr[:, c]) \
+            * dtr[:, c][:, None] * L
+        T = V * CBh
+        dCB = V.reshape(Bb, Q, Q, G, rep).sum(-1)            # (Bb, l, s, G)
+        ecum = cc.float().exp()                               # (Bb, Q, H)
+        decay = (cc[:, -1:] - cc).float().exp()
+        W = torch.einsum("bshn,bhnp->bshp", heads(Br[:, c]), D[c]) \
+            * decay[..., None]
+        du = torch.einsum("blsh,blhp->bshp", CBh * L, dyr[:, c]) + W
+        Yoff = torch.einsum("blhn,bhnp->blhp", heads(Cr[:, c]), E[c]) \
+            * ecum[..., None]
+        w = (u[:, c] * W).sum(-1)                             # (Bb, Q, H)
+        r = (dyr[:, c] * Yoff).sum(-1)
+        dcum = T.double().sum(2) - T.double().sum(1) + (r - w).double()
+        dcum[:, -1] += cc[:, -1].exp() * (D[c] * E[c]).sum((-1, -2)) \
+            + w.sum(1)
+        da = dcum.flip(1).cumsum(1).flip(1)                  # float64
+        dx.append(du * dtr[:, c][..., None])
+        ddt.append(((xr[:, c] * du).sum(-1) + A * da).float())
+        dA = dA + (dtr[:, c] * da).sum((0, 1))
+        dCs.append(torch.einsum("blsg,bsgn->blgn", dCB, Br[:, c])
+                   + groups(torch.einsum("blhp,bhnp->blhn", dyr[:, c]
+                                         * ecum[..., None], E[c])))
+        dBs.append(torch.einsum("blsg,blgn->bsgn", dCB, Cr[:, c])
+                   + groups(torch.einsum("bshp,bhnp->bshn", u[:, c]
+                                         * decay[..., None], D[c])))
+    cat = lambda ts: torch.cat(ts, dim=1)[:, :S]  # noqa: E731
+    return (cat(dx).to(x.dtype), cat(ddt), dA.float(), cat(dBs), cat(dCs))
+
+
 def _up(n: int, m: int) -> int:
     return -(-n // m) * m
 
@@ -161,15 +265,26 @@ def vector_ok(t: torch.Tensor, width: int) -> bool:
         all(s * es % 16 == 0 for s in t.stride()[:-1])
 
 
-@functools.lru_cache(maxsize=1)  # the one C entry point
-def _entry():
-    """The kernel's C entry point, its ctypes signature set once."""
-    fn = kernel_library("ssd_scan").ssd_scan_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong)]
-                   + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
-                   + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 2
-                   + [ctypes.c_void_p])
+# The C entry points and their ctypes signatures.
+_SIGNATURES = {
+    "ssd_scan_launch": (
+        [ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong)]
+        + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+        + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 2
+        + [ctypes.c_void_p]),
+    "ssd_scan_bwd_launch": (
+        [ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong)]
+        + [ctypes.c_void_p] * 6 + [ctypes.POINTER(ctypes.c_void_p)]
+        + [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
+}
+
+
+@functools.lru_cache(maxsize=len(_SIGNATURES))  # one per C entry point
+def _entry(name: str = "ssd_scan_launch"):
+    """A C entry point of the kernel, its ctypes signature set once."""
+    fn = getattr(kernel_library("ssd_scan"), name)
+    fn.restype, fn.argtypes = ctypes.c_int, _SIGNATURES[name]
     return fn
 
 
@@ -191,6 +306,27 @@ def _plan_args(Bb, S, H, P, G, N, chunk, dtype, x_stride):
     plan = ssd_plan(Bb, S, H, P, G, N, chunk, dtype)
     ints = (ctypes.c_int * 4)(plan["Q"], plan["QP"], plan["nc"], plan["PS"])
     return plan, ints, (ctypes.c_longlong * 3)(*x_stride[:3])
+
+
+def ssd_bwd_plan(Bb: int, S: int, H: int, P: int, G: int, N: int,
+                 chunk: int, dtype=torch.bfloat16) -> dict:
+    """The backward's launch plan: ``ssd_plan``'s, and the scratch of the
+    backward's own passes in the order its C entry takes them after the
+    forward's four (the gradient states, dCB, the tile row and column sums
+    of the cum gradient (float64), its r and w terms, the z slices, the dA
+    partials (float64)), each (shape, dtype)."""
+    plan = ssd_plan(Bb, S, H, P, G, N, chunk, dtype)
+    sc, nc, QP = plan["scratch"], plan["nc"], plan["QP"]
+    t64 = QP // BM
+    f32, f64 = torch.float32, torch.float64
+    plan["bwd_scratch"] = [
+        (sc["cum"], f64), (sc["cb"], f32), (sc["states"], f32),
+        ((Bb, H, P, N), f32), (sc["states"], f32), (sc["cb"], f32),
+        ((Bb, H, nc, t64 * (t64 + 1) // 2, BM), f64),
+        ((Bb, H, nc, t64 * (t64 + 1) // 2, BM), f64),
+        ((Bb, H, nc, QP), f32), ((Bb, H, nc, QP), f32),
+        ((Bb, H, nc, -(-N // PASS_ROWS)), f32), ((Bb, H, nc), f64)]
+    return plan
 
 
 def ssd_ops(Bb: int, S: int, H: int, P: int, G: int, N: int,
@@ -336,11 +472,64 @@ def ssd_scan(x, dt, A, B, C, chunk: int = 128):
     return y, state
 
 
+def ssd_scan_backward(x, dt, A, B, C, dy, dstate=None, chunk: int = 128):
+    """The gradients (dx, ddt, dA, dB, dC) of :func:`ssd_scan`'s (y, final
+    state) given dy and dstate (None for zeros): dx in x's dtype, the
+    others float32. CPU and meta tensors take the plain version
+    (``ssd_scan_backward_plain``); CUDA tensors launch the kernel, which
+    reads x through its strides, or raise."""
+    Bb, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    if dt.shape != (Bb, S, H) or A.shape != (H,) or dy.shape != x.shape \
+            or B.shape != (Bb, S, G, N) or C.shape != B.shape or H % G \
+            or (dstate is not None and dstate.shape != (Bb, H, P, N)):
+        raise ValueError("ssd_scan backward: inconsistent shapes")
+    if x.device.type in PLAIN_DEVICES:
+        return ssd_scan_backward_plain(x, dt, A, B, C, dy, dstate, chunk)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan backward has no kernel for {x.device}")
+    for name, t in (("dt", dt), ("A", A), ("B", B), ("C", C)) + (
+            (("dstate", dstate),) if dstate is not None else ()):
+        if t.device != x.device or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 on {x.device}")
+    if x.stride(-1) != 1:
+        x = x.contiguous()
+    dt, A, B, C = (t.contiguous() for t in (dt, A, B, C))
+    dy = dy.to(device=x.device, dtype=x.dtype).contiguous()
+    if dstate is not None:
+        dstate = dstate.contiguous()
+    plan = ssd_bwd_plan(Bb, S, H, P, G, N, chunk, x.dtype)
+    ints = (ctypes.c_int * 4)(plan["Q"], plan["QP"], plan["nc"], plan["PS"])
+    dev = x.device
+    scratch = [torch.empty(shape, dtype=dtype, device=dev)
+               for shape, dtype in plan["bwd_scratch"]]
+    grads = [torch.empty(x.shape, dtype=x.dtype, device=dev),
+             torch.empty((Bb, S, H), dtype=torch.float32, device=dev),
+             torch.empty((H,), dtype=torch.float32, device=dev),
+             torch.empty(B.shape, dtype=torch.float32, device=dev),
+             torch.empty(C.shape, dtype=torch.float32, device=dev)]
+    bufs = (ctypes.c_void_p * 17)(*(t.data_ptr() for t in scratch + grads))
+    stream = torch.cuda.current_stream(dev)
+    with record_launch("ssd_scan_backward", stream,
+                       lambda: ssd_backward_work(x, dt, A, B, C, chunk)):
+        rc = _entry("ssd_scan_bwd_launch")(
+            x.data_ptr(), (ctypes.c_longlong * 3)(*x.stride()[:3]),
+            *(t.data_ptr() for t in (dy, dt, A, B, C)),
+            None if dstate is None else dstate.data_ptr(), bufs,
+            _DTYPES[x.dtype], Bb, S, H, P, G, N, ints,
+            vector_ok(x, P), vector_ok(dy, P),
+            vector_ok(B, N) and vector_ok(C, N), stream.cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"ssd_scan_bwd_launch: CUDA error {rc} at launch")
+    LAUNCHES["ssd_scan_backward"] += 1
+    return tuple(grads)
+
+
 class SSDScan(torch.autograd.Function):
-    """The SSD scan with the kernel's forward (the plain version on the CPU)
-    and a backward that differentiates the plain version recomputed from
-    the inputs: ``SSDScan.apply(x, dt, A, B, C, chunk) -> (y, state)``,
-    shapes as in :func:`ssd_scan`, from a zero state."""
+    """The SSD scan with the kernel's forward and backward
+    (``ssd_scan_backward``; the plain versions on the CPU):
+    ``SSDScan.apply(x, dt, A, B, C, chunk) -> (y, state)``, shapes as in
+    :func:`ssd_scan`, from a zero state."""
 
     @staticmethod
     def forward(ctx, x, dt, A, B, C, chunk):
@@ -361,11 +550,5 @@ class SSDScan(torch.autograd.Function):
             if call.shapes_only:
                 return (*(torch.empty_like(t) if n else None
                           for t, n in zip(saved, needs)), None)
-            with torch.enable_grad():
-                ins = [t.detach().requires_grad_(n)
-                       for t, n in zip(saved, needs)]
-                y, state = ssd_scan_plain(*ins, ctx.chunk)
-                wrt = [t for t in ins if t.requires_grad]
-                got = iter(torch.autograd.grad((y, state), wrt, (dy, dstate),
-                                               allow_unused=True))
-            return (*(next(got) if n else None for n in needs), None)
+            grads = ssd_scan_backward(*saved, dy, dstate, ctx.chunk)
+            return (*(g if n else None for g, n in zip(grads, needs)), None)
